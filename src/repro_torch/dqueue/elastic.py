@@ -1,0 +1,453 @@
+"""Elastic membership for the device path: live JOIN/LEAVE resharding.
+
+Counterpart of ``repro/dqueue/elastic.py`` (FIFO part).  Between bursts
+the store is quiescent, and because positions are dense integers laid out
+round-robin (position ``p`` on shard ``p % P`` at slot ``(p // P) % cap``)
+the live positions are exactly ``[first, last]``: every shard recovers the
+position each occupied slot holds without scanning.  One migration wave
+then
+
+1. recomputes each live element's owner ``p % P'`` and slot under the new
+   shard count,
+2. packs ``new_slot ‖ payload`` rows per destination and moves them with
+   ONE exchange (``wave_engine.migrate_packed``), and
+3. rewrites the receiving shards' stores; ``first``/``last`` pass through
+   unchanged, so membership never disturbs the position order.
+
+The migration runs over the larger of the two shard sets: a grow pads the
+store with empty shards first, a shrink routes on the old set (every new
+owner is a surviving row) and then drops the emptied rows.  All of it
+stays on the device.  The paper's consistent-hashing balance for the same
+live set is reported in the migration stats through the hash-route kernel.
+"""
+from __future__ import annotations
+
+import time
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ..kernels.hash_route import hash_route
+from ..obs.recorder import FlightRecorder
+from ..obs.trace import span
+from ..runtime import LocalRuntime
+from .device_queue import DeviceQueue, DeviceQueueState
+from .errors import QueueOverflowError
+from .wave_engine import (bucket_ladder, fanout_bound, migrate_packed,
+                          pick_bucket_width, recover_positions,
+                          rewrite_ring_store)
+
+HASH_BALANCE_MAX_SIZE = 1 << 16  # skip the fidelity report for huge queues
+
+
+class _ElasticBase:
+    """Shared machinery: shard bookkeeping, the inner fixed-size queue per
+    shard count, resizing, migration stats and the pressure API."""
+
+    _kind: str = "queue"
+
+    def __init__(self, n_shards: int, *, cap: int = 1024,
+                 payload_width: int = 4, ops_per_shard: int = 64,
+                 pool_size: Optional[int] = None, runtime=None,
+                 device=None, pipelined: bool = True,
+                 metrics: bool = False, flight_k: int = 16):
+        if metrics:
+            raise NotImplementedError(
+                "metrics=True: the Wavescope ring waits for a later slice "
+                "(ROADMAP queue 1, item 11)")
+        if runtime is None:
+            runtime = LocalRuntime(pool_size or n_shards, device=device)
+        elif not isinstance(runtime, LocalRuntime):
+            raise NotImplementedError(
+                "only LocalRuntime is ported; the distributed and "
+                "simulated runtimes wait (ROADMAP queue 1, item 5)")
+        elif pool_size is not None or device is not None:
+            raise ValueError("pass pool_size=/device= OR runtime=, not both "
+                             "(the runtime owns the shard pool)")
+        self.runtime = runtime
+        if not 1 <= n_shards <= runtime.pool_size:
+            raise ValueError(f"n_shards={n_shards} outside the shard pool "
+                             f"of {runtime.pool_size}")
+        self.device = runtime.device
+        self.cap = cap
+        self.W = payload_width
+        self.L = ops_per_shard
+        self.pipelined = pipelined
+        self.metrics = False
+        self.recorder = FlightRecorder(flight_k)
+        self._active = list(runtime.pool()[:n_shards])
+        self._inner_cache: dict = {}
+        self.inner = self._get_inner(n_shards)
+        self.state = self.inner.init_state()
+        self.migrations: List[dict] = []
+
+    def _get_inner(self, n: int):
+        """The fixed-size queue for ``n`` shards, cached per count."""
+        if n not in self._inner_cache:
+            self._inner_cache[n] = self._make_inner(n)
+        return self._inner_cache[n]
+
+    # ---------------------------------------------------------- overflow ---
+    def _wave_capacity(self) -> int:
+        """Elements one store window holds."""
+        return self.n_shards * self.cap
+
+    def _occupancies(self) -> list:
+        return [self.size]
+
+    _overflow_detail: str = ""
+
+    def trajectory(self) -> list:
+        """The flight recorder's last-K wave summaries, oldest first."""
+        return self.recorder.trajectory()
+
+    def _check_overflow(self, ovf) -> None:
+        """Host-raise the wave's overflow flag (a 0-d or [K] bool tensor)
+        as a :class:`~.errors.QueueOverflowError`.  The one host read of a
+        step or burst."""
+        o = self.runtime.to_host(ovf)
+        if not bool(o.any()):
+            return
+        wave = int(np.flatnonzero(o)[0]) if o.ndim >= 1 else None
+        raise QueueOverflowError(self._kind, self._wave_capacity(),
+                                 self._occupancies(), wave=wave,
+                                 detail=self._overflow_detail,
+                                 trajectory=self.recorder.trajectory())
+
+    # ------------------------------------------------------ pressure API ---
+    def window_capacity(self) -> int:
+        """Elements ONE store window holds under the current membership
+        (``n_shards * cap``), a host int."""
+        return self._wave_capacity()
+
+    def occupancy(self) -> List[int]:
+        """Committed post-burst occupancy per window, as host ints (reads
+        the ``first``/``last`` scalars: a small device-to-host copy)."""
+        return list(self._occupancies())
+
+    def headroom(self) -> List[int]:
+        """Free slots per window before the next enqueue overwrites data."""
+        cap = self._wave_capacity()
+        return [cap - o for o in self.occupancy()]
+
+    def pressure(self) -> dict:
+        """One-call snapshot: ``capacity``, ``occupancy``, ``headroom``,
+        ``n_windows``, ``n_shards``, ``pool_size`` and ``utilization``
+        (the hottest window's occupancy over capacity)."""
+        cap = self._wave_capacity()
+        occ = self.occupancy()
+        return {
+            "capacity": cap,
+            "occupancy": occ,
+            "headroom": [cap - o for o in occ],
+            "n_windows": len(occ),
+            "n_shards": self.n_shards,
+            "pool_size": self.pool_size,
+            "utilization": (max(occ) / cap) if cap else 1.0,
+        }
+
+    def bucket_widths(self) -> tuple:
+        """Ascending per-shard wave widths ``{L/4, L/2, L}``."""
+        return bucket_ladder(self.L)
+
+    def pick_width(self, n_ops: int) -> int:
+        """Smallest ladder width whose global wave fits ``n_ops``."""
+        return pick_bucket_width(self.L, self.n_shards, n_ops)
+
+    def _burst_span(self, K: int):
+        self.runtime.on_burst(self._kind, int(K), self.n_shards,
+                              width=self.L, payload_width=self.W,
+                              pipelined=self.pipelined)
+        return span(f"{self._kind}:burst", cat="wave", K=int(K),
+                    n_shards=self.n_shards)
+
+    def _place(self, x):
+        return self.runtime.place(x)
+
+    # -------------------------------------------------------- membership ---
+    @property
+    def n_shards(self) -> int:
+        """Current number of active shards."""
+        return len(self._active)
+
+    @property
+    def pool_size(self) -> int:
+        """Live shards available to this queue (active + spare)."""
+        return self.runtime.pool_size
+
+    @property
+    def device_ids(self) -> list:
+        """Stable ids of the active shards, in shard-index order."""
+        return [d.id for d in self._active]
+
+    def grow(self, k: int = 1) -> dict:
+        """JOIN: add ``k`` shards from the live pool (P -> P + k)."""
+        if k < 1:
+            raise ValueError("grow(k) needs k >= 1")
+        active_ids = set(self.device_ids)
+        spare = [d for d in self.runtime.pool() if d.id not in active_ids]
+        if len(spare) < k:
+            raise ValueError(f"cannot grow by {k}: only {len(spare)} spare "
+                             f"shards in the pool")
+        return self._rematerialize(self._active + spare[:k], kind="grow")
+
+    def shrink(self, ids: Sequence[int]) -> dict:
+        """Graceful LEAVE of the shards with indices ``ids``; the leaving
+        shards take part in the migration wave."""
+        ids = sorted(set(int(i) for i in ids))
+        if not ids:
+            raise ValueError("shrink(ids) needs at least one shard id")
+        if ids[0] < 0 or ids[-1] >= self.n_shards:
+            raise ValueError(f"shard ids {ids} out of range "
+                             f"[0, {self.n_shards})")
+        if len(ids) >= self.n_shards:
+            raise ValueError("cannot shrink to zero shards")
+        survivors = [d for i, d in enumerate(self._active) if i not in ids]
+        return self._rematerialize(survivors, kind="shrink")
+
+    def shrink_devices(self, dev_ids: Sequence[int], *,
+                       quarantine: bool = False) -> dict:
+        """Graceful LEAVE keyed by stable shard id; ``quarantine`` also
+        marks them failed so no later :meth:`grow` picks them again."""
+        ids = [int(i) for i in dev_ids]
+        mine = self.device_ids
+        missing = [i for i in ids if i not in mine]
+        if missing:
+            raise ValueError(f"shard id(s) {missing} are not active "
+                             f"(active ids: {mine})")
+        stats = self.shrink([mine.index(i) for i in ids])
+        if quarantine:
+            for i in ids:
+                self.runtime.mark_failed(i)
+        return stats
+
+    def resize(self, n_new: int) -> dict:
+        """Reshape to ``n_new`` shards (grow or shrink as needed)."""
+        if n_new == self.n_shards:
+            return {"kind": "noop", "P_from": self.n_shards,
+                    "P_to": n_new, "moved": 0}
+        if n_new > self.n_shards:
+            return self.grow(n_new - self.n_shards)
+        return self.shrink(range(n_new, self.n_shards))
+
+    # ----------------------------------------------------- rematerialize ---
+    def _rematerialize(self, new_active: list, kind: str) -> dict:
+        P_old, P_new = self.n_shards, len(new_active)
+        need = self._live_span()
+        if need > P_new * self.cap:
+            raise ValueError(
+                f"cannot reshard to {P_new} shards: {need} live elements "
+                f"exceed the new capacity {P_new} * {self.cap}")
+        with span(f"migration:{kind}", cat="membership", kind=self._kind,
+                  P_from=P_old, P_to=P_new):
+            return self._rematerialize_traced(new_active, kind, P_old,
+                                              P_new)
+
+    def _rematerialize_traced(self, new_active: list, kind: str,
+                              P_old: int, P_new: int) -> dict:
+        rt = self.runtime
+        t_total = time.perf_counter()
+        a, b, X, Y = self._unpack(self.state)
+        self.state = None                 # let the old store go early
+        if P_new > P_old:
+            # grow: pad empty shards, route over the NEW shard set
+            fx, fy = self._pad_fill
+            pad = P_new - P_old
+            X = torch.cat([X, torch.full((pad,) + X.shape[1:], fx,
+                                         dtype=X.dtype, device=X.device)])
+            Y = torch.cat([Y, torch.full((pad,) + Y.shape[1:], fy,
+                                         dtype=Y.dtype, device=Y.device)])
+        n_ex = rt.n_exchanges
+        rt.sync()
+        t_wave = time.perf_counter()
+        X, Y, moved, lost = self._migrate(a, b, X, Y, P_old, P_new)
+        rt.sync()
+        t_wave = time.perf_counter() - t_wave
+        if bool(rt.to_host(lost)):
+            raise RuntimeError("migration fanout overflow — internal bound "
+                               "violated, elements would have been dropped")
+        if P_new < P_old:
+            # drop the emptied rows
+            X, Y = X[:P_new].contiguous(), Y[:P_new].contiguous()
+        self.state = self._pack(a, b, X, Y)
+        self._active = list(new_active)
+        self.inner = self._get_inner(P_new)
+        n_moved = int(rt.to_host(moved))
+        stats = {
+            "kind": kind, "P_from": P_old, "P_to": P_new,
+            "moved": n_moved,
+            "bytes_moved": n_moved * self._entry_bytes,
+            "wave_s": t_wave,
+            "total_s": time.perf_counter() - t_total,
+            "collectives": rt.n_exchanges - n_ex,
+        }
+        hb = self._hash_balance(P_new)
+        if hb is not None:
+            stats["hash_balance"] = hb
+        rt.on_migration(stats)
+        self.migrations.append(stats)
+        return stats
+
+    def _hash_balance(self, P_new: int) -> Optional[dict]:
+        """Paper-fidelity report: what consistent hashing (the hash-route
+        kernel on a CUDA device) would assign each shard for the SAME live
+        positions that round-robin just placed evenly.  ``counts`` is the
+        per-shard histogram."""
+        lo, hi = self._live_window()
+        size = hi - lo + 1
+        if size <= 0 or size > HASH_BALANCE_MAX_SIZE:
+            return None
+        pos = torch.arange(lo, hi + 1, dtype=torch.int32, device=self.device)
+        _, counts = hash_route(pos, torch.ones(size, dtype=torch.bool,
+                                               device=self.device), P_new)
+        counts = self.runtime.to_host(counts)
+        return {"n": size, "max": int(counts.max()),
+                "min": int(counts.min()),
+                "roundrobin_max": -(-size // P_new),
+                "counts": [int(c) for c in counts]}
+
+    # ------------------------------------------------- subclass contract ---
+    _pad_fill: tuple
+
+    def _make_inner(self, n: int):
+        raise NotImplementedError
+
+    def _migrate(self, a, b, X, Y, P_old: int, P_new: int):
+        raise NotImplementedError
+
+    def _unpack(self, state):
+        raise NotImplementedError
+
+    def _pack(self, a, b, X, Y):
+        raise NotImplementedError
+
+    def _live_span(self) -> int:
+        raise NotImplementedError
+
+    def _live_window(self) -> tuple:
+        raise NotImplementedError
+
+    @property
+    def size(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def _entry_bytes(self) -> int:
+        raise NotImplementedError
+
+
+class ElasticDeviceQueue(_ElasticBase):
+    """Distributed FIFO whose shard count is a runtime variable.
+
+    Owns its state: ``step``/``run_waves`` mirror :class:`DeviceQueue`
+    minus the state argument (the store is updated in place), and
+    ``grow``/``shrink``/``resize`` re-materialize the store between
+    bursts.
+
+    Args:
+      n_shards: initial active shards.
+      cap, payload_width, ops_per_shard: as :class:`DeviceQueue`.
+      pool_size: shards available for JOIN (default ``n_shards``).
+      runtime: a :class:`~repro_torch.runtime.LocalRuntime` owning the
+        pool and device (exclusive with ``pool_size``/``device``).
+      device: default CUDA; raises where there is none.
+      fused, metrics: only the reference's defaults are ported
+        (``fused=True``, ``metrics=False``); other values raise
+        ``NotImplementedError``.
+    """
+
+    _kind = "queue"
+    _pad_fill = (0, False)
+
+    def __init__(self, n_shards: int, *, cap: int = 1024,
+                 payload_width: int = 4, ops_per_shard: int = 64,
+                 fused: bool = True, pool_size: Optional[int] = None,
+                 runtime=None, device=None, pipelined: bool = True,
+                 metrics: bool = False, flight_k: int = 16):
+        if not fused:
+            raise NotImplementedError(
+                "fused=False: the five-exchange seed wave waits for a later "
+                "slice (ROADMAP queue 1, item 3)")
+        self.fused = True
+        super().__init__(n_shards, cap=cap, payload_width=payload_width,
+                         ops_per_shard=ops_per_shard, pool_size=pool_size,
+                         runtime=runtime, device=device,
+                         pipelined=pipelined, metrics=metrics,
+                         flight_k=flight_k)
+
+    def _make_inner(self, n: int):
+        return DeviceQueue(n, cap=self.cap, payload_width=self.W,
+                           ops_per_shard=self.L, pipelined=self.pipelined,
+                           runtime=self.runtime)
+
+    # ------------------------------------------------------------ waves ----
+    def step(self, is_enq, valid, payload):
+        """One wave on the current shards.  Returns (positions, matched,
+        deq_vals, deq_ok, overflow) as device tensors; raises
+        :class:`~.errors.QueueOverflowError` when the wave overflowed."""
+        with self._burst_span(1):
+            self.state, pos, m, dv, dok, ovf = self.inner.step(
+                self.state, self._place(is_enq), self._place(valid),
+                self._place(payload))
+        self._check_overflow(ovf)
+        return pos, m, dv, dok, ovf
+
+    def run_waves(self, is_enq, valid, payload):
+        """K pre-staged waves (shapes [K, n_shards * L]).  Raises
+        :class:`~.errors.QueueOverflowError` on overflow."""
+        is_enq = self._place(is_enq)
+        with self._burst_span(is_enq.shape[0]):
+            self.state, pos, m, dv, dok, ovf = self.inner.run_waves(
+                self.state, is_enq, self._place(valid),
+                self._place(payload))
+        self._check_overflow(ovf)
+        return pos, m, dv, dok, ovf
+
+    @property
+    def size(self) -> int:
+        """Live elements in the FIFO window (``last - first + 1``)."""
+        return int(self.state.last) - int(self.state.first) + 1
+
+    # -------------------------------------------------------- migration ----
+    def _unpack(self, state):
+        return state.first, state.last, state.store_vals, state.store_full
+
+    def _pack(self, a, b, X, Y):
+        return DeviceQueueState(a, b, X, Y)
+
+    def _live_window(self):
+        return int(self.state.first), int(self.state.last)
+
+    def _live_span(self) -> int:
+        lo, hi = self._live_window()
+        return max(0, hi - lo + 1)
+
+    @property
+    def _entry_bytes(self) -> int:
+        return 4 * (1 + self.W)  # slot ‖ payload columns
+
+    def _migrate(self, first, last, sv, sf, P_old: int, P_new: int):
+        """The migration body over ``n_mesh = max(P_old, P_new)`` rows:
+        recover positions, new owner and slot, pack, ONE exchange,
+        rewrite.  Returns (store_vals, store_full, moved, lost)."""
+        cap, W = self.cap, self.W
+        n_mesh = sv.shape[0]
+        dev = sv.device
+        M = fanout_bound(P_old, P_new, cap)
+        s = torch.arange(n_mesh, dtype=torch.int32, device=dev)[:, None]
+        t = torch.arange(cap, dtype=torch.int32, device=dev)[None, :]
+        p = recover_positions(s, t, first, P_old, cap)
+        live = sf[:, :cap] & (p >= first) & (p <= last)
+        owner = torch.remainder(p, P_new).to(torch.int32)
+        slot_new = torch.remainder(
+            torch.div(p, P_new, rounding_mode="floor"), cap).to(torch.int32)
+        cols = torch.cat([slot_new[..., None], sv[:, :cap]], -1)
+        del sv
+        fill = torch.zeros(1 + W, dtype=torch.int32, device=dev)
+        fill[0] = cap
+        rows, moved, lost = migrate_packed(self.runtime, n_mesh, M, live,
+                                           owner, cols, fill)
+        del cols
+        nsv, nsf = rewrite_ring_store(rows, cap, W)
+        return nsv, nsf, moved, lost

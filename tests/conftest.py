@@ -12,3 +12,9 @@ os.environ.setdefault("JAX_NUMPY_RANK_PROMOTION", "raise")
 import jax  # noqa: E402  (import after the env var is pinned)
 
 jax.config.update("jax_numpy_rank_promotion", "raise")
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; the test skips itself where "
+        "torch.cuda.is_available() is false")
