@@ -1,17 +1,25 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one CUDA GPU and check it.
+"""Drive the PyTorch port's main paths on one CUDA GPU and check them.
 
 Run from the root of a checkout: ``python3 chip_smoke.py [--seed N]``.
 It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel bit for bit against its plain PyTorch version and times
-both, then drives the elastic FIFO queue through its entry points at full
-size (64 shards x 65,536 slots x 4 int32 words, 65,536-op waves, a
-backlog above 1,000,000 elements, LEAVE of 16 shards and JOIN back), and
-checks FIFO order, ⊥ counts, overflow, migration counts, the exchange
-budget and the kernels' launch counts.  One JSON line per phase; the line
-before the last lists the kernels, the last line is the result.  Any
-failed check raises, and the exit code is then not 0.  Without a CUDA
-device, or outside a checkout, it fails before printing anything.
+both, then drives three structures through their entry points at full
+size, each to a backlog above 1,000,000 elements, a LEAVE of 16 of 64
+shards, a JOIN back, and a drain to ⊥:
+
+* the elastic FIFO queue (64 shards x 65,536 slots x 4 int32 words);
+* the elastic LIFO stack (64 shards x 32,768 slots x depth 4);
+* the elastic 4-tier priority queue (64 shards x 16,384 slots per tier),
+  plus a small relaxed one (8 -> 6 shards) through the hash-route report.
+
+Each is checked against a host model written here (order, ⊥ counts,
+overflow, migration counts, the exchange budget, the kernels' launch
+counts) and its pipelined bursts against the sequential schedule.  One
+JSON line per phase; the line before the last lists the kernels, the last
+line is the result.  Any failed check raises, and the exit code is then
+not 0.  Without a CUDA device, or outside a checkout, it fails before
+printing anything.
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ MEM_BPS = 3.35e12      # H100 SXM device memory rate, bytes/s
 INT_OPS = 64 * 132 * 1.98e9
 SCAN_OPS = 20          # int ops per op: transform, ~2 composes, emission
 HASH_OPS = 12          # int ops per element: splitmix32, shift, modulo
+TIER_OPS = 10          # int ops per op: key, warp match, rank, emission
 CARD = ""              # "name, power limit" from nvidia-smi, set in main()
 
 
@@ -165,6 +174,92 @@ def phase_hash_route(torch, rng, results):
         emit("kernel:hash_route", **rec)
 
 
+def _time_pair(torch, kernel, plain):
+    """(kernel ms, plain ms) of one call each, by CUDA events."""
+    return time_ms(kernel, 100, torch), time_ms(plain, 20, torch)
+
+
+def phase_stack_scan(torch, rng, results):
+    from repro_torch.kernels.segscan import stack_scan, stack_scan_ref
+    dev = torch.device("cuda")
+    mixes = {"push65": (0.65, 1.0), "pop_only": (0.0, 1.0),
+             "push_only": (1.0, 1.0), "valid80": (0.5, 0.8)}
+    states = [(0, 0), (1_000_000, 5_000_000)]
+    for n in (65_536, 16_777_216):
+        worst, launches0 = 0, stack_scan.launches
+        for mix, (p_push, p_valid) in mixes.items():
+            e = torch.from_numpy(rng.random(n) < p_push).to(dev)
+            v = torch.from_numpy(rng.random(n) < p_valid).to(dev)
+            for last, tick in states:
+                a = torch.tensor(last, dtype=torch.int32, device=dev)
+                b = torch.tensor(tick, dtype=torch.int32, device=dev)
+                got = stack_scan(e, v, a, b)
+                want = stack_scan_ref(e, v, a, b)
+                torch.cuda.synchronize()
+                check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                      f"stack_scan n={n} {mix} state={(last, tick)} "
+                      f"bit-identical to its plain version")
+                worst = max(worst, max_abs_err(got, want))
+        e = torch.from_numpy(rng.random(n) < 0.65).to(dev)
+        v = torch.ones(n, dtype=torch.bool, device=dev)
+        a = torch.tensor(500_000, dtype=torch.int32, device=dev)
+        b = torch.tensor(700_000, dtype=torch.int32, device=dev)
+        ms, plain = _time_pair(torch, lambda: stack_scan(e, v, a, b),
+                               lambda: stack_scan_ref(e, v, a, b))
+        b_ms, b_by = bound(11 * n + 16, SCAN_OPS * n)
+        rec = {"n": n, "mixes": list(mixes), "states": states,
+               "bit_identical": True, "max_abs_err": worst,
+               "launches": stack_scan.launches - launches0, "ms": ms,
+               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+        results[("stack_scan", n)] = rec
+        emit("kernel:stack_scan", **rec)
+
+
+def phase_tiered_scan(torch, rng, results):
+    from repro_torch.kernels.segscan import (tiered_queue_scan,
+                                             tiered_queue_scan_ref)
+    dev = torch.device("cuda")
+    # (enqueue share, valid share, out-of-range tiers)
+    mixes = {"enq_only": (1.0, 1.0, False), "deq_only": (0.0, 1.0, False),
+             "valid80_out_of_range": (0.65, 0.8, True)}
+    for n in (65_536, 16_777_216):
+        worst, launches0 = 0, tiered_queue_scan.launches
+        for P in (4, 64):
+            firsts = torch.from_numpy(rng.integers(0, 1000, P).astype(
+                np.int32)).to(dev)
+            lasts = firsts + 500
+            for mix, (p_enq, p_valid, wide) in mixes.items():
+                enq = torch.from_numpy((rng.random(n) < p_enq)
+                                       & (rng.random(n) < p_valid)).to(dev)
+                lo, hi = (-1, P + 1) if wide else (0, P)
+                tier = torch.from_numpy(rng.integers(lo, hi, n).astype(
+                    np.int32)).to(dev)
+                got = tiered_queue_scan(enq, tier, firsts, lasts, P)
+                want = tiered_queue_scan_ref(enq, tier, lasts)
+                torch.cuda.synchronize()
+                check(all(torch.equal(x, y) for x, y in zip(got, want)),
+                      f"tiered_queue_scan n={n} P={P} {mix} bit-identical "
+                      f"to its plain version")
+                worst = max(worst, max_abs_err(got, want))
+        # the priority path's shape: 4 tiers, 65% enqueues, 40/30/20/10
+        enq = torch.from_numpy(rng.random(n) < 0.65).to(dev)
+        tier = torch.from_numpy(rng.choice(4, n, p=[0.4, 0.3, 0.2, 0.1])
+                                .astype(np.int32)).to(dev)
+        firsts = torch.zeros(4, dtype=torch.int32, device=dev)
+        lasts = torch.full((4,), 200_000, dtype=torch.int32, device=dev)
+        ms, plain = _time_pair(
+            torch, lambda: tiered_queue_scan(enq, tier, firsts, lasts, 4),
+            lambda: tiered_queue_scan_ref(enq, tier, lasts))
+        b_ms, b_by = bound(9 * n + 8 * 4, TIER_OPS * n)
+        rec = {"n": n, "n_tiers": [4, 64], "timed_n_tiers": 4,
+               "mixes": list(mixes), "bit_identical": True,
+               "max_abs_err": worst,
+               "launches": tiered_queue_scan.launches - launches0, "ms": ms,
+               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+        results[("tiered_queue_scan", n)] = rec
+        emit("kernel:tiered_queue_scan", **rec)
+
+
 def _payload(ids: np.ndarray) -> np.ndarray:
     """Payload words of op ``ids``: word 0 is the id, words 1-3 are mixes
     of it, so a dequeued element can be checked whole on the host."""
@@ -247,59 +342,31 @@ def phase_elastic(torch, rng, results):
     from repro_torch.dqueue import ElasticDeviceQueue
     from repro_torch.kernels.hash_route import hash_route
     from repro_torch.kernels.segscan import queue_scan
-    dev = torch.device("cuda")
     N, CAP, W, L, K = 64, 65_536, 4, 1_024, 16
+
+    def make(pipelined=True):
+        return ElasticDeviceQueue(N, cap=CAP, payload_width=W,
+                                  ops_per_shard=L, pipelined=pipelined,
+                                  device="cuda")
     torch.cuda.reset_peak_memory_stats()
-    eq = ElasticDeviceQueue(N, cap=CAP, payload_width=W, ops_per_shard=L,
-                            device="cuda")
+    eq = make()
     rt = eq.runtime
     model = FifoChecker()
-    kept = []          # host outputs of the first two bursts
+    kept, bursts, migrations = [], [], []
     timing = {"waves": 0, "seconds": 0.0, "ops": 0}
-    bursts = []
     queue_scan.launches = hash_route.launches = 0
 
     def burst(p_enq):
-        nL = eq.n_shards * L
-        E, V, P = model.stage(K, nL, p_enq, rng)
-        args = [torch.from_numpy(x).to(dev) for x in (E, V, P)]
-        x0, s0 = rt.n_exchanges, queue_scan.launches
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = eq.run_waves(*args)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        check(rt.n_exchanges - x0 == K + 1, "K+1 exchanges per burst")
-        check(queue_scan.launches - s0 == K, "one scan launch per wave")
-        host = [o.cpu().numpy() for o in out]
-        rec = model.verify(E, V, P, *host)
+        _run_burst(torch, rng, eq, rt, queue_scan, K, model, timing, bursts,
+                      kept, (p_enq,), "queue-scan")
         check(eq.size == model.size, "queue size matches the FIFO model")
-        if len(kept) < 2:
-            kept.append((E, V, P, host))
-        timing["waves"] += K
-        timing["seconds"] += dt
-        timing["ops"] += K * nL
-        bursts.append({"n_shards": eq.n_shards, "p_enq": p_enq,
-                       "seconds": dt, **rec, "size": eq.size})
-
-    migrations = []
-
-    def migrate(fn, *a):
-        x0 = rt.n_exchanges
-        size = eq.size
-        st = fn(*a)
-        check(st["moved"] == size == eq.size, "moved == size")
-        check(rt.n_exchanges - x0 == 1, "one exchange per migration")
-        migrations.append({k: st[k] for k in ("kind", "P_from", "P_to",
-                                              "moved", "bytes_moved",
-                                              "wave_s", "total_s")})
 
     while eq.size < 1_000_000:
         burst(0.65)
     backlog = eq.size
-    migrate(eq.shrink, list(range(48, 64)))               # LEAVE 16
+    _migrate(eq, rt, eq.shrink, list(range(48, 64)), migrations)  # LEAVE
     burst(0.5)
-    migrate(eq.grow, 16)                                   # JOIN 16
+    _migrate(eq, rt, eq.grow, 16, migrations)                     # JOIN
     while eq.size > 0:
         burst(0.0)
     launches = queue_scan.launches
@@ -307,19 +374,7 @@ def phase_elastic(torch, rng, results):
     check(eq.size == 0 and model.pending == 0, "queue drained")
     peak = torch.cuda.max_memory_allocated()
     del eq
-
-    # the first two bursts again, sequential schedule: bit-identical
-    seq = ElasticDeviceQueue(N, cap=CAP, payload_width=W, ops_per_shard=L,
-                             pipelined=False, device="cuda")
-    for E, V, P, host in kept:
-        x0 = seq.runtime.n_exchanges
-        out = seq.run_waves(*(torch.from_numpy(x).to(dev) for x in (E, V, P)))
-        check(seq.runtime.n_exchanges - x0 == 2 * K, "2K exchanges "
-              "per sequential burst")
-        check(all(np.array_equal(o.cpu().numpy(), h)
-                  for o, h in zip(out, host)),
-              "pipelined and sequential bursts bit-identical")
-    del seq
+    _sequential_matches(torch, make, kept, K)
     rec = {"n_shards": N, "cap": CAP, "payload_width": W,
            "ops_per_shard": L, "K": K, "backlog_max": backlog,
            "bursts": len(bursts), "waves": timing["waves"],
@@ -332,27 +387,427 @@ def phase_elastic(torch, rng, results):
     emit("path:elastic_fifo", **rec)
 
 
-def phase_profile(torch, rng, results):
-    """One pipelined 16-wave burst at full size under torch.profiler:
+def _take(blocks: deque, n: int) -> np.ndarray:
+    """Pop the first ``n`` ids off a deque of id arrays."""
+    head = []
+    while n:
+        blk = blocks[0]
+        k = min(n, blk.size)
+        head.append(blk[:k])
+        if k == blk.size:
+            blocks.popleft()
+        else:
+            blocks[0] = blk[k:]
+        n -= k
+    return np.concatenate(head) if head else np.zeros(0, np.int64)
+
+
+class LifoChecker:
+    """Host-side LIFO model in global op order: a push puts its id on top,
+    a pop takes the top, or is ⊥ on an empty stack.  Vectorized: a push's
+    position is the depth after it, a pop's the depth before it, and a pop
+    returns the last id pushed at its position before it."""
+
+    def __init__(self, max_depth: int):
+        self.top = np.full(max_depth + 2, -1, np.int64)  # id per position
+        self.depth = 0
+        self.next_id = 0
+
+    def stage(self, K: int, nL: int, p_push: float, rng, p_valid=0.9):
+        """K waves, each all pushes or all pops (``round(p_push * K)`` push
+        waves, shuffled), a ``p_valid`` share of each wave valid."""
+        kinds = rng.permutation(K) < round(p_push * K)
+        E = np.repeat(kinds[:, None], nL, 1)
+        V = rng.random((K, nL)) < p_valid
+        ids = np.arange(self.next_id, self.next_id + K * nL, dtype=np.int64)
+        self.next_id += K * nL
+        return E, V, _payload(ids).reshape(K, nL, 4)
+
+    def verify(self, E, V, P, pos, m, dv, dok, ovf):
+        e, v = E.reshape(-1), V.reshape(-1)
+        push, pop = v & e, v & ~e
+        step = np.where(push, 1, np.where(pop, -1, 0))
+        walk = self.depth + np.cumsum(step)
+        floor = np.maximum.accumulate(np.maximum(-walk, 0))
+        prev = np.concatenate([[0], floor[:-1]])
+        bottom = pop & (floor > prev)          # a pop on the empty stack
+        after = walk + floor
+        want_pos = np.where(push, after, np.where(pop & ~bottom, after + 1,
+                                                  -1))
+        m, dok, pos = m.reshape(-1), dok.reshape(-1), pos.reshape(-1)
+        check(not ovf.any(), "no overflow")
+        check(np.array_equal(pos, want_pos), "stack positions match the "
+                                             "LIFO model")
+        check(np.array_equal(m, v & ~bottom), "⊥ set matches the LIFO model")
+        check(np.array_equal(dok, pop & ~bottom),
+              "every matched pop found its element (none lost)")
+        ids = P.reshape(-1, 4)[:, 0].astype(np.int64)
+        idx = np.flatnonzero(push | (pop & ~bottom))
+        order = np.lexsort((idx, want_pos[idx]))    # by position, then order
+        sp, si = want_pos[idx][order], idx[order]
+        is_push = push[si]
+        j = np.arange(si.size)
+        last_push = np.maximum.accumulate(np.where(is_push, j, -1))
+        start = np.searchsorted(sp, sp)
+        end = np.searchsorted(sp, sp, side="right") - 1
+        from_burst = last_push >= start
+        want_id = np.where(from_burst, ids[si[np.maximum(last_push, 0)]],
+                           self.top[sp])
+        exp = np.full(e.size, -1, np.int64)
+        exp[si[~is_push]] = want_id[~is_push]
+        got_pop = pop & ~bottom
+        check((exp[got_pop] >= 0).all(), "every pop has a pushed element")
+        check(np.array_equal(dv.reshape(-1, 4)[got_pop],
+                             _payload(exp[got_pop])),
+              "popped elements are exactly the LIFO model's, whole")
+        keep = is_push & (last_push[end] == j)     # last push per position
+        self.top[sp[keep]] = ids[si[keep]]
+        self.depth = int(after[-1])
+        return {"push": int(push.sum()), "pop": int(got_pop.sum()),
+                "bottom": int(bottom.sum())}
+
+
+def _max_pushes_per_position(p_push: float, n: int, rng) -> int:
+    """Pushes to the most-pushed position in one randomly interleaved
+    wave of ``n`` ops from a deep stack (each needs its own depth entry:
+    the commit inserts a wave's pushes before its pops)."""
+    e = rng.random(n) < p_push
+    depth = 1_000_000 + np.cumsum(np.where(e, 1, -1))
+    return int(np.unique(depth[e], return_counts=True)[1].max())
+
+
+def _run_burst(torch, rng, es, rt, counter, K, checker, timing, bursts,
+                  kept, stage_args, what):
+    """Stage, run and check one pipelined burst on structure ``es``."""
+    dev = es.device
+    nL = es.n_shards * es.L
+    staged = checker.stage(K, nL, *stage_args, rng)
+    args = [torch.from_numpy(x).to(dev) for x in staged]
+    x0, s0 = rt.n_exchanges, counter.launches
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = es.run_waves(*args)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    check(rt.n_exchanges - x0 == K + 1, "K+1 exchanges per burst")
+    check(counter.launches - s0 == K, f"one {what} launch per wave")
+    host = [o.cpu().numpy() for o in out]
+    rec = checker.verify(*staged, *host)
+    if len(kept) < 2:
+        kept.append((staged, host))
+    timing["waves"] += K
+    timing["seconds"] += dt
+    timing["ops"] += K * nL
+    bursts.append({"n_shards": es.n_shards, "stage": list(stage_args),
+                   "seconds": dt, **rec, "size": es.size})
+
+
+def _migrate(es, rt, fn, arg, migrations):
+    x0, size = rt.n_exchanges, es.size
+    st = fn(arg)
+    check(st["moved"] == size == es.size, "moved == size")
+    check(rt.n_exchanges - x0 == 1, "one exchange per migration")
+    migrations.append({k: st[k] for k in ("kind", "P_from", "P_to", "moved",
+                                          "bytes_moved", "wave_s",
+                                          "total_s")})
+
+
+def _sequential_matches(torch, make, kept, K):
+    """The first bursts again on a fresh structure with the sequential
+    schedule: 2K exchanges each, outputs bit-identical."""
+    seq = make(pipelined=False)
+    dev = seq.device
+    for staged, host in kept:
+        x0 = seq.runtime.n_exchanges
+        out = seq.run_waves(*(torch.from_numpy(x).to(dev) for x in staged))
+        check(seq.runtime.n_exchanges - x0 == 2 * K,
+              "2K exchanges per sequential burst")
+        check(all(np.array_equal(o.cpu().numpy(), h)
+                  for o, h in zip(out, host)),
+              "pipelined and sequential bursts bit-identical")
+
+
+def phase_elastic_lifo(torch, rng, results):
+    from repro_torch.dqueue import ElasticDeviceStack, QueueOverflowError
+    from repro_torch.kernels.hash_route import hash_route
+    from repro_torch.kernels.segscan import stack_scan
+    N, CAP, D, W, L, K = 64, 32_768, 4, 4, 1_024, 16
+    dev = torch.device("cuda")
+
+    def make(pipelined=True):
+        return ElasticDeviceStack(N, cap=CAP, slot_depth=D, payload_width=W,
+                                  ops_per_shard=L, pipelined=pipelined,
+                                  device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    es = make()
+    rt = es.runtime
+    model = LifoChecker(max_depth=4_000_000)
+    kept, bursts, migrations = [], [], []
+    timing = {"waves": 0, "seconds": 0.0, "ops": 0}
+    stack_scan.launches = hash_route.launches = 0
+
+    def burst(p_push):
+        _run_burst(torch, rng, es, rt, stack_scan, K, model, timing, bursts,
+                      kept, (p_push,), "stack-scan")
+        check(es.size == model.depth, "stack size matches the LIFO model")
+
+    while es.size < 1_000_000:
+        burst(0.65)
+    backlog = es.size
+    check(backlog < 48 * CAP, "backlog fits the 48 shards after the LEAVE")
+    _migrate(es, rt, es.shrink, list(range(48, 64)), migrations)  # LEAVE
+    burst(0.5)
+    _migrate(es, rt, es.grow, 16, migrations)                     # JOIN
+    n_bottom = 0
+    while es.size > 0 or n_bottom == 0:
+        burst(0.0)
+        n_bottom += bursts[-1]["bottom"]
+    launches = stack_scan.launches
+    check(launches > 0, "the main path launched the stack-scan kernel")
+    peak = torch.cuda.max_memory_allocated()
+    # the reference's commit inserts a wave's pushes before its pops, so a
+    # position pushed j times in one wave needs j free depth entries: a
+    # randomly interleaved wave overflows depth 4, and the path checks so
+    e = rng.random(N * L) < 0.65
+    v = np.ones(N * L, bool)
+    raised = False
+    try:
+        es.step(torch.from_numpy(e).to(dev), torch.from_numpy(v).to(dev),
+                torch.zeros(N * L, W, dtype=torch.int32, device=dev))
+    except QueueOverflowError:
+        raised = True
+    check(raised, "an interleaved 65%-push wave overflows slot depth 4")
+    del es
+    _sequential_matches(torch, make, kept, K)
+    rec = {"n_shards": N, "cap": CAP, "slot_depth": D, "payload_width": W,
+           "ops_per_shard": L, "K": K, "traffic": "push waves and pop "
+           "waves, 90% valid", "backlog_max": backlog,
+           "bursts": len(bursts), "waves": timing["waves"],
+           "waves_per_s": timing["waves"] / timing["seconds"],
+           "ops_per_s": timing["ops"] / timing["seconds"],
+           "migrations": migrations, "stack_scan_launches": launches,
+           "bottom_pops": n_bottom, "max_memory_allocated": peak,
+           "lifo_order": "ok", "sequential_equals_pipelined": True,
+           "interleaved_wave_overflows_depth_4": raised,
+           "max_pushes_per_position_65pct_wave": _max_pushes_per_position(
+               0.65, N * L, rng),
+           "max_pushes_per_position_50pct_wave": _max_pushes_per_position(
+               0.5, N * L, rng),
+           "burst_log": bursts}
+    results["elastic_lifo"] = rec
+    emit("path:elastic_lifo", **rec)
+
+
+class TierChecker:
+    """Host-side P-tier model: per-tier FIFO deques.  A wave applies its
+    enqueues first, then each dequeue in wave order takes the head of the
+    most urgent non-empty tier; with relaxation k, the first tier in
+    [best, best + k] whose head position is owned by the dequeue's shard
+    (position mod n_shards) instead."""
+
+    def __init__(self, P: int, tier_p, relaxation: int = 0):
+        self.P, self.tier_p, self.k = P, tier_p, relaxation
+        self.q = [deque() for _ in range(P)]
+        self.heads, self.tails = [0] * P, [0] * P
+        self.next_id = 0
+
+    @property
+    def sizes(self) -> list:
+        return [t - h for h, t in zip(self.heads, self.tails)]
+
+    def stage(self, K: int, nL: int, p_enq: float, rng):
+        E = rng.random((K, nL)) < p_enq
+        V = np.ones((K, nL), bool)
+        PR = rng.choice(self.P, (K, nL), p=self.tier_p).astype(np.int32)
+        ids = np.arange(self.next_id, self.next_id + K * nL, dtype=np.int64)
+        self.next_id += K * nL
+        return E, V, PR, _payload(ids).reshape(K, nL, 4)
+
+    def _wave(self, e, v, pr, ids, n_shards):
+        n = e.size
+        enq, deq = v & e, v & ~e
+        tier, pos = np.full(n, -1), np.full(n, -1)
+        for t in range(self.P):
+            mask = enq & (pr == t)
+            c = int(mask.sum())
+            tier[mask], pos[mask] = t, self.tails[t] + np.arange(c)
+            self.q[t].append(ids[mask])
+            self.tails[t] += c
+        served = np.zeros(n, bool)
+        vals, relaxed = [], 0
+        d_idx = np.flatnonzero(deq)
+        if self.k == 0:       # strict: the d-th dequeue takes the d-th best
+            c = 0
+            for t in range(self.P):
+                take = min(self.sizes[t], d_idx.size - c)
+                sel = d_idx[c:c + take]
+                tier[sel], pos[sel] = t, self.heads[t] + np.arange(take)
+                vals.append(_take(self.q[t], take))
+                self.heads[t] += take
+                c += take
+            served[d_idx[:c]] = True
+        else:
+            L = n // n_shards
+            for i in d_idx:
+                ne = [s > 0 for s in self.sizes]
+                if not any(ne):
+                    continue
+                best = ne.index(True)
+                q = best
+                for c in range(best, min(best + self.k, self.P - 1) + 1):
+                    if ne[c] and self.heads[c] % n_shards == i // L:
+                        q = c
+                        break
+                tier[i], pos[i] = q, self.heads[q]
+                vals.append(_take(self.q[q], 1))
+                self.heads[q] += 1
+                served[i] = True
+                relaxed += q != best
+        return tier, pos, enq | served, deq & served, vals, relaxed
+
+    def verify(self, E, V, PR, P, tier, pos, m, dv, dok, ovf, nrel,
+               n_shards=None):
+        check(not ovf.any(), "no overflow")
+        n_enq = n_deq = n_bottom = 0
+        for k in range(E.shape[0]):
+            ids = P[k, :, 0].astype(np.int64)
+            w_tier, w_pos, w_m, w_ok, vals, rel = self._wave(
+                E[k], V[k], PR[k], ids, n_shards)
+            check(np.array_equal(tier[k], w_tier), "tiers match the model")
+            check(np.array_equal(pos[k], w_pos), "positions match the model")
+            check(np.array_equal(m[k], w_m), "⊥ set matches the model")
+            check(np.array_equal(dok[k], w_ok),
+                  "every matched dequeue found its element (none lost)")
+            # vals are in serve order, which is wave order
+            want = np.concatenate(vals) if vals else np.zeros(0, np.int64)
+            check(np.array_equal(dv[k][w_ok], _payload(want)),
+                  "dequeued elements are exactly the model's, whole")
+            check(int(nrel[k]) == rel, "relaxed serves match the model")
+            n_enq += int((V[k] & E[k]).sum())
+            n_deq += int(w_ok.sum())
+            n_bottom += int((V[k] & ~E[k] & ~w_m).sum())
+        return {"enq": n_enq, "deq": n_deq, "bottom": n_bottom,
+                "relaxed": int(nrel.sum())}
+
+
+def phase_elastic_priority(torch, rng, results):
+    from repro_torch.dqueue import ElasticDevicePriorityQueue
+    from repro_torch.kernels.hash_route import hash_route
+    from repro_torch.kernels.segscan import tiered_queue_scan
+    N, P_, CAP, W, L, K = 64, 4, 16_384, 4, 1_024, 16
+    # most traffic in the urgent tiers, so the backlog spreads over the
+    # lower ones and every tier fits 48 x 16,384 after the LEAVE
+    TIER_P = [0.4, 0.3, 0.2, 0.1]
+
+    def make(pipelined=True):
+        return ElasticDevicePriorityQueue(N, n_prios=P_, cap=CAP,
+                                          payload_width=W, ops_per_shard=L,
+                                          pipelined=pipelined, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    eq = make()
+    rt = eq.runtime
+    model = TierChecker(P_, TIER_P)
+    kept, bursts, migrations = [], [], []
+    timing = {"waves": 0, "seconds": 0.0, "ops": 0}
+    tiered_queue_scan.launches = hash_route.launches = 0
+
+    def burst(p_enq):
+        _run_burst(torch, rng, eq, rt, tiered_queue_scan, K, model, timing,
+                      bursts, kept, (p_enq,), "tiered-scan")
+        check(eq.sizes == model.sizes, "tier sizes match the model")
+
+    while eq.size < 1_000_000:
+        burst(0.65)
+    backlog = eq.size
+    sizes_at_leave = eq.sizes
+    check(max(sizes_at_leave) <= 48 * CAP, "every tier fits 48 shards")
+    _migrate(eq, rt, eq.shrink, list(range(48, 64)), migrations)  # LEAVE
+    burst(0.5)
+    _migrate(eq, rt, eq.grow, 16, migrations)                     # JOIN
+    n_bottom = 0
+    while eq.size > 0 or n_bottom == 0:
+        burst(0.0)
+        n_bottom += bursts[-1]["bottom"]
+    launches = tiered_queue_scan.launches
+    check(launches > 0, "the main path launched the tiered-scan kernel")
+    peak = torch.cuda.max_memory_allocated()
+    del eq
+    _sequential_matches(torch, make, kept, K)
+    rec = {"n_shards": N, "n_prios": P_, "cap_per_tier": CAP,
+           "payload_width": W, "ops_per_shard": L, "K": K,
+           "tier_shares": TIER_P, "enqueue_share": 0.65,
+           "backlog_max": backlog, "sizes_at_leave": sizes_at_leave,
+           "bursts": len(bursts), "waves": timing["waves"],
+           "waves_per_s": timing["waves"] / timing["seconds"],
+           "ops_per_s": timing["ops"] / timing["seconds"],
+           "migrations": migrations, "tiered_scan_launches": launches,
+           "bottom_dequeues": n_bottom, "max_memory_allocated": peak,
+           "priority_order": "ok", "sequential_equals_pipelined": True,
+           "burst_log": bursts}
+    results["elastic_priority"] = rec
+    emit("path:elastic_priority", **rec)
+
+
+def phase_relaxed_priority(torch, rng, results):
+    """A small relaxed queue (8 shards x 64 ops, relaxation 1): the host
+    resolution loop, and an 8 -> 6 migration whose hash-balance report
+    goes through the hash-route kernel."""
+    from repro_torch.dqueue import ElasticDevicePriorityQueue
+    from repro_torch.kernels.hash_route import hash_route
+    dev = torch.device("cuda")
+    K = 4
+    eq = ElasticDevicePriorityQueue(8, n_prios=4, relaxation=1, cap=1_024,
+                                    payload_width=4, ops_per_shard=64,
+                                    pool_size=8, device="cuda")
+    model = TierChecker(4, [0.1, 0.2, 0.3, 0.4], relaxation=1)
+    waves = seconds = 0.0
+    logs = []
+
+    def burst(p_enq):
+        nonlocal waves, seconds
+        staged = model.stage(K, eq.n_shards * eq.L, p_enq, rng)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = eq.run_waves(*(torch.from_numpy(x).to(dev) for x in staged))
+        torch.cuda.synchronize()
+        seconds += time.perf_counter() - t0
+        waves += K
+        logs.append(model.verify(*staged, *(o.cpu().numpy() for o in out),
+                                 n_shards=eq.n_shards))
+        check(eq.sizes == model.sizes, "tier sizes match the model")
+
+    for p_enq in (0.7, 0.7, 0.5):
+        burst(p_enq)
+    hash_route.launches = 0
+    size = eq.size
+    st = eq.shrink([6, 7])
+    check(st["moved"] == size == eq.size, "moved == size")
+    check(hash_route.launches > 0,
+          "the migration launched the hash-route kernel")
+    burst(0.3)
+    check(sum(r["relaxed"] for r in logs) > 0, "some serve was relaxed")
+    rec = {"n_shards": "8->6", "ops_per_shard": 64, "relaxation": 1,
+           "waves": waves, "ms_per_wave": seconds / waves * 1e3,
+           "relaxed_serves": sum(r["relaxed"] for r in logs),
+           "hash_balance": st["hash_balance"],
+           "hash_route_launches": hash_route.launches, "bursts": logs}
+    results["relaxed_priority"] = rec
+    emit("path:relaxed_priority", **rec)
+
+
+def _profile_burst(torch, structure, staged, label: str) -> dict:
+    """One pipelined burst (after a warm-up burst) under torch.profiler:
     device time by operation, and the device's busy share of the burst's
     wall time.  Reports "not measured" where the profiler sees no device
     time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.dqueue import ElasticDeviceQueue
-    dev = torch.device("cuda")
-    eq = ElasticDeviceQueue(64, cap=65_536, payload_width=4,
-                            ops_per_shard=1_024, device="cuda")
-    model = FifoChecker()
-    staged = [[torch.from_numpy(x).to(dev)
-               for x in model.stage(16, 64 * 1_024, 0.5, rng)]
-              for _ in range(2)]
-    eq.run_waves(*staged[0])                   # warm-up burst
+    structure.run_waves(*staged[0])            # warm-up burst
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        eq.run_waves(*staged[1])
+        structure.run_waves(*staged[1])
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # kernels are the CUDA-side events; host-side operators carry their
@@ -363,20 +818,53 @@ def phase_profile(torch, rng, results):
            if not ev.key.startswith(("wave:", "membership:"))]
     busy = sum(ev.self_device_time_total for ev in evs
                if ev.device_type == DeviceType.CUDA)
-    check(busy <= wall_us, f"device busy {busy} us within the burst's wall "
-                           f"time {wall_us} us (one stream, nothing counted "
-                           f"twice)")
+    check(busy <= wall_us, f"{label}: device busy {busy} us within the "
+                           f"burst's wall time {wall_us} us (one stream, "
+                           f"nothing counted twice)")
     ops = sorted(((ev.self_device_time_total, ev.key, ev.count) for ev in evs
                   if ev.device_type != DeviceType.CUDA
                   and ev.self_device_time_total > 0), reverse=True)
-    rec = {"burst": "K=16, 64 shards x 1024 ops, 50% enqueue",
-           "wall_ms": wall_us / 1e3,
-           "device_ms": busy / 1e3 if busy else "not measured",
-           "busy_share": busy / wall_us if busy else "not measured",
-           "top_ops": [{"op": k, "device_ms": dt / 1e3, "calls": c}
-                       for dt, k, c in ops[:10]]}
-    results["profile"] = rec
-    emit("profile", **rec)
+    return {"burst": label, "wall_ms": wall_us / 1e3,
+            "device_ms": busy / 1e3 if busy else "not measured",
+            "busy_share": busy / wall_us if busy else "not measured",
+            "top_ops": [{"op": k, "device_ms": dt / 1e3, "calls": c}
+                        for dt, k, c in ops[:10]]}
+
+
+def phase_profile(torch, rng, results):
+    """One 16-wave burst of each structure at full size, profiled."""
+    from repro_torch.dqueue import (ElasticDevicePriorityQueue,
+                                    ElasticDeviceQueue, ElasticDeviceStack)
+    dev = torch.device("cuda")
+    nL = 64 * 1_024
+
+    def on_card(arrays):
+        return [torch.from_numpy(x).to(dev) for x in arrays]
+    recs = {}
+    eq = ElasticDeviceQueue(64, cap=65_536, payload_width=4,
+                            ops_per_shard=1_024, device="cuda")
+    fm = FifoChecker()
+    recs["fifo"] = _profile_burst(
+        torch, eq, [on_card(fm.stage(16, nL, 0.5, rng)) for _ in range(2)],
+        "queue: K=16, 64 shards x 1024 ops, 50% enqueue")
+    del eq
+    es = ElasticDeviceStack(64, cap=32_768, slot_depth=4, payload_width=4,
+                            ops_per_shard=1_024, device="cuda")
+    lm = LifoChecker(max_depth=4_000_000)
+    recs["lifo"] = _profile_burst(
+        torch, es, [on_card(lm.stage(16, nL, p, rng)) for p in (0.65, 0.5)],
+        "stack: K=16, 64 shards x 1024 ops, 8 push and 8 pop waves")
+    del es
+    pq = ElasticDevicePriorityQueue(64, n_prios=4, cap=16_384,
+                                    payload_width=4, ops_per_shard=1_024,
+                                    device="cuda")
+    tm = TierChecker(4, [0.4, 0.3, 0.2, 0.1])
+    recs["priority"] = _profile_burst(
+        torch, pq, [on_card(tm.stage(16, nL, p, rng)) for p in (0.65, 0.5)],
+        "priority: K=16, 64 shards x 1024 ops, 4 tiers, 50% enqueue")
+    del pq
+    results["profile"] = recs
+    emit("profile", **recs)
 
 
 def phase_hash_balance(torch, rng, results):
@@ -453,21 +941,30 @@ def main() -> int:
     phase_build()
     phase_queue_scan(torch, rng, results)
     phase_hash_route(torch, rng, results)
+    phase_stack_scan(torch, rng, results)
+    phase_tiered_scan(torch, rng, results)
     phase_elastic(torch, rng, results)
+    phase_elastic_lifo(torch, rng, results)
+    phase_elastic_priority(torch, rng, results)
+    phase_relaxed_priority(torch, rng, results)
     phase_profile(torch, rng, results)
     phase_hash_balance(torch, rng, results)
-    qs, hb = results[("queue_scan", 65_536)], results["hash_balance"]
+    hb = results["hash_balance"]
+
+    def scan_row(name, n, path, launches, replaces):
+        r = results[(name, n)]
+        return {"name": name, "route": "cuda",
+                "source": "src/repro_torch/kernels/csrc/segscan.cu",
+                "replaces": replaces, "path": path,
+                "shape": f"n={n} (one wave)", "launches": launches,
+                "matched_plain": r["bit_identical"],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": None}
     kernels = [
-        {"name": "queue_scan", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/segscan.cu",
-         "replaces": "src/repro/kernels/segscan/kernel.py:244",
-         "path": "elastic_fifo", "shape": "n=65536 (one wave)",
-         "launches": results["elastic_fifo"]["queue_scan_launches"],
-         "matched_plain": qs["bit_identical"],
-         "max_abs_err": qs["max_abs_err"],
-         "ms": qs["ms"], "plain_ms": qs["plain_ms"],
-         "bound_ms": qs["bound_ms"], "bound_by": qs["bound_by"],
-         "library_ms": None},
+        scan_row("queue_scan", 65_536, "elastic_fifo",
+                 results["elastic_fifo"]["queue_scan_launches"],
+                 "src/repro/kernels/segscan/kernel.py:244"),
         {"name": "hash_route", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hash_route.cu",
          "replaces": "src/repro/kernels/hash_route/kernel.py:49",
@@ -477,6 +974,12 @@ def main() -> int:
          "max_abs_err": hb["max_abs_err"], "ms": hb["ms"],
          "plain_ms": hb["plain_ms"], "bound_ms": hb["bound_ms"],
          "bound_by": hb["bound_by"], "library_ms": None},
+        scan_row("stack_scan", 65_536, "elastic_lifo",
+                 results["elastic_lifo"]["stack_scan_launches"],
+                 "src/repro/kernels/segscan/kernel.py:303"),
+        scan_row("tiered_queue_scan", 65_536, "elastic_priority",
+                 results["elastic_priority"]["tiered_scan_launches"],
+                 "src/repro/kernels/segscan/kernel.py:361"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

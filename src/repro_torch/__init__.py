@@ -1,4 +1,5 @@
-"""Skueue in PyTorch: the distributed FIFO wave path on one CUDA device.
+"""Skueue in PyTorch: the distributed queue, stack and priority queue on one
+CUDA device.
 
 The PyTorch port of the ``repro`` JAX package.  It keeps the reference's
 module layout and names, so each module here has its counterpart under

@@ -1,4 +1,4 @@
-"""The SKUEUE aggregation tree as a min-plus prefix scan (FIFO part).
+"""The SKUEUE aggregation tree as a prefix scan: FIFO, LIFO and P tiers.
 
 Counterpart of ``repro/core/scan_queue.py``.  A request acts on the anchor
 state (f, l) = (first, last) as
@@ -18,6 +18,14 @@ position l_i + 1 and a DEQ gets f_i if f_i <= l_i, else ⊥ = -1.
 ``sharded_queue_scan`` (per-shard scan, then a hypercube scan of the shard
 carries) is this flat scan over the shard-major wave array, which holds the
 reference's global order.
+
+The stack (paper Sec. VI) is the max-plus analogue on (last, ticket):
+PUSH l' = l + 1, t' = t + 1; POP l' = max(l - 1, 0), t' = t; the family
+l' = max(l + a, b) composes as (a1 + a2, max(b1 + a2, b2, -INF)).  A PUSH
+gets (position l_i + 1, ticket t_i + 1), a POP (position l_i, bound t_i)
+if l_i >= 1, else ⊥.  :func:`stack_scan` is the plain version of the
+stack-scan kernel.  :func:`priority_queue_scan` runs P of these FIFO
+windows, one per tier, and resolves a wave's dequeues highest tier first.
 """
 from __future__ import annotations
 
@@ -47,6 +55,19 @@ class QueueState(NamedTuple):
         return self.last - self.first + 1
 
 
+class StackState(NamedTuple):
+    """Stack anchor state: ``last`` is the top (positions start at 1),
+    ``ticket`` the monotone push counter (0-d int32)."""
+    last: torch.Tensor
+    ticket: torch.Tensor
+
+    @staticmethod
+    def empty(device=None) -> "StackState":
+        """The empty stack, (last, ticket) = (0, 0)."""
+        return StackState(torch.tensor(0, dtype=torch.int32, device=device),
+                          torch.tensor(0, dtype=torch.int32, device=device))
+
+
 def queue_op_transforms(is_enq: torch.Tensor):
     """Per-request (A, B, C) int32 transforms; is_enq: bool or int."""
     e = is_enq.to(torch.int32)
@@ -65,14 +86,14 @@ def queue_compose(t1, t2):
             C1 + C2)
 
 
-def _inclusive_scan(tr):
+def _inclusive_scan(tr, compose=queue_compose):
     """Hillis-Steele inclusive scan of (A, B, C) along the last dim:
     log2(n) rounds, each composing element i - shift (earlier) with i."""
     A, B, C = tr
     n = A.shape[-1]
     shift = 1
     while shift < n:
-        nA, nB, nC = queue_compose(
+        nA, nB, nC = compose(
             (A[..., :-shift], B[..., :-shift], C[..., :-shift]),
             (A[..., shift:], B[..., shift:], C[..., shift:]))
         A = torch.cat([A[..., :shift], nA], -1)
@@ -124,3 +145,181 @@ def queue_scan(is_enq: torch.Tensor, state: QueueState,
     new = QueueState(torch.minimum(state.first + A_t, state.last + B_t),
                      state.last + C_t)
     return pos, matched, new
+
+
+# ------------------------------------------------------------ stack scan ---
+def stack_op_transforms(is_push: torch.Tensor):
+    """Per-request (a, b, dt) int32 transforms; is_push: bool or int."""
+    p = is_push.to(torch.int32)
+    a = 2 * p - 1                                    # PUSH: +1, POP: -1
+    b = torch.where(p > 0, -INF, 0).to(torch.int32)  # POP clamps at 0
+    return a, b, p                                   # dt: ticket increment
+
+
+def stack_compose(t1, t2):
+    """(t1 then t2), elementwise.  Not commutative: t1 is the earlier.
+    The clamp at -INF keeps every b of a push run (garbage that never wins
+    a max against ``last + a``) inside int32 whatever the bracketing."""
+    a1, b1, d1 = t1
+    a2, b2, d2 = t2
+    return (a1 + a2,
+            torch.clamp_min(torch.maximum(b1 + a2, b2), -INF),
+            d1 + d2)
+
+
+def stack_scan(is_push: torch.Tensor, state: StackState,
+               valid: Optional[torch.Tensor] = None):
+    """Max-plus LIFO position assignment over a flat request batch.
+
+    Returns (positions [n] int32 with ⊥ = -1, tickets [n] int32, matched
+    [n] bool, the new state).  For a push the ticket is the element's
+    unique ticket, for a pop the bound: it takes the largest live ticket
+    at its slot that is not above it.  Like the reference, ``tick`` is
+    not masked by ``valid``.
+    """
+    tr = stack_op_transforms(is_push if valid is None else is_push & valid)
+    if valid is not None:
+        a, b, d = tr
+        tr = tuple(torch.where(valid, x, f).to(torch.int32)
+                   for x, f in ((a, 0), (b, -INF), (d, 0)))
+    if is_push.shape[0] == 0:
+        empty = torch.empty(0, dtype=torch.int32, device=is_push.device)
+        return empty, empty.clone(), empty.bool(), state
+    inc = _inclusive_scan(tr, stack_compose)
+    a_x, b_x, d_x = _exclusive(inc, fills=(0, -INF, 0))
+    l_i = torch.maximum(state.last + a_x, b_x)
+    t_i = state.ticket + d_x
+    pos = torch.where(is_push, l_i + 1,
+                      torch.where(l_i >= 1, l_i, BOTTOM)).to(torch.int32)
+    tick = torch.where(is_push, t_i + 1, t_i).to(torch.int32)
+    matched = pos != BOTTOM
+    if valid is not None:
+        pos = torch.where(valid, pos, BOTTOM).to(torch.int32)
+        matched = matched & valid
+    a_t, b_t, d_t = (x[-1] for x in inc)
+    new = StackState(torch.maximum(state.last + a_t, b_t).to(torch.int32),
+                     (state.ticket + d_t).to(torch.int32))
+    return pos, tick, matched, new
+
+
+# -------------------------------------------------- priority-tier scan -----
+def strict_batch_deletemin(deq: torch.Tensor, avail: torch.Tensor,
+                           firsts: torch.Tensor, n_prios: int):
+    """Skeap's strict batch-DeleteMin as prefix arithmetic: the d-th
+    dequeue of the wave takes the d-th element of the priority-ordered
+    pool, with no sequential loop.
+
+    deq: [n] bool (global wave order); avail: [P] int32, tier sizes after
+    the wave's enqueues; firsts: [P] int32 heads.  Returns (tier [n] int32
+    clamped to [0, P), pos [n] int32, matched [n] bool, taken [P] int32).
+    """
+    d_in = deq.to(torch.int32)
+    d_rank = (torch.cumsum(d_in, 0) - d_in).to(torch.int32)
+    cum = torch.cat([torch.zeros(1, dtype=torch.int32, device=deq.device),
+                     torch.cumsum(avail.to(torch.int32), 0).to(torch.int32)])
+    t_d = (d_rank[:, None] >= cum[None, 1:]).sum(1).to(torch.int32)
+    matched = deq & (t_d < n_prios)
+    t_c = torch.clamp_max(t_d, n_prios - 1).long()
+    pos = (firsts[t_c] + d_rank - cum[t_c]).to(torch.int32)
+    taken = torch.minimum(torch.clamp_min(d_in.sum() - cum[:-1], 0), avail)
+    return t_c.to(torch.int32), pos, matched, taken.to(torch.int32)
+
+
+def _relaxed_deletemin(deq, shard_of, avail, firsts, n_prios: int,
+                       relaxation: int, n_shards: int):
+    """The relaxed resolution: each dequeue in wave order takes the head of
+    the best non-empty tier p*, or the first tier in [p*, p* + k] whose
+    head is owned by the dequeue's own shard.  Each step depends on the
+    one before, so this runs on the host over the wave's dequeues (one
+    device-to-host copy of the wave's flags).  Returns (tier, pos, matched,
+    taken, n_relaxed) like the reference's ``lax.scan`` (ties go to the
+    first tier, as ``jnp.argmax`` gives them)."""
+    dev = deq.device
+    n = deq.shape[0]
+    avail_h, firsts_h = avail.tolist(), firsts.tolist()
+    shard_h = shard_of.tolist()
+    taken = [0] * n_prios
+    tier = [-1] * n
+    pos = [BOTTOM] * n
+    n_relaxed = 0
+    for i in torch.nonzero(deq.cpu()).flatten().tolist():
+        ne = [avail_h[p] - taken[p] > 0 for p in range(n_prios)]
+        if not any(ne):
+            continue                                  # ⊥: nothing moves
+        pstar = ne.index(True)
+        q = pstar
+        for c in range(pstar, min(pstar + relaxation, n_prios - 1) + 1):
+            if ne[c] and (firsts_h[c] + taken[c]) % n_shards == shard_h[i]:
+                q = c
+                break
+        tier[i], pos[i] = q, firsts_h[q] + taken[q]
+        taken[q] += 1
+        n_relaxed += q != pstar
+
+    def put(x, dt=torch.int32):
+        return torch.tensor(x, dtype=dt, device=dev)
+    t = put(tier)
+    return (t, put(pos), t >= 0, put(taken), put(n_relaxed))
+
+
+def priority_queue_scan(is_enq: torch.Tensor, prio: torch.Tensor,
+                        valid: torch.Tensor, firsts: torch.Tensor,
+                        lasts: torch.Tensor, *, n_prios: int,
+                        relaxation: int = 0,
+                        shard_of: Optional[torch.Tensor] = None,
+                        n_shards: Optional[int] = None, tier_scan=None):
+    """Batch position assignment for the P-tier constant-priority queue.
+
+    P independent FIFO windows ``[firsts[p], lasts[p]]``, one per tier.  A
+    wave applies its enqueues first (per-tier FIFO positions), then its
+    dequeues highest tier first: strict mode (``relaxation=0``) is prefix
+    arithmetic (:func:`strict_batch_deletemin`); ``relaxation=k`` lets a
+    dequeue take a locally owned head up to k tiers below the best one.
+
+    Args:
+      is_enq/valid: [n] bool; prio: [n] int32 (ignored for dequeues; an
+        enqueue outside [0, n_prios) gets no position but stays matched,
+        as in the reference); firsts/lasts: [P] int32.
+      shard_of/n_shards: issuing shard per op and shard count, needed when
+        ``relaxation > 0``.
+      tier_scan: ``(enq, tier, firsts, lasts) -> (pos, new_lasts)``, the
+        fused per-tier enqueue sweep (``kernels.segscan.make_tier_scan``);
+        None runs one masked :func:`queue_scan` per tier, the oracle.
+    Returns:
+      (tier [n] int32 (-1 unmatched), pos [n] int32 (⊥ = -1), matched [n]
+      bool, new_firsts, new_lasts, n_relaxed (0-d int32)).
+    """
+    enq = is_enq & valid
+    deq = ~is_enq & valid
+    dev = is_enq.device
+    prio = prio.to(torch.int32)
+    tier = torch.full(is_enq.shape, -1, dtype=torch.int32, device=dev)
+    pos = torch.full(is_enq.shape, BOTTOM, dtype=torch.int32, device=dev)
+    if tier_scan is not None:
+        pos_e, new_lasts = tier_scan(enq, prio, firsts, lasts)
+        tier = torch.where(enq & (pos_e >= 0), prio, tier)
+        pos = torch.where(enq, pos_e, pos)
+    else:
+        new_lasts = []
+        for p in range(n_prios):
+            mask = enq & (prio == p)
+            pos_p, _, st_p = queue_scan(mask, QueueState(firsts[p], lasts[p]),
+                                        valid=mask)
+            tier = torch.where(mask, p, tier)
+            pos = torch.where(mask, pos_p, pos)
+            new_lasts.append(st_p.last)
+        new_lasts = torch.stack(new_lasts).to(torch.int32)
+    avail = (new_lasts - firsts + 1).to(torch.int32)
+    if relaxation == 0:
+        t_c, pos_d, d_matched, taken = strict_batch_deletemin(
+            deq, avail, firsts, n_prios)
+        n_relaxed = torch.zeros((), dtype=torch.int32, device=dev)
+    else:
+        if shard_of is None or n_shards is None:
+            raise ValueError("relaxation > 0 needs shard_of and n_shards")
+        t_c, pos_d, d_matched, taken, n_relaxed = _relaxed_deletemin(
+            deq, shard_of, avail, firsts, n_prios, relaxation, n_shards)
+    tier = torch.where(d_matched, t_c, tier).to(torch.int32)
+    pos = torch.where(d_matched, pos_d, pos).to(torch.int32)
+    return (tier, pos, enq | d_matched, (firsts + taken).to(torch.int32),
+            new_lasts.to(torch.int32), n_relaxed)

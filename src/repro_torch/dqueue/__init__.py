@@ -1,15 +1,23 @@
-"""SKUEUE device path in PyTorch: the FIFO wave over one device's shards.
+"""SKUEUE device path in PyTorch: queue, stack and priority tiers over one
+device's shards.
 
-:class:`WaveEngine` drives :class:`FifoDiscipline` at two exchanges per
-wave (one per wave in pipelined bursts); :class:`ElasticDeviceQueue` adds
-runtime JOIN/LEAVE membership, :class:`QueueOverflowError` on capacity
-violation, and the pressure API.
+:class:`WaveEngine` drives a discipline (:class:`FifoDiscipline`,
+:class:`LifoDiscipline`, :class:`PriorityDiscipline`) at two exchanges per
+wave (one per wave in pipelined bursts); the elastic wrappers add runtime
+JOIN/LEAVE membership, :class:`QueueOverflowError` on capacity violation,
+and the pressure API.
 """
-from .device_queue import DeviceQueue, DeviceQueueState, FifoDiscipline
-from .elastic import ElasticDeviceQueue
+from .device_queue import (DeviceQueue, DeviceQueueState, DeviceStack,
+                           DeviceStackState, FifoDiscipline, LifoDiscipline)
+from .elastic import ElasticDeviceQueue, ElasticDeviceStack
 from .errors import QueueOverflowError, ServeInvariantError
+from .priority_queue import (DevicePriorityQueue, ElasticDevicePriorityQueue,
+                             PriorityDiscipline, PriorityQueueState)
 from .wave_engine import Discipline, WaveEngine, post_enqueue_peak_overflow
 
-__all__ = ["DeviceQueue", "DeviceQueueState", "Discipline",
-           "ElasticDeviceQueue", "FifoDiscipline", "QueueOverflowError",
+__all__ = ["DevicePriorityQueue", "DeviceQueue", "DeviceQueueState",
+           "DeviceStack", "DeviceStackState", "Discipline",
+           "ElasticDevicePriorityQueue", "ElasticDeviceQueue",
+           "ElasticDeviceStack", "FifoDiscipline", "LifoDiscipline",
+           "PriorityDiscipline", "PriorityQueueState", "QueueOverflowError",
            "ServeInvariantError", "WaveEngine", "post_enqueue_peak_overflow"]

@@ -1,12 +1,19 @@
-"""Device-resident distributed FIFO: the FIFO discipline over the engine.
+"""Device-resident distributed queue and stack: disciplines over the engine.
 
-Counterpart of ``repro/dqueue/device_queue.py`` (FIFO part).  Position
+Counterpart of ``repro/dqueue/device_queue.py``.  Position
 ``p`` lives on shard ``p % n_shards`` at slot ``(p // n_shards) % cap``: a
 dense sharded ring buffer, here ``store_vals [n_shards, cap+1, W]`` on one
 device with the extra slot as the junk row.  One ``step`` is one paper
 wave: position assignment by the min-plus scan (Stages 1-3, the segscan
 kernel over the flat shard-major wave), then PUT/GET through the
 exchange seam (Stage 4), PUTs before GETs.
+
+The stack (paper Sec. VI) reuses positions, so each of its store slots
+keeps a set of ``D`` (ticket, payload) entries, ticket -1 meaning empty:
+``vals [n_shards, cap+1, D, W]``, ``ticks [n_shards, cap+1, D]``.  Its
+positions and tickets come from the max-plus stack-scan kernel, and a pop
+takes the largest ticket at its slot that is not above its bound, which
+makes concurrent pops conflict-free.
 """
 from __future__ import annotations
 
@@ -14,7 +21,7 @@ from typing import NamedTuple
 
 import torch
 
-from ..kernels.segscan import queue_scan
+from ..kernels.segscan import queue_scan, stack_scan
 from ..runtime import LocalRuntime
 from .wave_engine import (TAG_GET, TAG_INACTIVE, TAG_PUT, Discipline,
                           Dispatch, WaveEngine, post_enqueue_peak_overflow,
@@ -49,6 +56,7 @@ class FifoDiscipline(Discipline):
         self.cap = cap
         self.W = W
         self.junk = cap
+        self.window_capacity = n_shards * cap
 
     def split(self, state):
         """Split state into its (interval carry, store) halves."""
@@ -90,6 +98,22 @@ class FifoDiscipline(Discipline):
                 torch.zeros((nL,), dtype=torch.bool, device=device))
 
 
+def _make_runtime(n_shards: int, runtime, device, metrics: bool, name: str):
+    """The runtime of a fixed-size structure; raises for the options the
+    port does not have yet."""
+    if metrics:
+        raise NotImplementedError(
+            f"{name}(metrics=True): the Wavescope ring waits for a later "
+            f"slice (ROADMAP queue 1, item 11)")
+    if runtime is None:
+        return LocalRuntime(n_shards, device=device)
+    if not isinstance(runtime, LocalRuntime):
+        raise NotImplementedError(
+            "only LocalRuntime is ported; the distributed and simulated "
+            "runtimes wait (ROADMAP queue 1, item 5)")
+    return runtime
+
+
 class DeviceQueue:
     """Distributed FIFO over ``n_shards`` shards on one device.
 
@@ -116,16 +140,8 @@ class DeviceQueue:
             raise NotImplementedError(
                 "DeviceQueue(fused=False): the five-exchange seed wave "
                 "waits for a later slice (ROADMAP queue 1, item 3)")
-        if metrics:
-            raise NotImplementedError(
-                "DeviceQueue(metrics=True): the Wavescope ring waits for a "
-                "later slice (ROADMAP queue 1, item 11)")
-        if runtime is None:
-            runtime = LocalRuntime(n_shards, device=device)
-        elif not isinstance(runtime, LocalRuntime):
-            raise NotImplementedError(
-                "only LocalRuntime is ported; the distributed and "
-                "simulated runtimes wait (ROADMAP queue 1, item 5)")
+        runtime = _make_runtime(n_shards, runtime, device, metrics,
+                                "DeviceQueue")
         self.runtime = runtime
         self.device = runtime.device
         self.n_shards = n_shards
@@ -171,3 +187,209 @@ class DeviceQueue:
         deq_ok [K, n], overflow [K]).
         """
         return self.engine.run_waves(state, is_enq, valid, payload)
+
+
+# ------------------------------------------------------------ LIFO ---------
+class DeviceStackState(NamedTuple):
+    """Stack state: ``last`` (the top; positions start at 1) and the
+    monotone push ``ticket`` (0-d int32 device tensors), plus the store
+    ``vals [n_shards, cap+1, D, W]`` int32 and ``ticks [n_shards, cap+1,
+    D]`` int32 (-1 = empty entry; slot ``cap`` is the junk slot).  The
+    reference keeps the same four arrays in a dict under these keys."""
+
+    last: torch.Tensor
+    ticket: torch.Tensor
+    vals: torch.Tensor
+    ticks: torch.Tensor
+
+
+class LifoDiscipline(Discipline):
+    """Stack order (paper Sec. VI): the max-plus stack scan plus the
+    (slot, depth) ticket-set commit."""
+
+    n_ops = 3           # (is_push, valid, payload)
+    n_disp_outs = 2     # (pos, matched)
+    extra_fill = (-1,)  # the ticket/bound request column
+
+    TAG_PUSH = TAG_PUT
+    TAG_POP = TAG_GET
+
+    def __init__(self, n_shards: int, cap: int, W: int, D: int):
+        self.n_shards = n_shards
+        self.cap = cap
+        self.W = W
+        self.D = D
+        self.junk = cap
+        self.window_capacity = n_shards * cap * D
+
+    def split(self, state):
+        """Split state into its (interval carry, store) halves."""
+        return (state.last, state.ticket), (state.vals, state.ticks)
+
+    def merge(self, carry, store):
+        """Reassemble the full state from (carry, store) halves."""
+        return DeviceStackState(carry[0], carry[1], store[0], store[1])
+
+    def dispatch(self, carry, ops) -> Dispatch:
+        """Stages 1-3: one stack-scan launch over the flat wave, then
+        owners, slots and the ticket/bound column as ``[n_shards, L]``."""
+        is_push, valid, payload = ops
+        n, cap = self.n_shards, self.cap
+        pos, tick, matched, new_last, new_ticket = stack_scan(
+            is_push, valid, carry[0], carry[1])
+        p2, m2 = pos.reshape(n, -1), matched.reshape(n, -1)
+        e2 = is_push.reshape(n, -1)
+        owner = torch.where(m2, torch.remainder(p2, n), -1).to(torch.int32)
+        slot = torch.where(
+            m2, torch.remainder(torch.div(p2, n, rounding_mode="floor"),
+                                cap), cap).to(torch.int32)
+        tag = torch.where(m2 & e2, self.TAG_PUSH,
+                          torch.where(m2 & ~e2, self.TAG_POP, TAG_INACTIVE))
+        # capacity is a commit-time check (a slot's D entries run out)
+        return Dispatch(owner, slot, tag.to(torch.int32),
+                        (tick.reshape(n, -1),),
+                        payload.reshape(n, -1, self.W), m2, m2 & ~e2,
+                        (pos, matched), (new_last, new_ticket),
+                        torch.zeros((), dtype=torch.bool, device=pos.device),
+                        ())
+
+    def commit(self, store, recv):
+        """Stage 4 on every shard at once, in place: PUSH rows insert into
+        a free depth entry of their slot, then each POP takes the largest
+        ticket at its slot not above its bound.
+
+        recv: ``[n_dst, n_src, L, 3+W]`` rows ``slot ‖ ticket/bound ‖ tag ‖
+        payload``.  Inactive rows point at the junk slot ``cap`` and never
+        insert; the scatters write the junk slot's own empty values there
+        (ticket -1, payload 0), so duplicate indices, which only the junk
+        slot receives, all write the same thing.  Returns (store, reply
+        ``[n_dst, n_src, L, 1+W]`` ``ok ‖ value``, slot overflow: 0-d bool,
+        one ``.any()`` over all shards, no host read).
+        """
+        cap, W, D = self.cap, self.W, self.D
+        sv, stk = store
+        n = sv.shape[0]
+        dev = sv.device
+        r_slot, r_tb, r_tag = recv[..., 0], recv[..., 1], recv[..., 2]
+
+        # ---- PUSH inserts ----
+        is_push_r = r_tag == self.TAG_PUSH
+        rs = torch.where(is_push_r, r_slot, cap).reshape(n, -1)
+        rt = torch.where(is_push_r, r_tb, -1).reshape(n, -1)
+        # rank within the same slot, per destination shard: a stable sort
+        # along each shard's row keeps the reference's arrival order
+        rs, order = torch.sort(rs, dim=1, stable=True)
+        rt = rt.gather(1, order)
+        rv = recv[..., 3:].reshape(n, -1, W).gather(
+            1, order[..., None].expand(-1, -1, W))
+        R = rs.shape[1]
+        idx = torch.arange(R, device=dev).expand(n, R)
+        same = torch.cat([torch.zeros((n, 1), dtype=torch.bool, device=dev),
+                          rs[:, 1:] == rs[:, :-1]], 1)
+        run_start = torch.cummax(torch.where(same, -1, idx), dim=1).values
+        rank = idx - run_start
+        shard = torch.arange(n, device=dev)[:, None]
+        free = stk[shard, rs] < 0                            # [n, R, D]
+        # each arrival takes the rank-th free entry of its slot.  The
+        # free entries before depth d are counted in a loop over the D
+        # depths: a cumsum along the length-D last axis is a slow CUDA
+        # scan (456 of 530 device-ms of a 64-shard burst on an H100)
+        pick = torch.empty_like(free)
+        before = torch.zeros_like(rank)
+        for d in range(D):
+            pick[..., d] = free[..., d] & (before == rank)
+            before = before + free[..., d]
+        # argmax rejects bool: take the first True of an int8 copy
+        depth = torch.argmax(pick.to(torch.int8), -1)
+        ok_ins = pick.any(-1) & (rt >= 0) & (rs < cap)
+        slot_i = torch.where(ok_ins, rs, cap)
+        dep_i = torch.where(ok_ins, depth, D - 1)
+        stk[shard, slot_i, dep_i] = torch.where(ok_ins, rt, -1).to(
+            torch.int32)
+        sv[shard, slot_i, dep_i] = torch.where(ok_ins[..., None], rv, 0).to(
+            torch.int32)
+        slot_overflow = ((rt >= 0) & (rs < cap) & ~ok_ins).any()
+
+        # ---- POP picks: the largest ticket <= bound at the slot ----
+        is_pop_r = r_tag == self.TAG_POP
+        q_slot = torch.where(is_pop_r, r_slot, cap).long()   # [n, n, L]
+        q_bound = torch.where(is_pop_r, r_tb, -1)
+        shard3 = torch.arange(n, device=dev)[:, None, None]
+        cand = stk[shard3, q_slot]                            # [n, n, L, D]
+        score = torch.where((cand >= 0) & (cand <= q_bound[..., None]),
+                            cand, -1)
+        best, d_pick = score.max(-1)
+        got = best >= 0
+        res_vals = sv[shard3, q_slot, d_pick]                 # [n, n, L, W]
+        # remove the picked entries (unique per pop: tickets are unique)
+        stk[shard3, torch.where(got, q_slot, cap),
+            torch.where(got, d_pick, D - 1)] = -1
+        reply = torch.cat([got.to(torch.int32)[..., None], res_vals], -1)
+        return (sv, stk), reply, slot_overflow
+
+    def zero_outs(self, nL: int, device) -> tuple:
+        """All-invalid per-op dispatch outputs (pipeline priming)."""
+        return (torch.full((nL,), -1, dtype=torch.int32, device=device),
+                torch.zeros((nL,), dtype=torch.bool, device=device))
+
+
+class DeviceStack:
+    """Distributed LIFO (paper Sec. VI) over ``n_shards`` shards on one
+    device.
+
+    Stage 4 uses the same two-exchange layout as :class:`DeviceQueue`
+    (request ``slot ‖ ticket/bound ‖ tag ‖ payload``, reply ``ok ‖
+    value``) through the shared :class:`WaveEngine`.
+
+    Args:
+      n_shards, cap, payload_width, ops_per_shard: as :class:`DeviceQueue`.
+      slot_depth: D, the (ticket, payload) entries per store slot.
+      pipelined, runtime, device: as :class:`DeviceQueue`.
+      metrics: must be False (the device telemetry ring is not ported).
+    """
+
+    TAG_PUSH = LifoDiscipline.TAG_PUSH
+    TAG_POP = LifoDiscipline.TAG_POP
+
+    def __init__(self, n_shards: int, cap: int = 1024,
+                 payload_width: int = 4, ops_per_shard: int = 64,
+                 slot_depth: int = 4, pipelined: bool = True,
+                 metrics: bool = False, runtime=None, device=None):
+        self.runtime = _make_runtime(n_shards, runtime, device, metrics,
+                                     "DeviceStack")
+        self.device = self.runtime.device
+        self.n_shards = n_shards
+        self.cap = cap
+        self.W = payload_width
+        self.L = ops_per_shard
+        self.D = slot_depth
+        self.pipelined = pipelined
+        self.metrics = False
+        self.engine = WaveEngine(
+            n_shards, LifoDiscipline(n_shards, cap, payload_width,
+                                     slot_depth),
+            self.runtime, pipelined=pipelined)
+
+    def init_state(self) -> DeviceStackState:
+        """An empty stack on this structure's device."""
+        n, cap, W, D, dev = self.n_shards, self.cap, self.W, self.D, \
+            self.device
+        return DeviceStackState(
+            last=torch.tensor(0, dtype=torch.int32, device=dev),
+            ticket=torch.tensor(0, dtype=torch.int32, device=dev),
+            vals=torch.zeros((n, cap + 1, D, W), dtype=torch.int32,
+                             device=dev),
+            ticks=torch.full((n, cap + 1, D), -1, dtype=torch.int32,
+                             device=dev))
+
+    def step(self, state: DeviceStackState, is_push: torch.Tensor,
+             valid: torch.Tensor, payload: torch.Tensor):
+        """One wave; the store of ``state`` is updated in place.  Returns
+        (new_state, positions, matched, pop_vals, pop_ok, overflow)."""
+        return self.engine.step(state, is_push, valid, payload)
+
+    def run_waves(self, state: DeviceStackState, is_push: torch.Tensor,
+                  valid: torch.Tensor, payload: torch.Tensor):
+        """K pre-staged push/pop waves (``[K, n_shards * L]``), no host
+        sync between them; the store of ``state`` is updated in place."""
+        return self.engine.run_waves(state, is_push, valid, payload)

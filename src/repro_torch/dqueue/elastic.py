@@ -1,6 +1,7 @@
 """Elastic membership for the device path: live JOIN/LEAVE resharding.
 
-Counterpart of ``repro/dqueue/elastic.py`` (FIFO part).  Between bursts
+Counterpart of ``repro/dqueue/elastic.py``: the FIFO queue, the LIFO stack
+and the multi-window base of the priority queue.  Between bursts
 the store is quiescent, and because positions are dense integers laid out
 round-robin (position ``p`` on shard ``p % P`` at slot ``(p // P) % cap``)
 the live positions are exactly ``[first, last]``: every shard recovers the
@@ -19,6 +20,13 @@ store with empty shards first, a shrink routes on the old set (every new
 owner is a surviving row) and then drops the emptied rows.  All of it
 stays on the device.  The paper's consistent-hashing balance for the same
 live set is reported in the migration stats through the hash-route kernel.
+
+The stack's live positions are ``[1, last]``; its migration moves every
+(slot, depth) entry with its ticket, and distinct positions land on
+distinct new slots, so (new slot, depth) addressing cannot collide.  A
+multi-window structure (priority tiers) keeps one ``[first, last]`` window
+per tier in its own slot range and moves every window in the same single
+exchange.
 """
 from __future__ import annotations
 
@@ -32,7 +40,8 @@ from ..kernels.hash_route import hash_route
 from ..obs.recorder import FlightRecorder
 from ..obs.trace import span
 from ..runtime import LocalRuntime
-from .device_queue import DeviceQueue, DeviceQueueState
+from .device_queue import (DeviceQueue, DeviceQueueState, DeviceStack,
+                           DeviceStackState)
 from .errors import QueueOverflowError
 from .wave_engine import (bucket_ladder, fanout_bound, migrate_packed,
                           pick_bucket_width, recover_positions,
@@ -90,8 +99,10 @@ class _ElasticBase:
 
     # ---------------------------------------------------------- overflow ---
     def _wave_capacity(self) -> int:
-        """Elements one store window holds."""
-        return self.n_shards * self.cap
+        """Elements one store window holds (the discipline's
+        ``window_capacity``: ``n_shards * cap``, times ``D`` for the
+        stack)."""
+        return self.inner.engine.disc.window_capacity
 
     def _occupancies(self) -> list:
         return [self.size]
@@ -164,6 +175,17 @@ class _ElasticBase:
 
     def _place(self, x):
         return self.runtime.place(x)
+
+    def _drive(self, fn, multi: bool, ops) -> tuple:
+        """Run the inner structure's ``step`` or ``run_waves`` (``fn``) on
+        the placed ``ops``, keep the new state, and raise the wave's
+        overflow flag as :class:`~.errors.QueueOverflowError`.  Returns
+        the outputs after the state."""
+        ops = [self._place(x) for x in ops]
+        with self._burst_span(ops[0].shape[0] if multi else 1):
+            self.state, *out = fn(self.state, *ops)
+        self._check_overflow(out[self.inner.engine.disc.n_disp_outs + 2])
+        return tuple(out)
 
     # -------------------------------------------------------- membership ---
     @property
@@ -292,13 +314,15 @@ class _ElasticBase:
     def _hash_balance(self, P_new: int) -> Optional[dict]:
         """Paper-fidelity report: what consistent hashing (the hash-route
         kernel on a CUDA device) would assign each shard for the SAME live
-        positions that round-robin just placed evenly.  ``counts`` is the
-        per-shard histogram."""
-        lo, hi = self._live_window()
-        size = hi - lo + 1
+        positions that round-robin just placed evenly, every window's
+        range concatenated.  ``counts`` is the per-shard histogram."""
+        ranges = [(lo, hi) for lo, hi in self._live_ranges() if hi >= lo]
+        size = sum(hi - lo + 1 for lo, hi in ranges)
         if size <= 0 or size > HASH_BALANCE_MAX_SIZE:
             return None
-        pos = torch.arange(lo, hi + 1, dtype=torch.int32, device=self.device)
+        pos = torch.cat([torch.arange(lo, hi + 1, dtype=torch.int32,
+                                      device=self.device)
+                         for lo, hi in ranges])
         _, counts = hash_route(pos, torch.ones(size, dtype=torch.bool,
                                                device=self.device), P_new)
         counts = self.runtime.to_host(counts)
@@ -325,7 +349,9 @@ class _ElasticBase:
     def _live_span(self) -> int:
         raise NotImplementedError
 
-    def _live_window(self) -> tuple:
+    def _live_ranges(self) -> list:
+        """The live positions as ``[(lo, hi), ...]`` host ints, one range
+        per window."""
         raise NotImplementedError
 
     @property
@@ -386,23 +412,13 @@ class ElasticDeviceQueue(_ElasticBase):
         """One wave on the current shards.  Returns (positions, matched,
         deq_vals, deq_ok, overflow) as device tensors; raises
         :class:`~.errors.QueueOverflowError` when the wave overflowed."""
-        with self._burst_span(1):
-            self.state, pos, m, dv, dok, ovf = self.inner.step(
-                self.state, self._place(is_enq), self._place(valid),
-                self._place(payload))
-        self._check_overflow(ovf)
-        return pos, m, dv, dok, ovf
+        return self._drive(self.inner.step, False, (is_enq, valid, payload))
 
     def run_waves(self, is_enq, valid, payload):
         """K pre-staged waves (shapes [K, n_shards * L]).  Raises
         :class:`~.errors.QueueOverflowError` on overflow."""
-        is_enq = self._place(is_enq)
-        with self._burst_span(is_enq.shape[0]):
-            self.state, pos, m, dv, dok, ovf = self.inner.run_waves(
-                self.state, is_enq, self._place(valid),
-                self._place(payload))
-        self._check_overflow(ovf)
-        return pos, m, dv, dok, ovf
+        return self._drive(self.inner.run_waves, True,
+                           (is_enq, valid, payload))
 
     @property
     def size(self) -> int:
@@ -416,12 +432,11 @@ class ElasticDeviceQueue(_ElasticBase):
     def _pack(self, a, b, X, Y):
         return DeviceQueueState(a, b, X, Y)
 
-    def _live_window(self):
-        return int(self.state.first), int(self.state.last)
+    def _live_ranges(self):
+        return [(int(self.state.first), int(self.state.last))]
 
     def _live_span(self) -> int:
-        lo, hi = self._live_window()
-        return max(0, hi - lo + 1)
+        return max(0, self.size)
 
     @property
     def _entry_bytes(self) -> int:
@@ -450,4 +465,206 @@ class ElasticDeviceQueue(_ElasticBase):
                                            owner, cols, fill)
         del cols
         nsv, nsf = rewrite_ring_store(rows, cap, W)
+        return nsv, nsf, moved, lost
+
+
+class ElasticDeviceStack(_ElasticBase):
+    """Distributed LIFO whose shard count is a runtime variable.
+
+    Owns its state like :class:`ElasticDeviceQueue`.  Migration flattens
+    the (slot, depth) entry set: an entry's position is recovered from its
+    slot as for the queue (live window ``[1, last]``), and its depth and
+    ticket travel with it.  Valid only while ``last <= P_new * cap``
+    (checked before the migration runs).
+
+    Args:
+      n_shards, cap, payload_width, ops_per_shard, pool_size, runtime,
+      device, pipelined, metrics, flight_k: as :class:`ElasticDeviceQueue`.
+      slot_depth: D, the (ticket, payload) entries per store slot.
+    """
+
+    _kind = "stack"
+    _pad_fill = (0, -1)  # vals pad 0, tickets pad -1 (= empty)
+    _overflow_detail = ("a store slot's depth-D ticket set was exhausted "
+                        "at commit time")
+
+    def __init__(self, n_shards: int, *, cap: int = 1024,
+                 payload_width: int = 4, ops_per_shard: int = 64,
+                 slot_depth: int = 4, pool_size: Optional[int] = None,
+                 runtime=None, device=None, pipelined: bool = True,
+                 metrics: bool = False, flight_k: int = 16):
+        self.D = slot_depth
+        super().__init__(n_shards, cap=cap, payload_width=payload_width,
+                         ops_per_shard=ops_per_shard, pool_size=pool_size,
+                         runtime=runtime, device=device,
+                         pipelined=pipelined, metrics=metrics,
+                         flight_k=flight_k)
+
+    def _make_inner(self, n: int):
+        return DeviceStack(n, cap=self.cap, payload_width=self.W,
+                           ops_per_shard=self.L, slot_depth=self.D,
+                           pipelined=self.pipelined, runtime=self.runtime)
+
+    # ------------------------------------------------------------ waves ----
+    def step(self, is_push, valid, payload):
+        """One wave on the current shards.  Returns (positions, matched,
+        pop_vals, pop_ok, overflow); raises
+        :class:`~.errors.QueueOverflowError` when a slot's ticket set ran
+        out."""
+        return self._drive(self.inner.step, False,
+                           (is_push, valid, payload))
+
+    def run_waves(self, is_push, valid, payload):
+        """K pre-staged waves (shapes [K, n_shards * L]).  Raises
+        :class:`~.errors.QueueOverflowError` on overflow."""
+        return self._drive(self.inner.run_waves, True,
+                           (is_push, valid, payload))
+
+    @property
+    def size(self) -> int:
+        """Live elements on the stack (positions start at 1)."""
+        return int(self.state.last)
+
+    def _rematerialize(self, new_active: list, kind: str) -> dict:
+        # The migration recovers ONE position per slot, the one in [1,
+        # n_shards * cap]; a deeper stack keeps entries of two positions
+        # in one slot, and the reference then moves the deeper entry to
+        # the shallower one's new slot.  Refuse instead.
+        if self.size > self.n_shards * self.cap:
+            raise ValueError(
+                f"cannot reshard the stack: {self.size} live elements "
+                f"exceed the current slots {self.n_shards} * {self.cap}, "
+                f"and a slot's positions would be ambiguous")
+        return super()._rematerialize(new_active, kind)
+
+    # -------------------------------------------------------- migration ----
+    def _unpack(self, state):
+        return state.last, state.ticket, state.vals, state.ticks
+
+    def _pack(self, a, b, X, Y):
+        return DeviceStackState(a, b, X, Y)
+
+    def _live_ranges(self):
+        return [(1, self.size)]
+
+    def _live_span(self) -> int:
+        return self.size
+
+    @property
+    def _entry_bytes(self) -> int:
+        return 4 * (3 + self.W)  # slot ‖ depth ‖ ticket ‖ payload
+
+    def _migrate(self, last, ticket, sv, stk, P_old: int, P_new: int):
+        """Move every live (slot, depth) entry: ``slot ‖ depth ‖ ticket ‖
+        payload`` rows, ONE exchange, then a fresh store.  Returns (vals,
+        ticks, moved, lost)."""
+        cap, W, D = self.cap, self.W, self.D
+        n_mesh = sv.shape[0]
+        dev = sv.device
+        M = min(cap * D, fanout_bound(P_old, P_new, cap) * D)
+        s = torch.arange(n_mesh, dtype=torch.int32, device=dev)[:, None]
+        t = torch.arange(cap, dtype=torch.int32, device=dev)[None, :]
+        p = recover_positions(s, t, 1, P_old, cap)  # positions start at 1
+        in_range = (p >= 1) & (p <= last)
+        owner = torch.remainder(p, P_new).to(torch.int32)
+        slot_new = torch.remainder(
+            torch.div(p, P_new, rounding_mode="floor"), cap).to(torch.int32)
+        ticks = stk[:, :cap]                                  # [n, cap, D]
+        live = ((ticks >= 0) & in_range[..., None]).reshape(n_mesh, -1)
+        dep = torch.arange(D, dtype=torch.int32, device=dev).repeat(cap)
+        cols = torch.cat(
+            [slot_new.repeat_interleave(D, 1)[..., None],
+             dep.expand(n_mesh, -1)[..., None],
+             ticks.reshape(n_mesh, -1)[..., None],
+             sv[:, :cap].reshape(n_mesh, cap * D, W)], -1)
+        del sv, stk, ticks
+        fill = torch.zeros(3 + W, dtype=torch.int32, device=dev)
+        fill[0], fill[2] = cap, -1
+        rows, moved, lost = migrate_packed(
+            self.runtime, n_mesh, M, live, owner.repeat_interleave(D, 1),
+            cols, fill)
+        del cols
+        # sentinel rows land on the junk slot, which is then reset
+        shard = torch.arange(n_mesh, device=dev)[:, None]
+        rs, rd = rows[..., 0].long(), rows[..., 1].long()
+        nstk = torch.full((n_mesh, cap + 1, D), -1, dtype=torch.int32,
+                          device=dev)
+        nstk[shard, rs, rd] = rows[..., 2]
+        nstk[:, cap] = -1
+        nsv = torch.zeros((n_mesh, cap + 1, D, W), dtype=torch.int32,
+                          device=dev)
+        nsv[shard, rs, rd] = rows[..., 3:]
+        nsv[:, cap] = 0
+        return nsv, nstk, moved, lost
+
+
+class _MultiWindowElastic(_ElasticBase):
+    """Shared elastic machinery for structures whose ring store is split
+    into ``_n_windows`` round-robin slot windows, one ``[first, last]``
+    interval each (priority tiers).  The state exposes ``firsts``/
+    ``lasts`` ``[n_windows]`` vectors; one migration recovers every
+    window's positions and moves all windows with ONE packed exchange."""
+
+    _pad_fill = (0, False)
+
+    @property
+    def _n_windows(self) -> int:
+        raise NotImplementedError
+
+    @property
+    def sizes(self) -> list:
+        """Per-window occupancy (one host int per window)."""
+        f = self.runtime.to_host(self.state.firsts)
+        last = self.runtime.to_host(self.state.lasts)
+        return [int(x) for x in (last - f + 1)]
+
+    @property
+    def size(self) -> int:
+        """Total live elements across every window."""
+        return sum(self.sizes)
+
+    def _occupancies(self) -> list:
+        return self.sizes
+
+    def _live_span(self) -> int:
+        # the capacity check is per window (each owns its slot range)
+        return max([0] + self.sizes)
+
+    def _live_ranges(self):
+        f = self.runtime.to_host(self.state.firsts)
+        last = self.runtime.to_host(self.state.lasts)
+        return [(int(a), int(b)) for a, b in zip(f, last)]
+
+    @property
+    def _entry_bytes(self) -> int:
+        return 4 * (1 + self.W)  # slot ‖ payload columns
+
+    def _migrate(self, firsts, lasts, sv, sf, P_old: int, P_new: int):
+        """Recover every window's window-local positions, route them,
+        ONE exchange (``M = min(W * cap, W * fanout_bound)`` rows per
+        destination, ``W`` windows), rewrite.  Returns (store_vals,
+        store_full, moved, lost)."""
+        cap, W = self.cap, self.W
+        n_win = self._n_windows
+        n_mesh = sv.shape[0]
+        dev = sv.device
+        M = min(n_win * cap, n_win * fanout_bound(P_old, P_new, cap))
+        junk = n_win * cap
+        s = torch.arange(n_mesh, dtype=torch.int32, device=dev)[:, None]
+        u = torch.arange(junk, dtype=torch.int32, device=dev)[None, :]
+        win = torch.div(u, cap, rounding_mode="floor").long()
+        f_w, l_w = firsts[win], lasts[win]                    # [1, junk]
+        p = recover_positions(s, torch.remainder(u, cap), f_w, P_old, cap)
+        live = sf[:, :junk] & (p >= f_w) & (p <= l_w)
+        owner = torch.remainder(p, P_new).to(torch.int32)
+        slot_new = (win * cap + torch.remainder(
+            torch.div(p, P_new, rounding_mode="floor"), cap)).to(torch.int32)
+        cols = torch.cat([slot_new[..., None], sv[:, :junk]], -1)
+        del sv
+        fill = torch.zeros(1 + W, dtype=torch.int32, device=dev)
+        fill[0] = junk
+        rows, moved, lost = migrate_packed(self.runtime, n_mesh, M, live,
+                                           owner, cols, fill)
+        del cols
+        nsv, nsf = rewrite_ring_store(rows, junk, W)
         return nsv, nsf, moved, lost

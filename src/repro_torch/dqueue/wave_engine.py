@@ -5,7 +5,7 @@ wave inside ``shard_map`` on per-shard views; here every shard is one row
 of the leading dimension of tensors on one device, and each of the
 reference's ``all_to_all`` collectives is one call of the runtime's
 exchange seam on a ``[src, dst, L, C]`` send buffer.  A discipline
-(:class:`~repro_torch.dqueue.device_queue.FifoDiscipline`) supplies
+(FIFO, LIFO, priority tiers) supplies
 
 * **dispatch** (Stages 1-3): each op's position, owner shard and store
   slot, from one scan over the flat shard-major wave;
@@ -126,20 +126,28 @@ class Dispatch(NamedTuple):
     outs: tuple                # dispatch-time per-op outputs, flat [n*L]
     carry: tuple               # updated interval carry (0-d tensors)
     overflow: torch.Tensor     # 0-d bool, dispatch-time capacity check
-    aux: tuple                 # per-wave extras
+    aux: tuple                 # per-wave extras (0-d tensors)
 
 
 class Discipline:
     """Position-assignment + store-rewrite plug-in for :class:`WaveEngine`.
 
-    Subclasses define ``n_ops``, ``n_disp_outs``, ``extra_fill``, and the
-    instance attributes ``W`` / ``junk``, plus the methods below, which
-    work on all shards at once (shards are the leading dimension).
+    Subclasses define ``n_ops`` (op inputs per wave), ``n_disp_outs``
+    (dispatch-time per-op outputs), ``n_aux`` (per-wave extras, e.g. the
+    priority queue's relaxed-serve count) and ``extra_fill`` (sentinels of
+    the extra request columns), the instance attributes ``W`` / ``junk``
+    / ``n_windows`` / ``window_capacity`` (interval windows and the
+    elements one of them holds, which the pressure API reads), and the
+    methods below, which work on all shards at once (shards are the
+    leading dimension).
     """
 
     n_ops: int = 3
     n_disp_outs: int = 2
+    n_aux: int = 0
     extra_fill: tuple = ()
+    n_windows: int = 1
+    window_capacity: int = 0
 
     def split(self, state):
         """state -> (interval carry tuple, store tuple)."""
@@ -160,6 +168,10 @@ class Discipline:
     def zero_outs(self, nL: int, device) -> tuple:
         """Dtype-correct filler for ``Dispatch.outs`` (pipeline priming)."""
         raise NotImplementedError
+
+    def zero_aux(self, device) -> tuple:
+        """Dtype-correct zeros for ``Dispatch.aux`` (pipeline priming)."""
+        return ()
 
 
 # --------------------------------------------------------- the engine ------
@@ -248,7 +260,7 @@ class WaveEngine:
                 "wants": torch.zeros((n, L), dtype=torch.bool, device=dev),
                 "outs": disc.zero_outs(nL, dev),
                 "ovf": torch.zeros((), dtype=torch.bool, device=dev),
-                "aux": ()}
+                "aux": disc.zero_aux(dev)}
         rows = []
         for k in range(K):
             d = disc.dispatch(carry, tuple(x[k] for x in ops))     # wave k
@@ -281,7 +293,8 @@ class WaveEngine:
 
     def run_waves(self, state, *ops):
         """K pre-staged waves (ops ``[K, n_shards * L]``), no host sync
-        between them.  The store of ``state`` is updated in place."""
+        between them.  The store of ``state`` is updated in place.  Every
+        output comes back ``[K]``-stacked, the discipline's aux too."""
         if ops[0].shape[0] == 0:
             raise ValueError("run_waves needs at least one wave")
         body = (self._multi_pipelined if self.pipelined

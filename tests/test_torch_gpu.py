@@ -11,9 +11,13 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.dqueue import DeviceQueue, ElasticDeviceQueue
+from repro_torch.dqueue import (DevicePriorityQueue, DeviceQueue,
+                                DeviceStack, ElasticDeviceQueue)
 from repro_torch.kernels.hash_route import hash_route, hash_route_ref
-from repro_torch.kernels.segscan import queue_scan, queue_scan_ref
+from repro_torch.kernels.segscan import (queue_scan, queue_scan_ref,
+                                         stack_scan, stack_scan_ref,
+                                         tiered_queue_scan,
+                                         tiered_queue_scan_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -43,6 +47,42 @@ def test_queue_scan_kernel_matches_plain(cuda, n):
             for a, b in zip(got, queue_scan_ref(e, v, _i32(f), _i32(l))):
                 assert a.device.type == "cuda"
                 assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("n", [1, 1500, 65536, 1 << 20])
+def test_stack_scan_kernel_matches_plain(cuda, n):
+    rng = np.random.default_rng(n)
+    for p_push, p_valid in ((0.65, 1.0), (0.0, 1.0), (1.0, 1.0), (0.5, 0.8)):
+        e = torch.from_numpy(rng.random(n) < p_push)
+        v = torch.from_numpy(rng.random(n) < p_valid)
+        for last, tick in ((0, 0), (1, 5), (1_000_000, 2 ** 31 - n - 2)):
+            before = stack_scan.launches
+            got = stack_scan(e.to(cuda), v.to(cuda), _i32(last, cuda),
+                             _i32(tick, cuda))
+            assert stack_scan.launches == before + 1
+            for a, b in zip(got, stack_scan_ref(e, v, _i32(last),
+                                                _i32(tick))):
+                assert a.device.type == "cuda"
+                assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("n", [1, 1500, 65536, 1 << 20])
+@pytest.mark.parametrize("n_tiers", [1, 4, 64])
+def test_tiered_scan_kernel_matches_plain(cuda, n, n_tiers):
+    rng = np.random.default_rng(n + n_tiers)
+    tier = torch.from_numpy(rng.integers(-1, n_tiers + 1, n).astype(np.int32))
+    firsts = torch.from_numpy(rng.integers(0, 9, n_tiers).astype(np.int32))
+    lasts = firsts + torch.from_numpy(
+        rng.integers(-1, 1000, n_tiers).astype(np.int32))
+    lasts[0] = 2 ** 31 - 5                      # wraps like int32 sums
+    for p_enq in (1.0, 0.0, 0.6):
+        enq = torch.from_numpy(rng.random(n) < p_enq)
+        before = tiered_queue_scan.launches
+        got = tiered_queue_scan(enq.to(cuda), tier.to(cuda),
+                                firsts.to(cuda), lasts.to(cuda), n_tiers)
+        assert tiered_queue_scan.launches == before + 1
+        for a, b in zip(got, tiered_queue_scan_ref(enq, tier, lasts)):
+            assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.parametrize("n_shards", [1, 48, 64])
@@ -104,4 +144,46 @@ def test_elastic_on_gpu_matches_cpu_through_join_and_leave(cuda):
         runs.append(res + [eq.state.store_vals[:, :32].cpu(),
                            eq.state.store_full.cpu()])
     for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pipelined", [True, False])
+def test_device_stack_64_shards_on_gpu_matches_cpu(cuda, pipelined):
+    E, V, P = _waves(64, 16, 2, 4, seed=2)
+    outs = []
+    for dev in ("cpu", cuda):
+        s = DeviceStack(64, cap=64, payload_width=2, ops_per_shard=16,
+                        slot_depth=4, pipelined=pipelined, device=dev)
+        before = stack_scan.launches
+        st, *o = s.run_waves(s.init_state(), E.to(dev), V.to(dev),
+                             P.to(dev))
+        if dev != "cpu":
+            assert stack_scan.launches == before + 4
+        outs.append([x.cpu() for x in o]
+                    + [st.ticks[:, :64].cpu(), st.vals[:, :64].cpu(),
+                       st.last.cpu(), st.ticket.cpu()])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("pipelined", [True, False])
+def test_device_priority_queue_64_shards_on_gpu_matches_cpu(cuda, pipelined):
+    E, V, P = _waves(64, 16, 2, 4, seed=3)
+    rng = np.random.default_rng(3)
+    PR = torch.from_numpy(rng.choice(4, E.shape, p=[0.1, 0.2, 0.3, 0.4])
+                          .astype(np.int32))
+    outs = []
+    for dev in ("cpu", cuda):
+        q = DevicePriorityQueue(64, n_prios=4, cap=64, payload_width=2,
+                                ops_per_shard=16, pipelined=pipelined,
+                                device=dev)
+        before = tiered_queue_scan.launches
+        st, *o = q.run_waves(q.init_state(), E.to(dev), V.to(dev),
+                             PR.to(dev), P.to(dev))
+        if dev != "cpu":
+            assert tiered_queue_scan.launches == before + 4
+        outs.append([x.cpu() for x in o]
+                    + [st.store_vals[:, :256].cpu(), st.store_full.cpu(),
+                       st.firsts.cpu(), st.lasts.cpu()])
+    for a, b in zip(*outs):
         assert torch.equal(a, b)

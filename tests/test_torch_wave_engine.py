@@ -199,3 +199,32 @@ def test_migration_helpers_match_jax():
         np.testing.assert_array_equal(got[r].numpy()[live[r]],
                                       want[live[r]])
 
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_pipelined_burst_carries_aux_like_sequential(K):
+    # the priority discipline has one aux output (n_relaxed); the
+    # pipelined schedule primes its in-flight aux with zero_aux and must
+    # return the same [K] vector as the sequential one
+    from repro_torch.dqueue import DevicePriorityQueue, PriorityDiscipline
+    assert PriorityDiscipline.n_aux == 1 and twe.Discipline.n_aux == 0
+    rng = np.random.default_rng(K)
+    n, P = N * L, 3
+    E = torch.from_numpy(np.concatenate([np.ones((1, n), bool),
+                                         rng.random((K, n)) < 0.3]))
+    V = torch.ones(K + 1, n, dtype=torch.bool)
+    PR = torch.from_numpy(rng.integers(0, P, (K + 1, n)).astype(np.int32))
+    PW = torch.zeros(K + 1, n, W, dtype=torch.int32)
+    outs = []
+    for pipelined in (True, False):
+        q = DevicePriorityQueue(N, n_prios=P, cap=CAP, payload_width=W,
+                                ops_per_shard=L, relaxation=1,
+                                pipelined=pipelined, device="cpu")
+        st, *_ = q.step(q.init_state(), E[0], V[0], PR[0], PW[0])
+        st, *o = q.run_waves(st, E[1:], V[1:], PR[1:], PW[1:])
+        assert len(o) == 7 and o[-1].shape == (K,)
+        assert o[-1].dtype == torch.int32
+        outs.append(o)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert int(outs[0][-1].sum()) > 0          # some serve was relaxed
