@@ -1,5 +1,5 @@
 """Skueue in PyTorch: the distributed queue, stack and priority queue on one
-CUDA device.
+CUDA device, and the LM serving path that rides the queue.
 
 The PyTorch port of the ``repro`` JAX package.  It keeps the reference's
 module layout and names, so each module here has its counterpart under

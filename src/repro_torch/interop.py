@@ -12,6 +12,9 @@ layout is told by its keys:
 * priority queue (``ElasticDevicePriorityQueue``): ``firsts``, ``lasts``
   ``[P]`` int32, ``store_vals [n, P*cap+1, W]`` int32, ``store_full [n,
   P*cap+1]`` bool.
+
+A model's parameters are carried by :func:`params_from_jax` and
+:func:`params_to_numpy`, bit for bit, bfloat16 included.
 """
 from __future__ import annotations
 
@@ -57,3 +60,39 @@ def state_from_jax(d: dict, device):
 def state_to_numpy(state) -> dict:
     """The reference's state-dict layout as numpy arrays."""
     return {k: v.detach().cpu().numpy() for k, v in state._asdict().items()}
+
+
+def _leaf_from_numpy(a, device) -> torch.Tensor:
+    """One array as a tensor on ``device``, bit for bit.  ``np.asarray``
+    of a JAX bfloat16 array is an ``ml_dtypes.bfloat16`` array, which
+    ``torch.from_numpy`` rejects: it crosses as its 16-bit patterns
+    (uint16 -> int16 -> ``torch.bfloat16``), which is exact."""
+    a = np.array(a, order="C")        # a copy; 0-d stays 0-d
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).view(np.int16)).view(
+            torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def params_from_jax(tree, device):
+    """The port's parameters on ``device`` from the reference's parameter
+    pytree (nested dicts of arrays, the stacked ``layers`` axis kept), bit
+    for bit.  A bare array is a tree of one leaf."""
+    if isinstance(tree, dict):
+        return {k: params_from_jax(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_from_jax(v, device) for v in tree)
+    return _leaf_from_numpy(tree, device)
+
+
+def params_to_numpy(tree):
+    """The same tree as numpy arrays; bfloat16 leaves come back as their
+    uint16 bit patterns (numpy has no bfloat16 of its own)."""
+    if isinstance(tree, dict):
+        return {k: params_to_numpy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(params_to_numpy(v) for v in tree)
+    t = tree.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()

@@ -29,7 +29,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-SOURCES = ("segscan", "hash_route")   # csrc/<name>.cu, one library each
+# csrc/<name>.cu, one library each
+SOURCES = ("segscan", "hash_route", "ssd_scan", "flash_attention")
 
 _libs: dict = {}   # name -> loaded ctypes.CDLL (one per process)
 

@@ -1,0 +1,4 @@
+from .ops import ssd_scan
+from .ref import ssd_chunked_ref, ssd_scan_ref
+
+__all__ = ["ssd_chunked_ref", "ssd_scan", "ssd_scan_ref"]

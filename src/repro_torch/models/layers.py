@@ -1,0 +1,126 @@
+"""Core layer primitives over plain dicts of tensors.
+
+Counterpart of ``repro/models/layers.py``.  Every ``init_*`` returns the
+reference's parameter tree (the logical-axis trees are sharding metadata
+and are not ported) with its shapes and scales; ``lead`` prepends stacked
+axes (the layer axis) without changing a parameter's fan-in.
+
+Prefill attention runs through the flash-attention wrapper: the CUDA
+kernel on a CUDA tensor, the query-chunked plain version on a CPU one.
+Decode keeps the reference's ring-buffer cache and its masks in plain
+torch (on the TPU too this was left to XLA): the cache is updated in
+place, one row per batch element at that row's own position.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.flash_attention import flash_attention
+
+NEG_INF = -1e30
+BF16 = torch.bfloat16
+
+
+# ---------------------------------------------------------------- inits ----
+def dense_init(gen: torch.Generator, shape, device, scale=None, lead=()):
+    """Normal x fan_in^-0.5 (or ``scale``) in bf16, as ``_dense_init``;
+    fan_in is ``shape[-2]`` (``shape[-1]`` for a vector)."""
+    fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
+    scale = scale if scale is not None else fan_in ** -0.5
+    return torch.randn(tuple(lead) + tuple(shape), generator=gen,
+                       device=device, dtype=BF16) * scale
+
+
+def ones_init(shape, device, lead=(), dtype=BF16):
+    return torch.ones(tuple(lead) + tuple(shape), dtype=dtype, device=device)
+
+
+# ----------------------------------------------------------------- norm ----
+def rms_norm(x, w, eps: float = 1e-5):
+    """Square in the input type, mean in f32 (``layers.py:36-42``)."""
+    var = x.square().float().mean(-1, keepdim=True)
+    return (x * torch.rsqrt(var + eps).to(x.dtype)) * w
+
+
+# ----------------------------------------------------------------- rope ----
+def rope(x, positions, theta: float = 1e6):
+    """x: [..., S, H, hd]; positions: [S] or [B, S] int."""
+    hd = x.shape[-1]
+    half = hd // 2
+    freqs = theta ** (-torch.arange(0, half, dtype=torch.float32,
+                                    device=x.device) / half)
+    ang = positions[..., :, None, None].float() * freqs
+    cos, sin = torch.cos(ang).to(x.dtype), torch.sin(ang).to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+
+
+# ------------------------------------------------------------- attention ---
+def init_attention(gen, cfg, device, lead=()):
+    d, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
+    return {"wq": dense_init(gen, (d, H * hd), device, lead=lead),
+            "wk": dense_init(gen, (d, KV * hd), device, lead=lead),
+            "wv": dense_init(gen, (d, KV * hd), device, lead=lead),
+            "wo": dense_init(gen, (H * hd, d), device, lead=lead)}
+
+
+def attention(p, x, cfg, positions, causal: bool = True,
+              window: Optional[int] = None, cache=None, cache_index=None):
+    """x: [B, S, d].  Returns [B, S, d].
+
+    Without ``cache`` (prefill) the positions are ``arange(S)`` and the
+    flash-attention wrapper computes the attention.  With ``cache``
+    (decode, S == 1): ``cache = {"k", "v"}`` of ``[B, KV, eff, hd]`` is a
+    ring buffer (slot = position % eff) written in place at each row's
+    ``cache_index [B]``, and the masks keep slots holding a position in
+    ``[0, cache_index]`` (and inside the window)."""
+    B, S, _ = x.shape
+    H, KV, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    q = rope((x @ p["wq"]).view(B, S, H, hd), positions, cfg.rope_theta)
+    k = rope((x @ p["wk"]).view(B, S, KV, hd), positions, cfg.rope_theta)
+    v = (x @ p["wv"]).view(B, S, KV, hd)
+    if cache is None:
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=causal,
+                              window=window)
+        return out.transpose(1, 2).reshape(B, S, H * hd) @ p["wo"]
+    if S != 1:
+        raise ValueError(f"decode takes one token a step, got S={S}")
+    kc, vc = cache["k"], cache["v"]
+    eff = kc.shape[2]
+    ci = cache_index
+    rows = torch.arange(B, device=x.device)
+    slot = torch.remainder(ci, eff)
+    kc[rows, :, slot] = k[:, 0].to(kc.dtype)
+    vc[rows, :, slot] = v[:, 0].to(vc.dtype)
+    j = torch.arange(eff, device=x.device)
+    # true position held by slot j: the largest p <= cache_index, p = j mod eff
+    tpos = j + torch.div(ci[:, None] - j, eff, rounding_mode="floor") * eff
+    spos = positions                                       # [B, S]
+    m = (tpos >= 0)[:, None, :]                            # [B, 1, eff]
+    if causal:
+        m = m & (tpos[:, None, :] <= spos[:, :, None])
+    if window is not None:
+        m = m & (tpos[:, None, :] > spos[:, :, None] - window)
+    G = H // KV
+    qg = q.view(B, S, KV, G, hd).float()
+    s = torch.einsum("bskgd,bktd->bkgst", qg, kc.float()) * hd ** -0.5
+    s = torch.where(m[:, None, None], s, NEG_INF)
+    pr = torch.softmax(s, -1)
+    out = torch.einsum("bkgst,bktd->bskgd", pr, vc.float()).to(q.dtype)
+    return out.reshape(B, S, H * hd) @ p["wo"]
+
+
+# ----------------------------------------------------------------- mlp -----
+def init_mlp(gen, cfg, device, lead=()):
+    d, f = cfg.d_model, cfg.d_ff
+    return {"w1": dense_init(gen, (d, f), device, lead=lead),
+            "w3": dense_init(gen, (d, f), device, lead=lead),
+            "w2": dense_init(gen, (f, d), device, lead=lead)}
+
+
+def mlp(p, x):
+    return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]

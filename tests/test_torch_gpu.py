@@ -4,8 +4,10 @@ versions on the CPU.
 Every test here is marked ``gpu`` and skips itself where there is no CUDA
 device (a CUDA kernel has no CPU mode).  This file imports no jax, so it
 also runs where only PyTorch is installed: ``python -m pytest -m gpu
-tests/test_torch_gpu.py``.  All outputs are integers: the tolerance is
-zero.
+tests/test_torch_gpu.py``.  The queue kernels' outputs are integers:
+their tolerance is zero.  The attention and SSD kernels compute in f32 in
+another summation order than their plain versions on the same device
+tensors; each test states its tolerance.
 """
 import numpy as np
 import pytest
@@ -13,13 +15,22 @@ import torch
 
 from repro_torch.dqueue import (DevicePriorityQueue, DeviceQueue,
                                 DeviceStack, ElasticDeviceQueue)
+from repro_torch.kernels.flash_attention import (attention_chunked,
+                                                 flash_attention)
 from repro_torch.kernels.hash_route import hash_route, hash_route_ref
 from repro_torch.kernels.segscan import (queue_scan, queue_scan_ref,
                                          stack_scan, stack_scan_ref,
                                          tiered_queue_scan,
                                          tiered_queue_scan_ref)
+from repro_torch.kernels.ssd_scan import ssd_chunked_ref, ssd_scan
 
 pytestmark = pytest.mark.gpu
+
+# test_model_on_gpu_matches_cpu's tolerance on logits, per arch, about
+# twice the largest reading on an NVIDIA H100 80GB HBM3 at 700 W (the test
+# prints them; run with -s): zamba2 0.0088, mamba2 0.0039, llama3 0.0042
+GPU_CPU_LOGIT_TOL = {"zamba2_1p2b": 0.02, "mamba2_130m": 0.01,
+                     "llama3_8b": 0.01}
 
 
 @pytest.fixture
@@ -187,3 +198,103 @@ def test_device_priority_queue_64_shards_on_gpu_matches_cpu(cuda, pipelined):
                        st.firsts.cpu(), st.lasts.cpu()])
     for a, b in zip(*outs):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Hq, Hkv, Lq, Lk, D, causal, window, dtype)
+    (2, 4, 4, 256, 256, 64, True, None, torch.bfloat16),
+    (1, 8, 2, 200, 200, 128, True, None, torch.bfloat16),    # GQA, ragged
+    (1, 4, 4, 333, 1000, 64, True, 100, torch.bfloat16),     # window
+    (2, 2, 2, 128, 128, 32, False, None, torch.float32),
+    (1, 4, 1, 1, 130, 64, True, None, torch.float32),        # one query
+    (1, 4, 2, 70, 70, 32, True, 8, torch.float32),
+])
+def test_flash_attention_kernel_matches_plain(cuda, case):
+    """The kernel against its plain version on the same CUDA tensors, q in
+    the model's [B, L, H, D] layout (strided).  Tolerance per element: f32
+    2e-5 abs (summation order); bf16 2^-7 |want| + 1e-5 (both round an f32
+    result to bf16 once, so they sit at most one bf16 step apart, plus the
+    f32 orders' difference near 0), as chip_smoke.py holds the path's
+    shapes."""
+    B, Hq, Hkv, Lq, Lk, D, causal, window, dt = case
+    g = torch.Generator().manual_seed(Lq + Lk + D)
+    q = torch.randn(B, Lq, Hq, D, generator=g).to(cuda, dt).transpose(1, 2)
+    k, v = (torch.randn(B, Hkv, Lk, D, generator=g).to(cuda, dt)
+            for _ in range(2))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    assert flash_attention.launches == before + 1
+    want = attention_chunked(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert got.dtype == dt and got.shape == (B, Hq, Lq, D)
+    d, w = (got.float() - want.float()).abs(), want.float().abs()
+    limit = 2e-5 if dt == torch.float32 else 2.0 ** -7 * w + 1e-5
+    assert bool((d <= limit).all()), float(d.max())
+
+
+@pytest.mark.parametrize("b,H,L,P,N,bc", [
+    (2, 3, 100, 16, 16, torch.bfloat16),       # ragged, reduced widths
+    (1, 4, 256, 64, 64, torch.bfloat16),       # zamba2's head and state
+    (2, 2, 130, 64, 128, torch.float32),       # mamba2-130m's state
+    (1, 2, 1, 32, 16, torch.float32),
+])
+def test_ssd_scan_kernel_matches_plain(cuda, b, H, L, P, N, bc):
+    """The kernel against its plain version on the same CUDA tensors, in
+    the model's form: xt/loga as views of [b, L, H, ...] buffers, B/C a
+    stride-0 expand of [b, L, N].  Tolerance 1e-4 of max |y|: f32 in
+    another summation order, through the carried state."""
+    g = torch.Generator().manual_seed(L + P + N)
+    xt = torch.randn(b, L, H, P, generator=g).to(cuda).transpose(1, 2)
+    loga = (-torch.rand(b, L, H, generator=g) * 0.2).to(cuda).transpose(1, 2)
+    B, C = ((torch.randn(b, L, N, generator=g) * 0.3).to(cuda, bc)[
+        :, None].expand(b, H, L, N) for _ in range(2))
+    before = ssd_scan.launches
+    got = ssd_scan(xt, loga, B, C)
+    assert ssd_scan.launches == before + 1
+    want = ssd_chunked_ref(xt, loga, B, C)
+    torch.cuda.synchronize()
+    assert got.shape == (b, H, L, P) and got.dtype == torch.float32
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err < 1e-4, err
+
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+@pytest.mark.parametrize("arch", ["zamba2_1p2b", "mamba2_130m", "llama3_8b"])
+def test_model_on_gpu_matches_cpu(cuda, arch):
+    """A reduced model on the card (both kernels) against the same model
+    on the CPU (their plain versions): the prefill of a 100-token prompt
+    (no multiple of any tile) and four decode steps.  Tolerance
+    ``GPU_CPU_LOGIT_TOL`` on logits: bf16 products round at other places
+    in cuBLAS than on the CPU."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config(arch).reduced()
+    model = build_model(cfg)
+    params = model.init_params(0, device="cpu")
+    gparams = _to(params, cuda)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 100)))
+    f0, s0 = flash_attention.launches, ssd_scan.launches
+    got = model.prefill(gparams, toks.to(cuda))
+    n_attn = {"hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+              "ssm": 0, "dense": cfg.n_layers}[cfg.family]
+    n_ssd = 0 if cfg.family == "dense" else cfg.n_layers
+    assert flash_attention.launches - f0 == n_attn
+    assert ssd_scan.launches - s0 == n_ssd
+    want = model.prefill(params, toks)
+    gaps = [float((got.cpu() - want).abs().max())]
+    gc = model.init_cache(2, 8, device=cuda)
+    cc = model.init_cache(2, 8, device="cpu")
+    for t in range(4):
+        pos = torch.tensor([t, t + 1])
+        gl, gc = model.decode_fn(gparams, gc, toks[:, t:t + 1].to(cuda),
+                                 pos.to(cuda))
+        cl, cc = model.decode_fn(params, cc, toks[:, t:t + 1], pos)
+        gaps.append(float((gl.cpu() - cl).abs().max()))
+    print(f"{arch}: max |Δlogit| card vs CPU, prefill then decode: {gaps}")
+    assert max(gaps) < GPU_CPU_LOGIT_TOL[arch], gaps
