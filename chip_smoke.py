@@ -16,7 +16,8 @@ drives the port through its entry points at full size:
   shards) through the hash-route report;
 * the prefill of zamba2-1.2b at full width and depth (random weights
   from the seed): 4 prompts of 4,096 tokens through 6 flash-attention
-  and 38 SSD-scan launches, and a 512-token prompt against teacher-forced
+  calls (all on the tensor-core kernel) and 38 SSD-scan calls (three
+  launches each), and a 512-token prompt against teacher-forced
   decoding;
 * the FIFO serving engine over an 8-shard request queue serving 32
   requests with the same model, resized 8 -> 6 between two bursts.
@@ -117,28 +118,61 @@ def max_abs_err(got, want) -> int:
 
 # ----------------------------------------------------------------- phases --
 def phase_build():
+    """Build every kernel library from csrc/ (one nvcc each, in parallel)
+    and report each kernel's registers, static shared memory and spills
+    from ptxas, and the dynamic shared memory of the two model kernels at
+    the prefill path's shapes."""
+    import ctypes
     from repro_torch.kernels import backend
     t0 = time.perf_counter()
     info = backend.build()
     total = time.perf_counter() - t0
     kernels = {}
     for name, rec in info.items():
-        fns, cur = [], None
+        fns, cur, spill = [], None, (0, 0)
         for line in rec["ptxas"].splitlines():
             m = re.search(r"(?:Compiling entry function|Function properties "
                           r"for) '?([\w$]+)'?", line)
             if m:
                 cur = m.group(1)
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill "
+                          r"loads", line)
+            if m:
+                spill = (int(m.group(1)), int(m.group(2)))
             m = re.search(r"Used (\d+) registers", line)
             if m:
                 smem = re.search(r"(\d+) bytes smem", line)
                 fns.append({"function": cur, "registers": int(m.group(1)),
-                            "smem_bytes": int(smem.group(1)) if smem else 0})
+                            "smem_bytes": int(smem.group(1)) if smem else 0,
+                            "spill_stores": spill[0],
+                            "spill_loads": spill[1]})
+                spill = (0, 0)
+        # ptxas performance notices, e.g. C7512 / C7518: wgmma serialized
+        notices = [line.strip() for line in rec["ptxas"].splitlines()
+                   if "Performance Loss" in line]
         kernels[name] = {"seconds": rec["seconds"], "cached": rec["cached"],
-                         "functions": fns}
-    for name in info:
-        backend.load(name)
-    emit("build", seconds=total, kernels=kernels)
+                         "functions": fns, "ptxas_notices": notices}
+    libs = {name: backend.load(name) for name in info}
+    fa = libs["flash_attention"].repro_flash_attention_tc_smem
+    fa.argtypes, fa.restype = [ctypes.c_int], ctypes.c_int64
+    ssd = libs["ssd_scan"].repro_ssd_scan_smem
+    ssd.argtypes, ssd.restype = [ctypes.c_int] * 4, ctypes.c_int64
+    from repro_torch.kernels.ssd_scan.kernel import CHUNK
+    dynamic = {"flash_fwd_wgmma<64>": fa(64),
+               "flash_fwd_wgmma<128>": fa(128),
+               f"ssd_scan (P = N = 64, chunk {CHUNK}, bf16 B/C)":
+               ssd(64, 64, CHUNK, 1)}
+    emit("build", seconds=total, kernels=kernels,
+         dynamic_smem_bytes=dynamic)
+    for name, rec in kernels.items():
+        if name in ("flash_attention", "ssd_scan"):
+            for f in rec["functions"]:
+                print(f"ptxas {name}: {f['function']}: {f['registers']} "
+                      f"registers, {f['smem_bytes']} bytes static smem, "
+                      f"spills {f['spill_stores']}/{f['spill_loads']} bytes",
+                      flush=True)
+            for note in rec["ptxas_notices"]:
+                print(f"ptxas {name}: {note}", flush=True)
 
 
 def phase_queue_scan(torch, rng, results):
@@ -981,6 +1015,7 @@ def phase_flash_attention(torch, results):
     layout; SDPA on the causal inputs as the yardstick."""
     from repro_torch.kernels.flash_attention import (attention_chunked,
                                                      flash_attention)
+    from repro_torch.kernels.flash_attention.kernel import tc_route
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(1)
@@ -1003,9 +1038,13 @@ def phase_flash_attention(torch, results):
                         dtype=dt).transpose(1, 2)
         k, v = (torch.randn(B, Lk, Hkv, D, generator=gen, device=dev,
                             dtype=dt).transpose(1, 2) for _ in range(2))
+        tc0 = flash_attention.tc_launches
         got = flash_attention(q, k, v, causal=True, window=window)
         want = attention_chunked(q, k, v, causal=True, window=window)
         torch.cuda.synchronize()
+        tc = flash_attention.tc_launches - tc0
+        check(tc == int(tc_route(dt, D, Lq)),
+              f"flash_attention {case}: the route rule's kernel ran")
         err = _flash_err(torch, got, want)
         check(got.shape == (B, Hq, Lq, D) and got.dtype == dt,
               f"flash_attention {case}: shape and type")
@@ -1031,6 +1070,8 @@ def phase_flash_attention(torch, results):
         b_ms, b_by = bound(n_bytes, 4 * D * pairs, peak)
         rec = {"case": case, "B": B, "Hq": Hq, "Hkv": Hkv, "Lq": Lq,
                "Lk": Lk, "D": D, "window": window,
+               "kernel": "flash_fwd_wgmma (tensor cores: wgmma, TMA)" if tc
+               else "flash_fwd (scalar f32)",
                "dtype": str(dt).split(".")[-1], "causal": True, **err,
                "tolerance": (f"|d| <= {FLASH_RTOL} |want| + {FLASH_ATOL}"
                              if dt == bf16 else f"|d| <= {FLASH_F32_TOL}"),
@@ -1053,6 +1094,7 @@ def phase_ssd_scan(torch, results):
     the same device tensors, in the model's form: xt/loga views of
     [b, L, H, ...] buffers, B/C a stride-0 expand of [b, L, N] bf16."""
     from repro_torch.kernels.ssd_scan import ssd_chunked_ref, ssd_scan
+    from repro_torch.kernels.ssd_scan.kernel import CHUNK, ssd_scan_kernel
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     # (case, b, H, L, P, N, timing reps)
@@ -1077,6 +1119,16 @@ def phase_ssd_scan(torch, results):
         check(got.shape == (b, H, L, P), f"ssd_scan {case}: shape")
         check(rel <= SSD_REL_TOL, f"ssd_scan {case}: error {rel} of max |y| "
                                   f"within {SSD_REL_TOL}")
+        alt = {}
+        if case.startswith("prefill_path"):
+            # the other chunk length the kernel takes, beside CHUNK's time
+            got = ssd_scan_kernel(xt, loga, Bh, Ch, chunk=128)
+            rel128 = float((got - want).abs().max()) / float(want.abs().max())
+            check(rel128 <= SSD_REL_TOL, f"ssd_scan {case} at chunk 128: "
+                                         f"error {rel128} of max |y|")
+            alt = {"chunk_128_ms": time_ms(lambda: ssd_scan_kernel(
+                xt, loga, Bh, Ch, chunk=128), reps, torch),
+                "chunk_128_rel_err": rel128}
         del got, want
         ms = time_ms(lambda: ssd_scan(xt, loga, Bh, Ch), reps, torch)
         plain = time_ms(lambda: ssd_chunked_ref(xt, loga, Bh, Ch),
@@ -1086,6 +1138,11 @@ def phase_ssd_scan(torch, results):
         b_ms, b_by = bound(n_bytes, flops, F32_FLOPS)
         rec = {"case": case, "b": b, "H": H, "L": L, "P": P, "N": N,
                "xt": "float32", "B/C": "bfloat16, stride 0 over heads",
+               "kernel": "chunk-parallel: ssd_scan_states, ssd_scan_pass, "
+                         "ssd_scan_outputs (mma.sync: bf16 C·Bᵀ, 3xTF32)",
+               "chunk": CHUNK, "launches_per_call": 3, **alt,
+               "by_pass_ms": _by_kernel(torch, lambda: ssd_scan(
+                   xt, loga, Bh, Ch)),
                "max_abs_err": err, "rel_err": rel,
                "tolerance_rel": SSD_REL_TOL, "ms": ms, "plain_ms": plain,
                "library_ms": None,
@@ -1095,6 +1152,27 @@ def phase_ssd_scan(torch, results):
         results.setdefault("ssd_scan", []).append(rec)
         emit("kernel:ssd_scan", **rec)
         del xt, loga, Bm, Cm, Bh, Ch, dt
+
+
+def _by_kernel(torch, fn, reps: int = 3) -> dict:
+    """Mean device ms per call of each kernel that ``fn`` launches, from
+    torch.profiler (after one warm-up call); "not measured" where the
+    profiler sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if ev.device_type == DeviceType.CUDA and ev.self_device_time_total:
+            m = re.search(r"::(\w+)", ev.key)
+            name = m.group(1) if m else ev.key[:60]
+            out[name] = ev.self_device_time_total / reps / 1e3
+    return out or "not measured"
 
 
 def _zamba2(torch, seed):
@@ -1166,7 +1244,8 @@ def phase_prefill_zamba2(torch, seed, results):
     tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen, device="cuda")
     model.prefill(params, tokens[:1, :256])              # warm-up
     torch.cuda.synchronize()
-    flash_attention.launches = ssd_scan.launches = 0
+    flash_attention.launches = flash_attention.tc_launches = 0
+    ssd_scan.launches = 0
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     t0 = time.perf_counter()
@@ -1177,7 +1256,10 @@ def phase_prefill_zamba2(torch, seed, results):
     wall = time.perf_counter() - t0
     launches = {"flash_attention": flash_attention.launches,
                 "ssd_scan": ssd_scan.launches}
+    tc_launches = flash_attention.tc_launches
     n_attn = cfg.n_layers // cfg.attn_every
+    check(tc_launches == n_attn, f"all {n_attn} flash calls of the prefill "
+                                 f"took the tensor-core route: {tc_launches}")
     check(launches == {"flash_attention": n_attn,
                        "ssd_scan": cfg.n_layers},
           f"one prefill launched flash attention {n_attn} times and the "
@@ -1226,7 +1308,9 @@ def phase_prefill_zamba2(torch, seed, results):
     agree["float32"]["tolerance"] = PREFILL_DECODE_TOL
     rec = {"arch": cfg.name, "params": n_params, "batch": B, "seq": S,
            "flash_attention_launches": launches["flash_attention"],
+           "flash_attention_tensor_core_launches": tc_launches,
            "ssd_scan_launches": launches["ssd_scan"],
+           "ssd_scan_kernel_launches": 3 * launches["ssd_scan"],
            "wall_ms": wall * 1e3, "device_ms": start.elapsed_time(end),
            "tokens_per_s": B * S / wall, "max_memory_allocated": peak,
            "logits_finite": True, "profile": prof,

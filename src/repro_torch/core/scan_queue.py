@@ -33,6 +33,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from ..kernels.backend import resolve_device
+
 INF = 2 ** 30   # +infinity of the tropical semiring; A, C >= 0 keep sums
 #                 below 2^31 for any wave shorter than 2^30 ops
 BOTTOM = -1
@@ -45,7 +47,9 @@ class QueueState(NamedTuple):
 
     @staticmethod
     def empty(device=None) -> "QueueState":
-        """The empty queue, (first, last) = (0, -1)."""
+        """The empty queue, (first, last) = (0, -1), on ``device`` (CUDA
+        when None; raises where there is none)."""
+        device = resolve_device(device)
         return QueueState(torch.tensor(0, dtype=torch.int32, device=device),
                           torch.tensor(-1, dtype=torch.int32, device=device))
 
@@ -63,7 +67,9 @@ class StackState(NamedTuple):
 
     @staticmethod
     def empty(device=None) -> "StackState":
-        """The empty stack, (last, ticket) = (0, 0)."""
+        """The empty stack, (last, ticket) = (0, 0), on ``device`` (CUDA
+        when None; raises where there is none)."""
+        device = resolve_device(device)
         return StackState(torch.tensor(0, dtype=torch.int32, device=device),
                           torch.tensor(0, dtype=torch.int32, device=device))
 

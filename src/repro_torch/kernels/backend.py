@@ -11,13 +11,15 @@ Kernels are CUDA C++ sources under ``csrc/``, compiled with ``nvcc`` for
 ``sm_90a`` into shared libraries with a plain C interface and loaded with
 ``ctypes`` (no PyTorch headers, so a build takes seconds).  They are built
 at first use into ``build/repro_torch_kernels/`` at the repository root,
-named by a hash of source and flags so an edited source is rebuilt.
+named by a hash of source, the ``csrc/*.cuh`` headers it includes, and
+flags, so an edited source or header is rebuilt.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -32,6 +34,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # csrc/<name>.cu, one library each
 SOURCES = ("segscan", "hash_route", "ssd_scan", "flash_attention")
 
+_LOCAL_INCLUDE = re.compile(rb'#include\s+"([\w.]+\.cuh)"')
 _libs: dict = {}   # name -> loaded ctypes.CDLL (one per process)
 
 
@@ -61,8 +64,12 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    """Where ``csrc/<name>.cu`` is built, keyed by source and flags."""
-    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    """Where ``csrc/<name>.cu`` is built, keyed by source, the local
+    headers it includes (``#include "x.cuh"``) and flags."""
+    src = (CSRC / f"{name}.cu").read_bytes()
+    h = hashlib.sha256(src)
+    for inc in sorted(set(_LOCAL_INCLUDE.findall(src))):
+        h.update(inc + (CSRC / inc.decode()).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 

@@ -1,61 +1,79 @@
-// Flash attention forward (online softmax), causal and sliding window, GQA.
+// Flash attention forward (online softmax), causal and sliding window, GQA:
+// two kernels, chosen by the wrapper's route rule (kernel.py: tc_route).
 //
 // Replaces repro/kernels/flash_attention/kernel.py:flash_attention_kernel
 // (Pallas, body _fa_kernel; grid (batch·heads, q blocks, kv blocks) with
-// the kv axis sequential and m, l, acc in VMEM scratch) and the GQA fold of
-// its wrapper, ops.py:_flash_attention (one launch per query group).  Here
-// one block takes one (batch·head, 64-query tile) and loops over 64-key
-// tiles in order, keeping the running max m, normalizer l and accumulator
-// acc of its rows in registers (f32); Q, the current K/V tile and the
-// probabilities sit in shared memory.  The loop takes the place of the
-// TPU's sequential kv grid axis.
+// the kv axis sequential and m, l, acc in VMEM scratch, S = Q·Kᵀ and P·V
+// both f32 dots) and the GQA fold of its wrapper, ops.py:_flash_attention
+// (one launch per query group).  In both kernels a block takes one
+// (batch·head, query tile) and loops over key tiles in order, keeping the
+// running max m, normalizer l and accumulator of its rows in registers
+// (f32): the loop takes the place of the TPU's sequential kv grid axis.
 //
 // Masks come from absolute positions, queries aligned to the END of the
 // keys (off = Lk - Lq): causal keeps kpos <= qpos, a window keeps
 // kpos > qpos - window.  Key tiles that the mask empties for the whole
 // query tile are never visited (the loop bounds), which halves causal
 // work and leaves O(window) keys per query tile.  A ragged edge (Lq or Lk
-// not a multiple of 64) is masked here, not padded.  A row that sees no
-// key writes 0 (l == 0).  Query head h reads kv head h / (Hq / Hkv)
-// directly, so GQA needs no per-group launches and no copies; every
-// tensor is read through (batch, head, position) strides, so the model's
-// [B, L, H, D] projections are used as they are.
+// not a tile multiple) is masked here, not padded.  A row that sees no key
+// writes 0 (l == 0).  Query head h reads kv head h / (Hq / Hkv) directly,
+// so GQA needs no per-group launches and no copies; every tensor is read
+// through (batch, head, position) strides, so the model's [B, L, H, D]
+// projections are used as they are.
 //
 // What bounds it on an H100: at the prefill path's shape (B = 4, H = 32,
 // L = 4096, D = 64, bf16, causal) the function needs 275 GFLOP (4·D per
-// visible query-key pair), 0.28 ms at the 989 TFLOP/s bf16 tensor-core
-// rate, and moves 268 MB, 0.08 ms at 3.35 TB/s: operations.  This first
-// kernel computes with scalar f32 FMAs from shared memory (each thread a
-// 4 x 4 score tile and 4 x D/16 outputs), so shared-memory bandwidth and
-// the 67 TFLOP/s f32 rate bound it, far above the tensor-core bound.
-// mma/wgmma tiles and a TMA ring are later work.
+// visible query-key pair), 0.278 ms at the 989 TFLOP/s bf16 tensor-core
+// rate, and moves 268 MB, 0.08 ms at 3.35 TB/s: operations.
+//
+// flash_fwd_wgmma (bf16, D 64 or 128, Lq >= 64), the prefill's kernel: one
+// block of 128 queries, two consumer warpgroups of 64 rows and one producer
+// warp.  The producer loads Q once and keeps a ring of 3 K/V stages full
+// with TMA (cp.async.bulk.tensor over 4-D maps of the caller's strided
+// views, built on the host for each call; mbarriers signal arrival and
+// release), so no thread spends instructions on loads.  S = Q·Kᵀ is
+// wgmma m64n64k16 from shared memory (products of bf16 are exact in f32,
+// as in the TPU kernel's f32 dot); the softmax scale is applied to S in
+// f32 inside the exp2 argument (1/√D is not exact in bf16).  The TPU
+// kernel computes P·V in f32, and one bf16 rounding of P would add about
+// 2^-9 relative error to each p, over the per-element check's limit
+// where |out| is small; so P = p_hi + p_lo (p_hi = bf16(p), p_lo =
+// bf16(p - p_hi)) goes to two wgmmas from registers against V in shared
+// memory (V's rows are keys: the MN-major operand).  That is 1.5 times the
+// nominal tensor-core work, so the kernel can reach at most about two
+// thirds of the bound above.  D = 128 loads each tile as two 64-column
+// boxes under 128-byte swizzle, the wgmma K-major layout's atom.  The mask
+// arithmetic runs only on tiles that cut the diagonal, the window edge or
+// Lk; TMA reads out-of-bounds boxes as zero.  Each warpgroup overlaps its
+// own work as FlashAttention-3 does: S of the next tile and P·V of the last
+// one are issued together, and the softmax runs while P·V is on the
+// tensor cores (every wgmma outside any branch, or ptxas serializes them).
+// What holds it above the bound: the split's 1.5 times the tensor work;
+// one exp2 per score on the 16-a-clock special-function units; and one
+// block an SM (133 registers a thread at D = 64, 154 at D = 128), so two
+// warpgroups share each SM's tensor cores with no scheduling between them.
+//
+// flash_fwd (f32, D = 32, or Lq < 64): the first, scalar kernel, kept as
+// it was: 64 x 64 tiles with Q, K, V and P in shared memory as f32 and
+// scalar fmaf, bound by shared-memory bandwidth and the 67 TFLOP/s f32
+// rate.
 #include <cmath>
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "common.cuh"
+
 namespace {
+
+using repro::from_f;
+using repro::Strides;
+using repro::to_f;
 
 constexpr int kThreads = 256;    // 16 x 16: ty owns 4 rows, tx 4 columns
 constexpr int kBQ = 64;
 constexpr int kBK = 64;
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T>
-__device__ __forceinline__ T from_f(float x);
-template <>
-__device__ __forceinline__ float from_f<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-struct Strides {                 // element strides of (batch, head, position)
-  int64_t b, h, l;
-};
 
 struct Params {
   const void* q;
@@ -232,6 +250,530 @@ int dispatch(const Params& p, int D, int BH, cudaStream_t s) {
 
 }  // namespace
 
+
+// ------------------------------------------------- tensor-core route --
+namespace {
+
+constexpr int kTcThreads = 288;  // warps 0-7: two consumer warpgroups; 8: TMA
+constexpr int kStages = 3;       // K/V ring depth
+constexpr int kTcBQ = 128;       // queries per block, 64 per warpgroup
+constexpr int kTcBK = 64;        // keys per tile
+
+struct TmaTensor {               // one 4-D map (D, then h, l, b by stride)
+  CUtensorMap map;
+  int perm[3];                   // map dim 1 + i holds logical dim perm[i]:
+};                               // 0 head, 1 position, 2 batch
+
+struct TcParams {
+  TmaTensor q, k, v;
+  void* o;
+  Strides so;
+  int Hq, G, Lq, Lk, causal, window;
+  float scale;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t n) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(n)
+      : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+// spin until the phase of parity `parity` has completed; a wait that
+// never completes traps (a launch error) instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int parity) {
+  const uint32_t a = smem_u32(bar);
+  uint32_t done = 0, spins = 0;
+  do {
+    if (++spins == (1u << 30)) asm volatile("trap;");
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(a), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+__device__ __forceinline__ int pick(int which, int h, int l, int b) {
+  return which == 0 ? h : which == 1 ? l : b;
+}
+// one 64 x 64 box of `t` at (d0, head h, position l, batch b) into dst
+__device__ __forceinline__ void tma_load(void* dst, const TmaTensor& t,
+                                         uint64_t* bar, int d0, int h, int l,
+                                         int b) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(&t.map)), "r"(smem_u32(bar)), "r"(d0),
+      "r"(pick(t.perm[0], h, l, b)), "r"(pick(t.perm[1], h, l, b)),
+      "r"(pick(t.perm[2], h, l, b))
+      : "memory");
+}
+
+// wgmma shared-memory descriptors for 128-byte-swizzled tiles of 64-wide
+// (128-byte) rows, 8-row groups 1,024 bytes apart (SBO).  K-major: the
+// reduction dim runs along the row (Q and K in S = Q·Kᵀ).  MN-major: it
+// runs down the rows, and LBO is the step to the next 64 columns, one
+// [64 x 64] box (V in O = P·V).
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
+  return ((addr & 0x3FFFFu) >> 4) | (1ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr) {
+  return ((addr & 0x3FFFFu) >> 4) | (512ull << 16) | (64ull << 32) |
+         (1ull << 62);
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// all but the newest committed group have completed
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// keep the compiler from moving accesses of r across a wgmma wait
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// d (+)= A·B, m64n64k16, A and B from shared memory (K-major, 128-byte
+// swizzle); scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                             uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// d += A·B, m64n64k16, A from registers (4 x bf16x2 a thread), B from
+// shared memory MN-major (transposed) with 128-byte swizzle
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A·B, m64n128k16, A from registers (4 x bf16x2 a thread), B from
+// shared memory MN-major (transposed) with 128-byte swizzle
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      " %8, %9, %10, %11, %12, %13, %14, %15, "
+      " %16, %17, %18, %19, %20, %21, %22, %23, "
+      " %24, %25, %26, %27, %28, %29, %30, %31, "
+      " %32, %33, %34, %35, %36, %37, %38, %39, "
+      " %40, %41, %42, %43, %44, %45, %46, %47, "
+      " %48, %49, %50, %51, %52, %53, %54, %55, "
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4], uint64_t db);
+template <>
+__device__ __forceinline__ void wgmma_pv<64>(float (&o)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t db) {
+  wgmma_rs_n64(o, a, db);
+}
+template <>
+__device__ __forceinline__ void wgmma_pv<128>(float (&o)[64],
+                                              const uint32_t (&a)[4],
+                                              uint64_t db) {
+  wgmma_rs_n128(o, a, db);
+}
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+constexpr size_t tc_smem_bytes(int D) {
+  // 1,024 bytes of alignment slack, Q [128 x D], kStages x (K, V) [64 x D],
+  // then the barriers
+  return 1024 + (size_t)(D / 64) * 16384 * (1 + kStages) +
+         8 * (2 * kStages + 1);
+}
+
+// One block: one (batch·head, 128-query tile).  Warp 8 loads Q once and
+// keeps a ring of kStages K/V tiles full with TMA; warpgroups 0 and 1 each
+// take 64 query rows through every key tile: S = Q·Kᵀ by wgmma from shared
+// memory, the online softmax in registers, then O += P·V by two wgmmas per
+// 16 keys with P = p_hi + p_lo from registers.
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+    flash_fwd_wgmma(const __grid_constant__ TcParams p) {
+  constexpr int NSUB = D / 64;   // 64-column boxes per row
+  constexpr int NO = D / 2;      // output accumulators a thread
+  constexpr uint32_t kQBytes = kTcBQ * D * 2;
+  constexpr uint32_t kKVBytes = 2 * kTcBK * D * 2;
+  constexpr int kStageBytes = NSUB * 16384;   // K then V
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* Qs = sm;                          // NSUB x [128][64]
+  uint8_t* KV = sm + NSUB * 16384;           // stage: K NSUB x [64][64], V
+  uint64_t* full = reinterpret_cast<uint64_t*>(KV + kStages * kStageBytes);
+  uint64_t* empty = full + kStages;
+  uint64_t* qbar = empty + kStages;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.y, bi = bh / p.Hq, hi = bh % p.Hq, hk = hi / p.G;
+  // heavy (late) causal tiles first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kTcBQ;
+  const int off = p.Lk - p.Lq;
+  const int q_first = q0 + off, q_last = min(q0 + kTcBQ, p.Lq) - 1 + off;
+  int k_end = p.Lk;
+  if (p.causal) k_end = min(k_end, q_last + 1);
+  int k_begin = 0;
+  if (p.window > 0) k_begin = max(0, q_first - p.window + 1);
+  k_begin = (k_begin / kTcBK) * kTcBK;
+  const int n_tiles = k_end > k_begin ? (k_end - k_begin + kTcBK - 1) / kTcBK
+                                      : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);   // lane 0 of each consumer warp
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {               // producer
+    if (lane == 0) {
+      mbar_expect_tx(qbar, kQBytes);
+      for (int s = 0; s < NSUB; ++s)
+        for (int half = 0; half < 2; ++half)
+          tma_load(Qs + s * 16384 + half * 8192, p.q, qbar, 64 * s, hi,
+                   q0 + 64 * half, bi);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kStages, ph = (t / kStages) & 1;
+        mbar_wait(&empty[st], ph ^ 1);   // the first round passes at once
+        mbar_expect_tx(&full[st], kKVBytes);
+        uint8_t* Ks = KV + st * kStageBytes;
+        const int k0 = k_begin + kTcBK * t;
+        for (int s = 0; s < NSUB; ++s) {
+          tma_load(Ks + s * 8192, p.k, &full[st], 64 * s, hk, k0, bi);
+          tma_load(Ks + NSUB * 8192 + s * 8192, p.v, &full[st], 64 * s, hk,
+                   k0, bi);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup w takes query rows [qw0, qw0 + 64); a thread holds
+  // rows r0 = 16 wl + g and r0 + 8 of them, accumulator i at row
+  // r0 + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 c + (i & 1)
+  const int w = warp >> 2, wl = warp & 3, g = lane >> 2, c = lane & 3;
+  const int qw0 = q0 + 64 * w;
+  const bool has_rows = qw0 < p.Lq;
+  const int qa = qw0 + off, qb = min(qw0 + 64, p.Lq) - 1 + off;
+  const float sl2 = p.scale * 1.4426950408889634f;   // scale · log2(e)
+  float o[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  const uint32_t q_addr = smem_u32(Qs) + w * 8192;
+
+  // S (one tile, f32) -> p in place: the masks where the tile cuts the
+  // diagonal, the window edge or Lk; the running max and sum; alpha, the
+  // factor that rescales earlier rows
+  auto softmax = [&](float (&s)[32], int k0, float (&alpha)[2]) {
+    const bool edge = k0 + kTcBK > p.Lk ||
+                      (p.causal && k0 + kTcBK - 1 > qa) ||
+                      (p.window > 0 && k0 <= qb - p.window);
+    if (edge) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int qpos = qw0 + 16 * wl + g + 8 * ((i >> 1) & 1) + off;
+        const int kpos = k0 + 8 * (i >> 2) + 2 * c + (i & 1);
+        if (kpos >= p.Lk || (p.causal && kpos > qpos) ||
+            (p.window > 0 && kpos <= qpos - p.window))
+          s[i] = -INFINITY;
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * rr], s[4 * j + 2 * rr + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[rr], mx);
+      // a row with nothing visible yet keeps p = 0, l = 0, o = 0
+      const float base = m_new == -INFINITY ? 0.f : m_new * sl2;
+      alpha[rr] = exp2f(m[rr] * sl2 - base);
+      m[rr] = m_new;
+      l[rr] *= alpha[rr];
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int i = 4 * j + 2 * rr + e;
+          s[i] = exp2f(fmaf(s[i], sl2, -base));
+          l[rr] += s[i];
+        }
+    }
+  };
+  // S = Q·K for the tile t (stage t % kStages), once it has arrived;
+  // committed, not waited for
+  auto issue_s = [&](float (&sd)[32], int t) {
+    const int st = t % kStages;
+    mbar_wait(&full[st], (t / kStages) & 1);
+    const uint32_t k_addr = smem_u32(KV + st * kStageBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss_n64(sd, desc_kmajor(q_addr + (kk / 4) * 16384 + (kk % 4) * 32),
+                   desc_kmajor(k_addr + (kk / 4) * 8192 + (kk % 4) * 32),
+                   kk > 0);
+    wgmma_commit();
+  };
+  auto rescale = [&](const float (&alpha)[2]) {
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        o[4 * j + 2 * rr] *= alpha[rr];
+        o[4 * j + 2 * rr + 1] *= alpha[rr];
+      }
+  };
+  // p as wgmma A fragments, 16 keys each: p = p_hi + p_lo in bf16
+  auto to_frags = [&](const float (&sp)[32], uint32_t (&phi)[4][4],
+                      uint32_t (&plo)[4][4]) {
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float x0 = sp[8 * kk + 2 * r], x1 = sp[8 * kk + 2 * r + 1];
+        const __nv_bfloat162 h2 = __floats2bfloat162_rn(x0, x1);
+        const float2 hf = __bfloat1622float2(h2);
+        phi[kk][r] = bf16x2_bits(h2);
+        plo[kk][r] = bf16x2_bits(__floats2bfloat162_rn(x0 - hf.x,
+                                                       x1 - hf.y));
+      }
+  };
+  // o += P·V for the tile in stage st; committed, not waited for
+  auto issue_pv = [&](const uint32_t (&phi)[4][4],
+                      const uint32_t (&plo)[4][4], int st) {
+    const uint32_t v_addr = smem_u32(KV + st * kStageBytes) + NSUB * 8192;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t dv = desc_mnmajor(v_addr + kk * 2048);
+      wgmma_pv<D>(o, phi[kk], dv);
+      wgmma_pv<D>(o, plo[kk], dv);
+    }
+    wgmma_commit();
+  };
+
+  // FA3's in-warpgroup overlap: S_t = Q·K_t and O += P_{t-1}·V_{t-1} are
+  // issued together; the softmax of S_t runs while the second product is
+  // on the tensor cores; O is rescaled once that product is done.  Every
+  // tile of the block's range is computed (a tile that the mask empties
+  // for these rows gives p = 0), so no wgmma sits behind a branch.
+  mbar_wait(qbar, 0);
+  if (n_tiles > 0) {
+    float s[32], alpha[2];
+    uint32_t phi[4][4], plo[4][4];
+    issue_s(s, 0);
+    wgmma_wait0();
+    fence_regs(s);
+    softmax(s, k_begin, alpha);
+    to_frags(s, phi, plo);
+    for (int t = 1; t < n_tiles; ++t) {
+      issue_s(s, t);
+      issue_pv(phi, plo, (t - 1) % kStages);
+      wgmma_wait1();             // S_t done; P_{t-1}·V_{t-1} may still run
+      fence_regs(s);
+      softmax(s, k_begin + kTcBK * t, alpha);
+      wgmma_wait0();
+      fence_regs(o);
+      if (lane == 0) mbar_arrive(&empty[(t - 1) % kStages]);
+      rescale(alpha);
+      to_frags(s, phi, plo);
+    }
+    issue_pv(phi, plo, (n_tiles - 1) % kStages);
+    wgmma_wait0();
+    fence_regs(o);
+    if (lane == 0) mbar_arrive(&empty[(n_tiles - 1) % kStages]);
+  }
+  if (!has_rows) return;
+  __nv_bfloat16* out = static_cast<__nv_bfloat16*>(p.o) + bi * p.so.b +
+                       hi * p.so.h;
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    float lr = l[rr];
+    lr += __shfl_xor_sync(0xffffffffu, lr, 1);
+    lr += __shfl_xor_sync(0xffffffffu, lr, 2);
+    const int row = qw0 + 16 * wl + g + 8 * rr;
+    if (row >= p.Lq) continue;
+    const float inv = lr > 0.f ? 1.f / lr : 0.f;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)row * p.so.l + 8 * j +
+                                         2 * c) =
+          __floats2bfloat162_rn(o[4 * j + 2 * rr] * inv,
+                                o[4 * j + 2 * rr + 1] * inv);
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled from the driver through the runtime's entry-point
+// query, so the library needs no link against libcuda
+EncodeTiled encode_fn() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* ptr = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &ptr, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &ptr, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(ptr);
+  }
+  return fn;
+}
+
+// A 4-D bf16 map over a [B, H, L, D] view with element strides st = (b, h,
+// l) and a contiguous D: dims D, then h, l, b in order of stride (a dim of
+// size 1 last, its stride made valid), boxes of 64 x 64 (D x positions)
+// under 128-byte swizzle.  Out-of-bounds boxes read as zero.  False if the
+// driver refuses it.
+bool encode(TmaTensor& t, const void* ptr, int B, int H, int L, int D,
+            const int64_t* st) {
+  EncodeTiled fn = encode_fn();
+  if (fn == nullptr) return false;
+  const int64_t size[3] = {H, L, B};
+  const int64_t stride[3] = {st[1], st[2], st[0]};
+  int order[3] = {0, 1, 2};
+  auto key = [&](int i) {
+    return size[i] == 1 ? INT64_MAX : stride[i];
+  };
+  for (int i = 0; i < 3; ++i)
+    for (int j = i + 1; j < 3; ++j)
+      if (key(order[j]) < key(order[i])) {
+        const int x = order[i];
+        order[i] = order[j];
+        order[j] = x;
+      }
+  cuuint64_t dims[4] = {(cuuint64_t)D, 0, 0, 0};
+  cuuint64_t bytes[3];
+  cuuint32_t box[4] = {64, 1, 1, 1};
+  const cuuint32_t estride[4] = {1, 1, 1, 1};
+  cuuint64_t prev = (cuuint64_t)D * 2;
+  for (int i = 0; i < 3; ++i) {
+    const int d = order[i];
+    t.perm[i] = d;
+    dims[i + 1] = (cuuint64_t)size[d];
+    bytes[i] = size[d] == 1 ? prev : (cuuint64_t)stride[d] * 2;
+    prev = bytes[i] * dims[i + 1];
+    if (d == 1) box[i + 1] = kTcBK;
+  }
+  return fn(&t.map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(ptr), dims, bytes, box, estride,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_tc(const TcParams& p, int BH, cudaStream_t stream) {
+  constexpr size_t smem = tc_smem_bytes(D);
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((p.Lq + kTcBQ - 1) / kTcBQ, BH);
+  flash_fwd_wgmma<D><<<grid, kTcThreads, smem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
 // q: [B, Hq, Lq, D]; k, v: [B, Hkv, Lk, D]; o: [B, Hq, Lq, D]; all bf16
 // (is_bf16 = 1) or all f32, each read through strides[12] = the (batch,
 // head, position) element strides of q, k, v, o in that order, with the
@@ -262,4 +804,41 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? dispatch<__nv_bfloat16>(p, D, B * Hq, s)
                  : dispatch<float>(p, D, B * Hq, s);
+}
+
+// q: [B, Hq, Lq, D]; k, v: [B, Hkv, Lk, D]; o: [B, Hq, Lq, D]; all bf16,
+// D in {64, 128}, read through strides[12] = the (batch, head, position)
+// element strides of q, k, v, o in that order, with the head dim
+// contiguous, bases and byte strides of q, k, v multiples of 16 (TMA).
+// window <= 0 means none.  Returns the first CUDA error, 0 on success
+// (cudaErrorInvalidValue where the driver refuses a tensor map).
+extern "C" int repro_flash_attention_tc(const void* q, const void* k,
+                                        const void* v, void* o, int B,
+                                        int Hq, int Hkv, int Lq, int Lk,
+                                        int D, int causal, int window,
+                                        const int64_t* strides,
+                                        void* stream) {
+  if (B <= 0 || Hq <= 0 || Lq <= 0) return 0;
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  TcParams p;
+  if (!encode(p.q, q, B, Hq, Lq, D, strides) ||
+      !encode(p.k, k, B, Hkv, Lk, D, strides + 3) ||
+      !encode(p.v, v, B, Hkv, Lk, D, strides + 6))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.o = o;
+  p.so = {strides[9], strides[10], strides[11]};
+  p.Hq = Hq;
+  p.G = Hq / Hkv;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.causal = causal;
+  p.window = window;
+  p.scale = 1.0f / sqrtf(static_cast<float>(D));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D == 64 ? launch_tc<64>(p, B * Hq, s) : launch_tc<128>(p, B * Hq, s);
+}
+
+// Dynamic shared memory flash_fwd_wgmma takes for head dim D.
+extern "C" int64_t repro_flash_attention_tc_smem(int D) {
+  return static_cast<int64_t>(tc_smem_bytes(D));
 }

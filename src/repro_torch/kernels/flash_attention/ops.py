@@ -20,16 +20,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     Returns [B, Hq, Lq, D] in q's dtype.  Queries align to the end of the
     keys; any Lq <= Lk is taken (no block multiple).  A CUDA tensor goes
-    to the CUDA kernel, which raises if it cannot be built or launched; a
+    to a CUDA kernel, which raises if it cannot be built or launched; a
     CPU tensor goes to the plain version.  ``flash_attention.launches``
-    counts launches.
+    counts launches of either CUDA kernel, ``flash_attention.tc_launches``
+    those of the tensor-core one (``kernel.tc_route``).
     """
     if q.device.type != "cuda":
         return attention_chunked(q, k, v, causal=causal, window=window)
-    from .kernel import flash_attention_kernel
+    from .kernel import flash_attention_kernel, tc_route
     out = flash_attention_kernel(q, k, v, causal=causal, window=window)
     flash_attention.launches += 1
+    flash_attention.tc_launches += tc_route(q.dtype, q.shape[-1],
+                                            q.shape[2])
     return out
 
 
 flash_attention.launches = 0
+flash_attention.tc_launches = 0

@@ -1,8 +1,9 @@
 """Launcher of the CUDA SSD scan, ``csrc/ssd_scan.cu``.
 
 Replaces ``repro/kernels/ssd_scan/kernel.py:ssd_scan_kernel``.  The CUDA
-source says what bounds it; this module checks the tensors and passes
-pointers and strides.
+source says what bounds it; this module checks the tensors, allocates the
+scratch (each chunk's state, each chunk's decay) and passes pointers and
+strides.  One call issues three kernel launches.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import torch
 from ..backend import check_launch, load, stream_ptr
 
 MAX_SMEM = 232_448   # bytes of shared memory one block may use on Hopper
+CHUNK = 64           # tokens per chunk; ssd_scan.cu takes 64 or 128
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -22,9 +24,9 @@ def _lib():
     lib = load("ssd_scan")
     fn = lib.repro_ssd_scan
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 5 + [_I] * 6 + [_P, _P]
+        fn.argtypes = [_P] * 7 + [_I] * 7 + [_P, _P]
         fn.restype = ctypes.c_int
-        lib.repro_ssd_scan_smem.argtypes = [_I, _I]
+        lib.repro_ssd_scan_smem.argtypes = [_I] * 4
         lib.repro_ssd_scan_smem.restype = ctypes.c_int64
     return lib
 
@@ -39,13 +41,15 @@ def _bhl(name: str, t: torch.Tensor):
 
 
 def ssd_scan_kernel(xt: torch.Tensor, loga: torch.Tensor, B: torch.Tensor,
-                    C: torch.Tensor) -> torch.Tensor:
-    """One launch on the current stream; no host sync.
+                    C: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
+    """Three launches on the current stream; no host sync.
 
     xt: [b, H, L, P] f32; loga: [b, H, L] f32; B/C: [b, H, L, N], bf16 or
     f32, any strides with the last dim contiguous (a stride-0 expand along
-    H is read as it is).  Returns y [b, H, L, P] f32, a view of a
-    ``[b, L, H, P]`` buffer (the model's layout).
+    H is read as it is, and B and C are then loaded once for a group of
+    heads).  P and N multiples of 16; ``chunk`` 64 or 128.  Returns y
+    [b, H, L, P] f32, a view of a ``[b, L, H, P]`` buffer (the model's
+    layout).  Scratch: ``b·H·ceil(L/chunk)·N·P`` f32 of chunk states.
     """
     b, H, L, P = xt.shape
     N = B.shape[-1]
@@ -63,19 +67,27 @@ def ssd_scan_kernel(xt: torch.Tensor, loga: torch.Tensor, B: torch.Tensor,
                          f"C {tuple(C.shape)} do not fit")
     if any(t.device != dev for t in (loga, B, C)):
         raise ValueError("ssd_scan_kernel: all inputs must be on one device")
+    if P < 16 or N < 16 or P % 16 or N % 16 or chunk not in (64, 128):
+        raise ValueError(f"ssd_scan_kernel: P={P} and N={N} must be "
+                         f"multiples of 16 and chunk={chunk} 64 or 128")
+    bc_bf16 = int(B.dtype == torch.bfloat16)
     lib = _lib()
-    smem = lib.repro_ssd_scan_smem(P, N)
-    if not (1 <= P <= 256 and 1 <= N <= 256) or smem > MAX_SMEM:
-        raise ValueError(f"ssd_scan_kernel: P={P}, N={N} need {smem} bytes "
-                         f"of shared memory, over the {MAX_SMEM} a block has")
+    smem = lib.repro_ssd_scan_smem(P, N, chunk, bc_bf16)
+    if smem > MAX_SMEM:
+        raise ValueError(f"ssd_scan_kernel: P={P}, N={N}, chunk={chunk} "
+                         f"need {smem} bytes of shared memory, over the "
+                         f"{MAX_SMEM} a block has")
+    nc = -(-L // chunk)
     y = torch.empty(b, L, H, P, dtype=torch.float32,
                     device=dev).transpose(1, 2)
+    states = torch.empty(b, H, nc, N, P, dtype=torch.float32, device=dev)
+    decay = torch.empty(b, H, nc, dtype=torch.float32, device=dev)
     strides = (ctypes.c_int64 * 15)(
         *_bhl("xt", xt), *loga.stride(), *_bhl("B", B), *_bhl("C", C),
         *_bhl("y", y))
     err = lib.repro_ssd_scan(
         xt.data_ptr(), loga.data_ptr(), B.data_ptr(), C.data_ptr(),
-        y.data_ptr(), int(B.dtype == torch.bfloat16), b * H, H, L, P, N,
-        ctypes.cast(strides, _P), stream_ptr(xt))
+        y.data_ptr(), states.data_ptr(), decay.data_ptr(), bc_bf16, b, H,
+        L, P, N, chunk, ctypes.cast(strides, _P), stream_ptr(xt))
     check_launch(err, "ssd_scan_kernel")
     return y

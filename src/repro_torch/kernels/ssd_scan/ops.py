@@ -20,7 +20,9 @@ def ssd_scan(xt: torch.Tensor, loga: torch.Tensor, B: torch.Tensor,
     xt and loga are float32, B/C bfloat16 or float32; the result is
     float32, shaped like xt.  A CUDA tensor goes to the CUDA kernel, which
     raises if it cannot be built or launched; a CPU tensor goes to the
-    plain version.  ``ssd_scan.launches`` counts launches.
+    plain version.  ``ssd_scan.launches`` counts calls that went to the
+    kernel; each call issues three launches (chunk states, state passing,
+    outputs).
     """
     if xt.device.type != "cuda":
         return ssd_chunked_ref(xt, loga, B, C)

@@ -9,6 +9,8 @@ bit for bit.  Tolerances are the reference file's (``tests/
 test_kernels.py``): max abs error below 10 x rtol, with rtol 2e-5 in f32
 (summation order only) and 2e-2 in bf16 (one rounding of the output).
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -21,6 +23,7 @@ from repro_torch.interop import params_from_jax
 from repro_torch.kernels.flash_attention import (attention_chunked,
                                                  attention_ref,
                                                  flash_attention)
+from repro_torch.kernels.flash_attention.kernel import tc_route
 
 CASES = [
     # (B, Hq, Hkv, Lq, Lk, D, causal, window, dtype, rtol)
@@ -111,3 +114,92 @@ def test_rows_that_see_no_key_are_zero():
     assert torch.equal(got[0, 0, :6], torch.zeros(6, 32))
     want = attention_ref(q[0], k[0], v[0], causal=True)
     assert float((got[0, 0, 6:] - want[0, 6:]).abs().max()) < 2e-4
+
+
+def _tensor_core_emulation(q, k, v, causal, window, split=True, bk=64):
+    """flash_fwd_wgmma's arithmetic on the CPU: S = Q·Kᵀ from bf16 values
+    summed in f32, the online softmax over 64-key tiles in exp2 with the
+    scale folded into the argument, P·V from p_hi = bf16(p) plus, with
+    ``split``, p_lo = bf16(p - p_hi), each product summed in f32; the
+    output rounded to bf16 once."""
+    B, Hq, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(Hq // Hkv, 1)
+    vf = v.float().repeat_interleave(Hq // Hkv, 1)
+    sl2 = D ** -0.5 * math.log2(math.e)
+    qpos = torch.arange(Lq) + (Lk - Lq)
+    m = torch.full((B, Hq, Lq), -math.inf)
+    l = torch.zeros(B, Hq, Lq)
+    o = torch.zeros(B, Hq, Lq, D)
+    for k0 in range(0, Lk, bk):
+        kpos = torch.arange(k0, min(k0 + bk, Lk))
+        s = q.float() @ kf[:, :, k0:k0 + bk].transpose(-1, -2)
+        keep = torch.ones(Lq, kpos.shape[0], dtype=torch.bool)
+        if causal:
+            keep &= kpos[None] <= qpos[:, None]
+        if window is not None:
+            keep &= kpos[None] > qpos[:, None] - window
+        s = s.masked_fill(~keep, -math.inf)
+        m_new = torch.maximum(m, s.amax(-1))
+        base = torch.where(m_new == -math.inf, 0.0, m_new * sl2)
+        alpha = torch.exp2(m * sl2 - base)
+        p = torch.exp2(s * sl2 - base[..., None])
+        l = l * alpha + p.sum(-1)
+        hi = p.bfloat16().float()
+        pv = hi @ vf[:, :, k0:k0 + bk]
+        if split:
+            pv = pv + (p - hi).bfloat16().float() @ vf[:, :, k0:k0 + bk]
+        o = o * alpha[..., None] + pv
+        m = m_new
+    out = torch.where(l[..., None] > 0, o / l[..., None].clamp(min=1e-30),
+                      0.0)
+    return out.bfloat16()
+
+
+def _share_of_limit(got, want) -> float:
+    """Largest share of the card's per-element limit, |got - want| <=
+    2^-7 |want| + 1e-5, that got uses (chip_smoke.py's FLASH_RTOL,
+    FLASH_ATOL)."""
+    d, w = (got.float() - want.float()).abs(), want.float().abs()
+    return float((d / (2.0 ** -7 * w + 1e-5)).max())
+
+
+@pytest.mark.parametrize("case", [
+    # (B, Hq, Hkv, Lq, Lk, D, window)
+    (1, 2, 2, 2048, 2048, 64, None),
+    (1, 4, 2, 1000, 1500, 128, None),
+    (1, 2, 2, 1024, 1024, 64, 100),
+])
+def test_tensor_core_split_p_arithmetic_within_the_card_limit(case):
+    """The tensor-core kernel keeps P near f32 as p_hi + p_lo; emulated on
+    the CPU it stays within the per-element limit of the plain f32 version
+    that chip_smoke.py holds the kernel to.  Prints the share of the limit
+    it uses beside the share a single bf16 P uses (run with -s)."""
+    B, Hq, Hkv, Lq, Lk, D, window = case
+    g = torch.Generator().manual_seed(Lq + D)
+    q = torch.randn(B, Hq, Lq, D, generator=g).bfloat16()
+    k, v = (torch.randn(B, Hkv, Lk, D, generator=g).bfloat16()
+            for _ in range(2))
+    want = attention_chunked(q, k, v, causal=True, window=window)
+    split = _share_of_limit(
+        _tensor_core_emulation(q, k, v, True, window), want)
+    single = _share_of_limit(
+        _tensor_core_emulation(q, k, v, True, window, split=False), want)
+    print(f"{case}: share of the limit, p_hi + p_lo {split}, "
+          f"single bf16 P {single}")
+    assert split <= 1.0
+
+
+@pytest.mark.parametrize("dtype,D,Lq,tc", [
+    (torch.bfloat16, 64, 4096, True),     # the prefill's calls
+    (torch.bfloat16, 128, 64, True),      # llama3-8b's heads, one tile
+    (torch.bfloat16, 64, 63, False),      # fewer queries than one box
+    (torch.bfloat16, 64, 1, False),       # a decode row
+    (torch.bfloat16, 32, 4096, False),    # the reduced configs' heads
+    (torch.float32, 64, 4096, False),     # the f32 prefill check
+    (torch.float32, 128, 200, False),
+])
+def test_route_rule(dtype, D, Lq, tc):
+    """bf16 with D in (64, 128) and at least 64 queries goes to the
+    tensor-core kernel; everything else to the scalar one."""
+    assert tc_route(dtype, D, Lq) is tc

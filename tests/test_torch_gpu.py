@@ -17,6 +17,7 @@ from repro_torch.dqueue import (DevicePriorityQueue, DeviceQueue,
                                 DeviceStack, ElasticDeviceQueue)
 from repro_torch.kernels.flash_attention import (attention_chunked,
                                                  flash_attention)
+from repro_torch.kernels.flash_attention.kernel import tc_route
 from repro_torch.kernels.hash_route import hash_route, hash_route_ref
 from repro_torch.kernels.segscan import (queue_scan, queue_scan_ref,
                                          stack_scan, stack_scan_ref,
@@ -208,6 +209,15 @@ def test_device_priority_queue_64_shards_on_gpu_matches_cpu(cuda, pipelined):
     (2, 2, 2, 128, 128, 32, False, None, torch.float32),
     (1, 4, 1, 1, 130, 64, True, None, torch.float32),        # one query
     (1, 4, 2, 70, 70, 32, True, 8, torch.float32),
+    # tensor-core route: Lq no multiple of 128, Lq < Lk, a window across
+    # a tile edge, D = 128 GQA, a query tile of 64 rows, not causal
+    (2, 4, 4, 300, 300, 64, True, None, torch.bfloat16),
+    (1, 4, 2, 100, 300, 64, True, None, torch.bfloat16),
+    (2, 4, 4, 300, 300, 64, True, 70, torch.bfloat16),
+    (1, 8, 2, 256, 256, 128, True, None, torch.bfloat16),
+    (1, 4, 4, 64, 64, 128, True, 16, torch.bfloat16),
+    (1, 2, 1, 130, 200, 64, False, None, torch.bfloat16),
+    (1, 4, 4, 40, 40, 64, True, None, torch.bfloat16),      # scalar route
 ])
 def test_flash_attention_kernel_matches_plain(cuda, case):
     """The kernel against its plain version on the same CUDA tensors, q in
@@ -221,9 +231,10 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     q = torch.randn(B, Lq, Hq, D, generator=g).to(cuda, dt).transpose(1, 2)
     k, v = (torch.randn(B, Hkv, Lk, D, generator=g).to(cuda, dt)
             for _ in range(2))
-    before = flash_attention.launches
+    before, tc_before = flash_attention.launches, flash_attention.tc_launches
     got = flash_attention(q, k, v, causal=causal, window=window)
     assert flash_attention.launches == before + 1
+    assert flash_attention.tc_launches == tc_before + tc_route(dt, D, Lq)
     want = attention_chunked(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     assert got.dtype == dt and got.shape == (B, Hq, Lq, D)
@@ -232,22 +243,33 @@ def test_flash_attention_kernel_matches_plain(cuda, case):
     assert bool((d <= limit).all()), float(d.max())
 
 
-@pytest.mark.parametrize("b,H,L,P,N,bc", [
-    (2, 3, 100, 16, 16, torch.bfloat16),       # ragged, reduced widths
-    (1, 4, 256, 64, 64, torch.bfloat16),       # zamba2's head and state
-    (2, 2, 130, 64, 128, torch.float32),       # mamba2-130m's state
-    (1, 2, 1, 32, 16, torch.float32),
+@pytest.mark.parametrize("b,H,L,P,N,bc,shared", [
+    (2, 3, 100, 16, 16, torch.bfloat16, True),     # ragged, reduced widths
+    (1, 4, 256, 64, 64, torch.bfloat16, True),     # zamba2's head and state
+    (2, 2, 130, 64, 128, torch.float32, True),     # mamba2-130m's state
+    (1, 2, 1, 32, 16, torch.float32, True),
+    # L no chunk multiple and H no multiple of the 8-head group
+    (2, 12, 1000, 64, 64, torch.bfloat16, True),
+    (1, 10, 333, 32, 128, torch.bfloat16, True),
+    # B/C per head (head stride not 0)
+    (2, 3, 300, 64, 64, torch.float32, False),
+    (1, 9, 200, 64, 64, torch.bfloat16, False),
 ])
-def test_ssd_scan_kernel_matches_plain(cuda, b, H, L, P, N, bc):
+def test_ssd_scan_kernel_matches_plain(cuda, b, H, L, P, N, bc, shared):
     """The kernel against its plain version on the same CUDA tensors, in
     the model's form: xt/loga as views of [b, L, H, ...] buffers, B/C a
-    stride-0 expand of [b, L, N].  Tolerance 1e-4 of max |y|: f32 in
-    another summation order, through the carried state."""
+    stride-0 expand of [b, L, N] (or per head, a view of [b, L, H, N]).
+    Tolerance 1e-4 of max |y|: f32 in another summation order, through the
+    carried state."""
     g = torch.Generator().manual_seed(L + P + N)
     xt = torch.randn(b, L, H, P, generator=g).to(cuda).transpose(1, 2)
     loga = (-torch.rand(b, L, H, generator=g) * 0.2).to(cuda).transpose(1, 2)
-    B, C = ((torch.randn(b, L, N, generator=g) * 0.3).to(cuda, bc)[
-        :, None].expand(b, H, L, N) for _ in range(2))
+    if shared:
+        B, C = ((torch.randn(b, L, N, generator=g) * 0.3).to(cuda, bc)[
+            :, None].expand(b, H, L, N) for _ in range(2))
+    else:
+        B, C = ((torch.randn(b, L, H, N, generator=g) * 0.3).to(cuda, bc)
+                .transpose(1, 2) for _ in range(2))
     before = ssd_scan.launches
     got = ssd_scan(xt, loga, B, C)
     assert ssd_scan.launches == before + 1

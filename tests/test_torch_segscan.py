@@ -12,13 +12,14 @@ import torch
 import jax
 import jax.numpy as jnp
 from repro.core.scan_queue import QueueState as JQueueState
+from repro.core.scan_queue import StackState as JStackState
 from repro.core.scan_queue import queue_compose as j_compose
 from repro.core.scan_queue import queue_op_transforms as j_transforms
 from repro.core.scan_queue import queue_scan as _j_queue_scan
 from repro.kernels.segscan import queue_scan_pallas
 
-from repro_torch.core.scan_queue import (INF, QueueState, queue_compose,
-                                         queue_op_transforms)
+from repro_torch.core.scan_queue import (INF, QueueState, StackState,
+                                         queue_compose, queue_op_transforms)
 from repro_torch.core.scan_queue import queue_scan as t_core_scan
 from repro_torch.kernels.segscan import queue_scan, queue_scan_ref
 
@@ -121,3 +122,18 @@ def test_queue_scan_is_plain_on_cpu_tensors():
     for a, b in zip(out, ref):
         assert torch.equal(a, b)
 
+
+
+@pytest.mark.parametrize("state,j_state", [(QueueState, JQueueState),
+                                           (StackState, JStackState)])
+def test_empty_state_on_cpu_and_cuda_by_default(state, j_state, monkeypatch):
+    """``empty(device="cpu")`` is the reference's empty state on the CPU;
+    ``empty()`` means CUDA, as every entry point of the port, and raises
+    where there is none instead of building CPU tensors."""
+    st = state.empty("cpu")
+    assert all(t.device.type == "cpu" and t.dtype == torch.int32
+               and t.dim() == 0 for t in st)
+    assert [int(t) for t in st] == [int(x) for x in j_state.empty()]
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        state.empty()

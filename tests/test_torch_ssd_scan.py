@@ -15,10 +15,12 @@ import torch
 
 import jax.numpy as jnp
 from repro.kernels.ssd_scan import ssd_scan_pallas
+from repro.models.ssm import _ssd_chunked as j_ssd_chunked
 from repro.kernels.ssd_scan import ssd_scan_ref as j_ssd_scan_ref
 
 from repro_torch.interop import params_from_jax
-from repro_torch.kernels.ssd_scan import (ssd_chunked_ref, ssd_scan,
+from repro_torch.kernels.ssd_scan import (ssd_chunk_parallel_ref,
+                                          ssd_chunked_ref, ssd_scan,
                                           ssd_scan_ref)
 
 REL = 2e-5
@@ -81,3 +83,39 @@ def test_ssd_shared_bc_stride0_and_ragged(L):
     assert _rel(got.numpy(), want) < REL
     rec = ssd_scan_ref(torch.from_numpy(xt), torch.from_numpy(loga), Bt, Ct)
     assert _rel(rec.numpy(), want) < REL
+
+
+@pytest.mark.parametrize("chunk", [64, 128])
+@pytest.mark.parametrize("L,N", [(1000, 64), (256, 128)])
+def test_three_pass_decomposition_matches_jax(L, N, chunk):
+    """The CUDA kernel's three passes written in plain PyTorch (chunk
+    states, state passing, outputs) against the JAX per-token oracle and
+    the JAX model's own chunked scan (``repro/models/ssm.py:_ssd_chunked``)
+    in the model's form: B/C in bf16 shared by all heads, L = 1000 no chunk
+    multiple, N = 128 mamba2-130m's state.  Tolerance 1e-4 of max |y|, as
+    on the card."""
+    b, H, P = 2, 3, 32
+    rng = np.random.default_rng(L + N + chunk)
+    dt = np.log1p(np.exp(rng.standard_normal((b, L, H)))).astype(np.float32)
+    xt = (rng.standard_normal((b, L, H, P)) * dt[..., None]).astype(
+        np.float32)
+    loga = -dt
+    Bj = jnp.array(rng.standard_normal((b, L, 1, N)) * 0.3, jnp.bfloat16)
+    Cj = jnp.array(rng.standard_normal((b, L, 1, N)) * 0.3, jnp.bfloat16)
+    Bt, Ct = (params_from_jax(x, "cpu")[:, :, 0][:, None].expand(b, H, L, N)
+              for x in (Bj, Cj))
+    got = ssd_chunk_parallel_ref(torch.from_numpy(xt).transpose(1, 2),
+                                 torch.from_numpy(loga).transpose(1, 2), Bt,
+                                 Ct, chunk=chunk).transpose(1, 2)
+    assert got.shape == (b, L, H, P) and got.dtype == torch.float32
+    want, _ = j_ssd_chunked(jnp.asarray(xt), jnp.asarray(loga), Bj, Cj)
+    assert _rel(got.numpy(), want) < 1e-4
+
+    def flat(x):
+        return jnp.broadcast_to(x[:, None, :, 0], (b, H, L, N)).reshape(
+            b * H, L, N)
+    oracle = j_ssd_scan_ref(
+        jnp.asarray(xt.transpose(0, 2, 1, 3).reshape(b * H, L, P)),
+        jnp.asarray(loga.transpose(0, 2, 1).reshape(b * H, L)), flat(Bj),
+        flat(Cj)).reshape(b, H, L, P).transpose(0, 2, 1, 3)
+    assert _rel(got.numpy(), oracle) < 1e-4
