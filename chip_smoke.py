@@ -17,8 +17,9 @@ drives the port through its entry points at full size:
 * the prefill of zamba2-1.2b at full width and depth (random weights
   from the seed): 4 prompts of 4,096 tokens through 6 flash-attention
   calls (all on the tensor-core kernel) and 38 SSD-scan calls (three
-  launches each), and a 512-token prompt against teacher-forced
-  decoding;
+  launches each), a 512-token prompt against teacher-forced decoding,
+  and, cut to 6 layers, a bf16 prefill on the card against the same
+  prefill on the CPU;
 * the FIFO serving engine over an 8-shard request queue serving 32
   requests with the same model, resized 8 -> 6 between two bursts.
 
@@ -52,6 +53,9 @@ MEM_BPS = 3.35e12      # H100 SXM device memory rate, bytes/s
 INT_OPS = 64 * 132 * 1.98e9
 BF16_FLOPS = 989e12    # H100 SXM dense bf16 tensor-core rate (data sheet)
 F32_FLOPS = 67e12      # H100 SXM f32 rate outside the tensor cores
+# f32 products on the TF32 tensor cores (495 TFLOP/s dense, data sheet) as
+# 3xTF32, three tf32 products each: the SSD kernel's rate for them
+F32_3XTF32_FLOPS = 495e12 / 3
 # flash attention vs its plain version, per element: |got - want| <=
 # FLASH_RTOL |want| + FLASH_ATOL.  Both compute in f32 and round the output
 # to bf16 once, so they sit at most one bf16 step apart (2^-7 of |want|),
@@ -74,6 +78,20 @@ SSD_REL_TOL = 1e-4
 # a gap of the same size on the same weights
 # (scripts/prefill_decode_gap.py; PERF.md).
 PREFILL_DECODE_TOL = 1e-2
+# zamba2-1.2b at full width cut to CARD_CPU_LAYERS layers (one call of the
+# shared attention block), CARD_CPU_DRAWS draws of random weights, two
+# bf16 prompts of CARD_CPU_TOKENS tokens each (no multiple of the
+# 128-query tile or the 64-token chunk): the prefill on the card (the
+# tensor-core flash kernel, the SSD kernel, cuBLAS) against the same
+# weights on the CPU (the kernels' plain versions).  The two round to
+# bf16 at other places, so their last-token logits (max |logit| about 4)
+# differ by about as much as each differs from the CPU's f32 prefill:
+# 0.0859375, 0.078125 and 0.1875 on an NVIDIA H100 80GB HBM3 at 700 W
+# (seeds 0-2); CARD_CPU_TOL is about twice the largest.
+CARD_CPU_LAYERS = 6
+CARD_CPU_TOKENS = 1000
+CARD_CPU_DRAWS = 3
+CARD_CPU_TOL = 0.4
 SCAN_OPS = 20          # int ops per op: transform, ~2 composes, emission
 HASH_OPS = 12          # int ops per element: splitmix32, shift, modulo
 TIER_OPS = 10          # int ops per op: key, warp match, rank, emission
@@ -156,12 +174,12 @@ def phase_build():
     fa = libs["flash_attention"].repro_flash_attention_tc_smem
     fa.argtypes, fa.restype = [ctypes.c_int], ctypes.c_int64
     ssd = libs["ssd_scan"].repro_ssd_scan_smem
-    ssd.argtypes, ssd.restype = [ctypes.c_int] * 4, ctypes.c_int64
+    ssd.argtypes, ssd.restype = [ctypes.c_int] * 3, ctypes.c_int64
     from repro_torch.kernels.ssd_scan.kernel import CHUNK
     dynamic = {"flash_fwd_wgmma<64>": fa(64),
                "flash_fwd_wgmma<128>": fa(128),
                f"ssd_scan (P = N = 64, chunk {CHUNK}, bf16 B/C)":
-               ssd(64, 64, CHUNK, 1)}
+               ssd(64, 64, 1)}
     emit("build", seconds=total, kernels=kernels,
          dynamic_smem_bytes=dynamic)
     for name, rec in kernels.items():
@@ -1044,7 +1062,14 @@ def phase_flash_attention(torch, results):
         torch.cuda.synchronize()
         tc = flash_attention.tc_launches - tc0
         check(tc == int(tc_route(dt, D, Lq)),
-              f"flash_attention {case}: the route rule's kernel ran")
+              f"flash_attention {case}: the launcher reports the route "
+              f"rule's kernel")
+        # the kernel the device ran, by name, from the profiler's trace
+        ran = _by_kernel(torch, lambda: flash_attention(
+            q, k, v, causal=True, window=window), reps=1)
+        if ran != "not measured":
+            check(set(ran) == {"flash_fwd_wgmma" if tc else "flash_fwd"},
+                  f"flash_attention {case}: the device ran {sorted(ran)}")
         err = _flash_err(torch, got, want)
         check(got.shape == (B, Hq, Lq, D) and got.dtype == dt,
               f"flash_attention {case}: shape and type")
@@ -1072,6 +1097,8 @@ def phase_flash_attention(torch, results):
                "Lk": Lk, "D": D, "window": window,
                "kernel": "flash_fwd_wgmma (tensor cores: wgmma, TMA)" if tc
                else "flash_fwd (scalar f32)",
+               "device_kernels": sorted(ran) if isinstance(ran, dict)
+               else ran,
                "dtype": str(dt).split(".")[-1], "causal": True, **err,
                "tolerance": (f"|d| <= {FLASH_RTOL} |want| + {FLASH_ATOL}"
                              if dt == bf16 else f"|d| <= {FLASH_F32_TOL}"),
@@ -1094,7 +1121,7 @@ def phase_ssd_scan(torch, results):
     the same device tensors, in the model's form: xt/loga views of
     [b, L, H, ...] buffers, B/C a stride-0 expand of [b, L, N] bf16."""
     from repro_torch.kernels.ssd_scan import ssd_chunked_ref, ssd_scan
-    from repro_torch.kernels.ssd_scan.kernel import CHUNK, ssd_scan_kernel
+    from repro_torch.kernels.ssd_scan.kernel import CHUNK
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(2)
     # (case, b, H, L, P, N, timing reps)
@@ -1119,28 +1146,18 @@ def phase_ssd_scan(torch, results):
         check(got.shape == (b, H, L, P), f"ssd_scan {case}: shape")
         check(rel <= SSD_REL_TOL, f"ssd_scan {case}: error {rel} of max |y| "
                                   f"within {SSD_REL_TOL}")
-        alt = {}
-        if case.startswith("prefill_path"):
-            # the other chunk length the kernel takes, beside CHUNK's time
-            got = ssd_scan_kernel(xt, loga, Bh, Ch, chunk=128)
-            rel128 = float((got - want).abs().max()) / float(want.abs().max())
-            check(rel128 <= SSD_REL_TOL, f"ssd_scan {case} at chunk 128: "
-                                         f"error {rel128} of max |y|")
-            alt = {"chunk_128_ms": time_ms(lambda: ssd_scan_kernel(
-                xt, loga, Bh, Ch, chunk=128), reps, torch),
-                "chunk_128_rel_err": rel128}
         del got, want
         ms = time_ms(lambda: ssd_scan(xt, loga, Bh, Ch), reps, torch)
         plain = time_ms(lambda: ssd_chunked_ref(xt, loga, Bh, Ch),
                         max(1, reps // 5), torch, 1)
         n_bytes = 4 * 2 * b * H * L * P + 4 * b * H * L + 2 * 2 * b * L * N
         flops = 4 * b * H * L * N * P        # the per-token recurrence
-        b_ms, b_by = bound(n_bytes, flops, F32_FLOPS)
+        b_ms, b_by = bound(n_bytes, flops, F32_3XTF32_FLOPS)
         rec = {"case": case, "b": b, "H": H, "L": L, "P": P, "N": N,
                "xt": "float32", "B/C": "bfloat16, stride 0 over heads",
                "kernel": "chunk-parallel: ssd_scan_states, ssd_scan_pass, "
                          "ssd_scan_outputs (mma.sync: bf16 C·Bᵀ, 3xTF32)",
-               "chunk": CHUNK, "launches_per_call": 3, **alt,
+               "chunk": CHUNK, "launches_per_call": 3,
                "by_pass_ms": _by_kernel(torch, lambda: ssd_scan(
                    xt, loga, Bh, Ch)),
                "max_abs_err": err, "rel_err": rel,
@@ -1148,7 +1165,8 @@ def phase_ssd_scan(torch, results):
                "library_ms": None,
                "library": "none: no single PyTorch call computes the scan",
                "flops": flops, "bytes": n_bytes, "bound_ms": b_ms,
-               "bound_by": b_by, "peak": "67 TFLOP/s f32, 3.35 TB/s"}
+               "bound_by": b_by,
+               "peak": "165 TFLOP/s f32 as 3xTF32, 3.35 TB/s"}
         results.setdefault("ssd_scan", []).append(rec)
         emit("kernel:ssd_scan", **rec)
         del xt, loga, Bm, Cm, Bh, Ch, dt
@@ -1191,6 +1209,12 @@ def _cast(tree, dtype):
     return tree.to(dtype)
 
 
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
 def _n_params(tree) -> int:
     if isinstance(tree, dict):
         return sum(_n_params(v) for v in tree.values())
@@ -1216,25 +1240,72 @@ def _profile_prefill(torch, model, params, tokens) -> dict:
                       and ev.self_device_time_total > 0), reverse=True)
     by_kind = {"ssd_scan": 0.0, "flash_attention": 0.0, "cuBLAS products":
                0.0, "other (elementwise, copies, norms)": 0.0}
-    for t, k, _ in kernels:
+    flash_calls = {"flash_fwd_wgmma": 0, "flash_fwd": 0}
+    for t, k, c in kernels:
         kind = ("ssd_scan" if "ssd_scan" in k else
                 "flash_attention" if "flash_fwd" in k else
                 "cuBLAS products" if any(w in k.lower() for w in (
                     "nvjet", "gemm", "xmma", "cutlass")) else
                 "other (elementwise, copies, norms)")
         by_kind[kind] += t / 1e3
+        if kind == "flash_attention":
+            flash_calls["flash_fwd_wgmma" if "flash_fwd_wgmma" in k
+                        else "flash_fwd"] += c
     return {"wall_ms": wall_us / 1e3,
             "device_ms": busy / 1e3 if busy else "not measured",
             "busy_share": busy / wall_us if busy else "not measured",
             "device_ms_by_kind": by_kind,
+            "flash_kernel_calls": flash_calls if busy else "not measured",
             "top_kernels": [{"kernel": k[:120], "device_ms": t / 1e3,
                              "calls": c} for t, k, c in kernels[:12]]}
+
+
+def _card_vs_cpu(torch, seed) -> dict:
+    """The bf16 prefill of zamba2-1.2b at full width and cut depth on the
+    card against the same prefill on the CPU, each beside the CPU's f32
+    prefill of the same weights (see CARD_CPU_TOL); weights from seed + 1."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.models import build_model
+    cfg = replace(get_config("zamba2_1p2b"), n_layers=CARD_CPU_LAYERS)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 1)
+    params = model.init_params(gen, device="cuda")
+    tokens = torch.randint(0, cfg.vocab, (2, CARD_CPU_TOKENS), generator=gen,
+                           device="cuda")
+    tc0, s0 = flash_attention.tc_launches, ssd_scan.launches
+    card = model.prefill(params, tokens).cpu()
+    n_attn = cfg.n_layers // cfg.attn_every
+    check(flash_attention.tc_launches - tc0 == n_attn
+          and ssd_scan.launches - s0 == cfg.n_layers,
+          f"card vs CPU: the card's prefill took the tensor-core flash "
+          f"route {n_attn} times and the SSD kernel {cfg.n_layers} times")
+    cpu_params, cpu_tokens = _to(params, "cpu"), tokens.cpu()
+    t0 = time.perf_counter()
+    cpu = model.prefill(cpu_params, cpu_tokens)
+    cpu_f32 = model.prefill(_cast(cpu_params, torch.float32), cpu_tokens)
+    cpu_s = time.perf_counter() - t0
+    check(bool(torch.isfinite(card).all()), "card vs CPU: finite logits")
+
+    def gap(a, b):
+        return float((a - b).abs().max())
+    return {"seed": seed, "layers": cfg.n_layers, "attention_calls": n_attn,
+            "prompts": 2, "tokens": CARD_CPU_TOKENS,
+            "card_vs_cpu_bf16": gap(card, cpu),
+            "card_vs_cpu_f32": gap(card, cpu_f32),
+            "cpu_bf16_vs_cpu_f32": gap(cpu, cpu_f32),
+            "logit_absmax": float(cpu_f32.abs().max()),
+            "argmax_equal": bool((card.argmax(-1) == cpu.argmax(-1)).all()),
+            "tolerance": CARD_CPU_TOL, "cpu_seconds": cpu_s}
 
 
 def phase_prefill_zamba2(torch, seed, results):
     """zamba2-1.2b at full width and depth: the prefill of 4 x 4,096 tokens
     (the main path of both model kernels), then a 512-token prompt's
-    last-token logits against teacher-forced decoding (no kernel)."""
+    last-token logits against teacher-forced decoding (no kernel), and the
+    bf16 prefill at cut depth on the card against the CPU."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.ssd_scan import ssd_scan
     torch.cuda.reset_peak_memory_stats()
@@ -1269,6 +1340,12 @@ def phase_prefill_zamba2(torch, seed, results):
     check(bool(torch.isfinite(logits).all()), "prefill logits finite")
     peak = torch.cuda.max_memory_allocated()
     prof = _profile_prefill(torch, model, params, tokens)
+    if prof["flash_kernel_calls"] != "not measured":
+        check(prof["flash_kernel_calls"] == {"flash_fwd_wgmma": n_attn,
+                                             "flash_fwd": 0},
+              f"the profiled prefill's device ran flash_fwd_wgmma {n_attn} "
+              f"times and the scalar kernel never: "
+              f"{prof['flash_kernel_calls']}")
 
     # independent check: prefill (both kernels) against teacher-forced
     # decode (ring cache and recurrent update, no kernel) on one 512-token
@@ -1306,6 +1383,7 @@ def phase_prefill_zamba2(torch, seed, results):
             agree[name]["decode_vs_f32_prefill"] = gap(step, f32_full)
         del p, cache
     agree["float32"]["tolerance"] = PREFILL_DECODE_TOL
+    card_cpu = [_card_vs_cpu(torch, seed + i) for i in range(CARD_CPU_DRAWS)]
     rec = {"arch": cfg.name, "params": n_params, "batch": B, "seq": S,
            "flash_attention_launches": launches["flash_attention"],
            "flash_attention_tensor_core_launches": tc_launches,
@@ -1314,9 +1392,14 @@ def phase_prefill_zamba2(torch, seed, results):
            "wall_ms": wall * 1e3, "device_ms": start.elapsed_time(end),
            "tokens_per_s": B * S / wall, "max_memory_allocated": peak,
            "logits_finite": True, "profile": prof,
-           "prefill_vs_decode": {"prompt": n, **agree}}
+           "prefill_vs_decode": {"prompt": n, **agree},
+           "card_vs_cpu": card_cpu}
     results["prefill_zamba2"] = rec
     emit("path:prefill_zamba2", **rec)
+    worst = max(r["card_vs_cpu_bf16"] for r in card_cpu)
+    check(worst <= CARD_CPU_TOL,
+          f"bf16 prefill at {CARD_CPU_LAYERS} layers, card vs CPU: max "
+          f"|Δlogit| {worst} within {CARD_CPU_TOL}")
     f32 = agree["float32"]
     check(f32["max_abs_diff"] <= PREFILL_DECODE_TOL,
           f"f32 prefill vs teacher-forced decode: max |Δlogit| "

@@ -37,19 +37,20 @@
 // L = 4096, P = N = 64; xt, loga, y f32, B/C bf16 shared over heads) the
 // function must move 0.54 GB (xt read, y written), 0.16 ms at 3.35 TB/s,
 // and the per-token recurrence needs 4·L·N·P flops a head, 17 GFLOP,
-// 0.26 ms at the 67 TFLOP/s f32 rate: operations.  This design does the
-// chunked form's products on tensor cores in 3xTF32 (3 tf32 products per
-// f32 product, at 495 TFLOP/s) and adds scratch traffic: the states are
-// written, read and written by the pass, and read again (4 x 268 MB at
-// Q = 64), so device memory, not arithmetic, is its floor (about 0.56 ms
-// for the three launches).  What it does about latency, which measured
-// above that floor: passes 1 and 3 walk their group of heads with the next
+// which run here on tensor cores in 3xTF32 (three tf32 products per f32
+// product: 495 / 3 = 165 TFLOP/s), 0.10 ms: its bound is 0.16 ms, bytes.
+// The design adds scratch traffic: the states are written, read and
+// written by the pass, and read again (4 x 268 MB at Q = 64), and xt is
+// read twice, so device memory is its floor (about 0.56 ms for the three
+// launches).  What it does about latency, which measured above that
+// floor: passes 1 and 3 walk their group of heads with the next
 // head's tiles in flight (cp.async into a second buffer) while the current
 // one computes; warp tiles are 32 x 16 (pass 1) and 16 x 32 (pass 3), so a
 // fragment split into tf32 serves two or four products; the pass keeps
 // eight chunks' loads in flight a thread.  Q = 64: at Q = 128 the pass
 // moves half as much, but pass 3's in-chunk product doubles and its
-// shared memory allows one block an SM (measured slower).
+// shared memory allows one block an SM (measured slower, so only 64 is
+// built).
 #include <cstdint>
 #include <type_traits>
 
@@ -64,6 +65,7 @@ constexpr int kThreads = 256;   // 8 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kHeadGroup = 8;   // heads per block of passes 1 and 3
 constexpr int kUnroll = 2;      // k-steps of a warp product unrolled
+constexpr int Q = 64;           // tokens per chunk
 
 struct Args {
   const float* xt;
@@ -90,13 +92,13 @@ __host__ __device__ constexpr size_t align16(size_t n) {
   return (n + 15) & ~size_t(15);
 }
 
-template <typename TB, int Q>
+template <typename TB>
 size_t smem_states(int P, int N) {
   return align16(sizeof(TB) * Q * (N + 8)) +
          sizeof(float) * (2 * Q * ld_x(P) + 3 * Q);
 }
 
-template <typename TB, int Q>
+template <typename TB>
 size_t smem_outputs(int P, int N) {
   return 2 * align16(sizeof(TB) * Q * ld_bc<TB>(N)) +
          sizeof(float) * (Q * (Q + 4) + 2 * (Q * ld_x(P) + N * ld_x(P) + Q));
@@ -231,7 +233,6 @@ __device__ __forceinline__ void async_tile(float* dst, int ld,
 }
 
 // la[0, Q) <- its inclusive cumsum times scale; warp 0 only
-template <int Q>
 __device__ __forceinline__ void cumsum(float* la, float scale) {
   constexpr int V = Q / 32;
   const int lane = threadIdx.x & 31;
@@ -253,7 +254,6 @@ __device__ __forceinline__ void cumsum(float* la, float scale) {
 }
 
 // start copying loga of head h over the chunk into la (0 past qn)
-template <int Q>
 __device__ __forceinline__ void async_loga(float* la, const Args& a, int bi,
                                            int h, int c0, int qn) {
   if (threadIdx.x < Q) {
@@ -265,7 +265,7 @@ __device__ __forceinline__ void async_loga(float* la, const Args& a, int bi,
 }
 
 // Pass 1: each chunk's own state s_c = (B ∘ exp(l_Q - l))ᵀ · xt.
-template <typename TB, int Q>
+template <typename TB>
 __global__ void __launch_bounds__(kThreads) ssd_scan_states(Args a) {
   extern __shared__ float4 smem4[];
   const int P = a.P, N = a.N, ldb = N + 8, ldx = ld_x(P);
@@ -289,7 +289,7 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_states(Args a) {
     async_tile(X + buf * Q * ldx, ldx,
                a.xt + bi * a.sx.b + h * a.sx.h + c0 * a.sx.l, a.sx.l, Q, qn,
                P, a.x_vec);
-    async_loga<Q>(la + buf * Q, a, bi, h, c0, qn);
+    async_loga(la + buf * Q, a, bi, h, c0, qn);
     cp_async_commit();
   };
 
@@ -303,7 +303,7 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_states(Args a) {
     else cp_async_commit();      // an empty group: one group per head
     cp_async_wait_prev();
     __syncthreads();
-    if (threadIdx.x < 32) cumsum<Q>(lh, 1.f);
+    if (threadIdx.x < 32) cumsum(lh, 1.f);
     __syncthreads();
     const float llast = lh[Q - 1];
     if (threadIdx.x < Q) w[threadIdx.x] = expf(llast - lh[threadIdx.x]);
@@ -379,7 +379,7 @@ ssd_scan_pass(float4* __restrict__ states, const float* __restrict__ decay,
 
 // Pass 3: y = exp(l) ∘ (C · S_{c-1})
 //            + (tril(C Bᵀ) ∘ exp(l_i - l_j)) · xt.
-template <typename TB, int Q>
+template <typename TB>
 __global__ void __launch_bounds__(kThreads) ssd_scan_outputs(Args a) {
   extern __shared__ float4 smem4[];
   const int P = a.P, N = a.N, ldb = ld_bc<TB>(N), ldx = ld_x(P);
@@ -411,7 +411,7 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_outputs(Args a) {
     async_tile(Sp + buf * N * ldx, ldx,
                a.states + ((int64_t)(bi * a.H + h) * a.nc + c) * N * P, P, N,
                N, P, true);
-    async_loga<Q>(la + buf * Q, a, bi, h, c0, qn);
+    async_loga(la + buf * Q, a, bi, h, c0, qn);
     cp_async_commit();
   };
   constexpr bool kF32 = std::is_same<TB, float>::value;
@@ -472,7 +472,7 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_outputs(Args a) {
     cp_async_wait_prev();
     __syncthreads();
     // l in log2 units: the decays below are exp2 of differences
-    if (threadIdx.x < 32) cumsum<Q>(lh, 1.4426950408889634f);
+    if (threadIdx.x < 32) cumsum(lh, 1.4426950408889634f);
     __syncthreads();
     float* yo = a.y + bi * a.sy.b + h * a.sy.h + c0 * a.sy.l;
     // warp tiles of 16 x (8 NT): a W or C fragment serves NT products
@@ -522,27 +522,27 @@ __global__ void __launch_bounds__(kThreads) ssd_scan_outputs(Args a) {
   }
 }
 
-template <typename TB, int Q>
+template <typename TB>
 size_t smem_bytes(int P, int N) {
-  const size_t s1 = smem_states<TB, Q>(P, N), s3 = smem_outputs<TB, Q>(P, N);
+  const size_t s1 = smem_states<TB>(P, N), s3 = smem_outputs<TB>(P, N);
   return s1 > s3 ? s1 : s3;
 }
 
-template <typename TB, int Q>
+template <typename TB>
 int launch(const Args& a, int b, cudaStream_t stream) {
-  const size_t s1 = smem_states<TB, Q>(a.P, a.N);
-  const size_t s3 = smem_outputs<TB, Q>(a.P, a.N);
+  const size_t s1 = smem_states<TB>(a.P, a.N);
+  const size_t s3 = smem_outputs<TB>(a.P, a.N);
   cudaError_t err = cudaFuncSetAttribute(
-      ssd_scan_states<TB, Q>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      ssd_scan_states<TB>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)s1);
   if (err != cudaSuccess) return static_cast<int>(err);
-  err = cudaFuncSetAttribute(ssd_scan_outputs<TB, Q>,
+  err = cudaFuncSetAttribute(ssd_scan_outputs<TB>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)s3);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int nhg = (a.H + kHeadGroup - 1) / kHeadGroup;
   const dim3 grid(a.nc, b * nhg);
-  ssd_scan_states<TB, Q><<<grid, kThreads, s1, stream>>>(a);
+  ssd_scan_states<TB><<<grid, kThreads, s1, stream>>>(a);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   const int NP4 = a.N * a.P / 4;
@@ -551,7 +551,7 @@ int launch(const Args& a, int b, cudaStream_t stream) {
                                a.nc, NP4);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  ssd_scan_outputs<TB, Q><<<grid, kThreads, s3, stream>>>(a);
+  ssd_scan_outputs<TB><<<grid, kThreads, s3, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -562,15 +562,15 @@ int launch(const Args& a, int b, cudaStream_t stream) {
 // head h read through strides[15] = (batch, head, position) element
 // strides of xt, loga, B, C, y, in that order, with the last dimension of
 // xt, B, C and y contiguous.  states [b, H, nc, N, P] and decay [b, H, nc]
-// f32 are the caller's scratch, nc = ceil(L / chunk).  P and N multiples
-// of 16, chunk 64 or 128.  Returns the first CUDA error, 0 on success.
+// f32 are the caller's scratch, nc = ceil(L / 64).  P and N multiples of
+// 16.  Returns the first CUDA error, 0 on success.
 extern "C" int repro_ssd_scan(const void* xt, const void* loga,
                               const void* B, const void* C, void* y,
                               void* states, void* decay, int bc_bf16, int b,
-                              int H, int L, int P, int N, int chunk,
+                              int H, int L, int P, int N,
                               const int64_t* st, void* stream) {
   if (b <= 0 || H <= 0 || L <= 0) return 0;
-  if (P % 16 || N % 16 || (chunk != 64 && chunk != 128))
+  if (P % 16 || N % 16)
     return static_cast<int>(cudaErrorInvalidValue);
   Args a;
   a.xt = static_cast<const float*>(xt);
@@ -589,24 +589,16 @@ extern "C" int repro_ssd_scan(const void* xt, const void* loga,
   a.L = L;
   a.P = P;
   a.N = N;
-  a.nc = (L + chunk - 1) / chunk;
+  a.nc = (L + Q - 1) / Q;
   a.bc_shared = (H == 1 || (st[7] == 0 && st[10] == 0)) ? 1 : 0;
   a.x_vec = reinterpret_cast<uintptr_t>(xt) % 16 == 0 && st[0] % 4 == 0 &&
             st[1] % 4 == 0 && st[2] % 4 == 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bc_bf16)
-    return chunk == 64 ? launch<__nv_bfloat16, 64>(a, b, s)
-                       : launch<__nv_bfloat16, 128>(a, b, s);
-  return chunk == 64 ? launch<float, 64>(a, b, s)
-                     : launch<float, 128>(a, b, s);
+  return bc_bf16 ? launch<__nv_bfloat16>(a, b, s) : launch<float>(a, b, s);
 }
 
 // Dynamic shared memory the larger of passes 1 and 3 needs.
-extern "C" int64_t repro_ssd_scan_smem(int P, int N, int chunk, int bc_bf16) {
-  if (bc_bf16)
-    return static_cast<int64_t>(
-        chunk == 64 ? smem_bytes<__nv_bfloat16, 64>(P, N)
-                    : smem_bytes<__nv_bfloat16, 128>(P, N));
-  return static_cast<int64_t>(chunk == 64 ? smem_bytes<float, 64>(P, N)
-                                          : smem_bytes<float, 128>(P, N));
+extern "C" int64_t repro_ssd_scan_smem(int P, int N, int bc_bf16) {
+  return static_cast<int64_t>(bc_bf16 ? smem_bytes<__nv_bfloat16>(P, N)
+                                      : smem_bytes<float>(P, N));
 }

@@ -8,7 +8,7 @@ this module checks the tensors, picks one of its two kernels by
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -55,14 +55,17 @@ def _check_tma(t: torch.Tensor, name: str) -> None:
 
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, causal: bool = True,
-                           window: Optional[int] = None) -> torch.Tensor:
+                           window: Optional[int] = None
+                           ) -> Tuple[torch.Tensor, bool]:
     """One launch on the current stream; no host sync.  ``tc_route``
     picks the kernel.
 
     q: [B, Hq, Lq, D]; k/v: [B, Hkv, Lk, D]; one dtype (bf16 or f32), one
     CUDA device, any strides with the head dim contiguous.  Returns
-    [B, Hq, Lq, D] in q's dtype, a view of a ``[B, Lq, Hq, D]`` buffer (the
-    model's layout, so merging the heads afterwards is free).
+    ``(out, tensor_cores)``: out [B, Hq, Lq, D] in q's dtype, a view of a
+    ``[B, Lq, Hq, D]`` buffer (the model's layout, so merging the heads
+    afterwards is free), and whether the tensor-core kernel was the one
+    launched.
     """
     B, Hq, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
@@ -100,10 +103,10 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
             Hkv, Lq, Lk, D, int(causal), int(window or 0),
             ctypes.cast(strides, _P), stream_ptr(q))
         check_launch(err, "flash_attention_kernel (tensor cores)")
-        return o
+        return o, True
     err = _lib().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         int(q.dtype == torch.bfloat16), B, Hq, Hkv, Lq, Lk, D, int(causal),
         int(window or 0), ctypes.cast(strides, _P), stream_ptr(q))
     check_launch(err, "flash_attention_kernel")
-    return o
+    return o, False

@@ -23,15 +23,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     to a CUDA kernel, which raises if it cannot be built or launched; a
     CPU tensor goes to the plain version.  ``flash_attention.launches``
     counts launches of either CUDA kernel, ``flash_attention.tc_launches``
-    those of the tensor-core one (``kernel.tc_route``).
+    those of the tensor-core one, as the launcher reports them.
     """
     if q.device.type != "cuda":
         return attention_chunked(q, k, v, causal=causal, window=window)
-    from .kernel import flash_attention_kernel, tc_route
-    out = flash_attention_kernel(q, k, v, causal=causal, window=window)
+    from .kernel import flash_attention_kernel
+    out, tensor_cores = flash_attention_kernel(q, k, v, causal=causal,
+                                               window=window)
     flash_attention.launches += 1
-    flash_attention.tc_launches += tc_route(q.dtype, q.shape[-1],
-                                            q.shape[2])
+    flash_attention.tc_launches += tensor_cores
     return out
 
 

@@ -14,7 +14,7 @@ import torch
 from ..backend import check_launch, load, stream_ptr
 
 MAX_SMEM = 232_448   # bytes of shared memory one block may use on Hopper
-CHUNK = 64           # tokens per chunk; ssd_scan.cu takes 64 or 128
+CHUNK = 64           # tokens per chunk, fixed in ssd_scan.cu
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -24,9 +24,9 @@ def _lib():
     lib = load("ssd_scan")
     fn = lib.repro_ssd_scan
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 7 + [_I] * 7 + [_P, _P]
+        fn.argtypes = [_P] * 7 + [_I] * 6 + [_P, _P]
         fn.restype = ctypes.c_int
-        lib.repro_ssd_scan_smem.argtypes = [_I] * 4
+        lib.repro_ssd_scan_smem.argtypes = [_I] * 3
         lib.repro_ssd_scan_smem.restype = ctypes.c_int64
     return lib
 
@@ -41,15 +41,15 @@ def _bhl(name: str, t: torch.Tensor):
 
 
 def ssd_scan_kernel(xt: torch.Tensor, loga: torch.Tensor, B: torch.Tensor,
-                    C: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
+                    C: torch.Tensor) -> torch.Tensor:
     """Three launches on the current stream; no host sync.
 
     xt: [b, H, L, P] f32; loga: [b, H, L] f32; B/C: [b, H, L, N], bf16 or
     f32, any strides with the last dim contiguous (a stride-0 expand along
     H is read as it is, and B and C are then loaded once for a group of
-    heads).  P and N multiples of 16; ``chunk`` 64 or 128.  Returns y
-    [b, H, L, P] f32, a view of a ``[b, L, H, P]`` buffer (the model's
-    layout).  Scratch: ``b·H·ceil(L/chunk)·N·P`` f32 of chunk states.
+    heads).  P and N multiples of 16.  Returns y [b, H, L, P] f32, a view
+    of a ``[b, L, H, P]`` buffer (the model's layout).  Scratch:
+    ``b·H·ceil(L/CHUNK)·N·P`` f32 of chunk states.
     """
     b, H, L, P = xt.shape
     N = B.shape[-1]
@@ -67,17 +67,17 @@ def ssd_scan_kernel(xt: torch.Tensor, loga: torch.Tensor, B: torch.Tensor,
                          f"C {tuple(C.shape)} do not fit")
     if any(t.device != dev for t in (loga, B, C)):
         raise ValueError("ssd_scan_kernel: all inputs must be on one device")
-    if P < 16 or N < 16 or P % 16 or N % 16 or chunk not in (64, 128):
+    if P < 16 or N < 16 or P % 16 or N % 16:
         raise ValueError(f"ssd_scan_kernel: P={P} and N={N} must be "
-                         f"multiples of 16 and chunk={chunk} 64 or 128")
+                         f"multiples of 16")
     bc_bf16 = int(B.dtype == torch.bfloat16)
     lib = _lib()
-    smem = lib.repro_ssd_scan_smem(P, N, chunk, bc_bf16)
+    smem = lib.repro_ssd_scan_smem(P, N, bc_bf16)
     if smem > MAX_SMEM:
-        raise ValueError(f"ssd_scan_kernel: P={P}, N={N}, chunk={chunk} "
+        raise ValueError(f"ssd_scan_kernel: P={P}, N={N} "
                          f"need {smem} bytes of shared memory, over the "
                          f"{MAX_SMEM} a block has")
-    nc = -(-L // chunk)
+    nc = -(-L // CHUNK)
     y = torch.empty(b, L, H, P, dtype=torch.float32,
                     device=dev).transpose(1, 2)
     states = torch.empty(b, H, nc, N, P, dtype=torch.float32, device=dev)
@@ -88,6 +88,6 @@ def ssd_scan_kernel(xt: torch.Tensor, loga: torch.Tensor, B: torch.Tensor,
     err = lib.repro_ssd_scan(
         xt.data_ptr(), loga.data_ptr(), B.data_ptr(), C.data_ptr(),
         y.data_ptr(), states.data_ptr(), decay.data_ptr(), bc_bf16, b, H,
-        L, P, N, chunk, ctypes.cast(strides, _P), stream_ptr(xt))
+        L, P, N, ctypes.cast(strides, _P), stream_ptr(xt))
     check_launch(err, "ssd_scan_kernel")
     return y
