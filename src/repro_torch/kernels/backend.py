@@ -122,3 +122,9 @@ def check_launch(err: int, what: str) -> None:
 def stream_ptr(t: torch.Tensor) -> int:
     """PyTorch's current stream on ``t``'s device, as a pointer."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def raw_stream(t: torch.Tensor) -> int:
+    """:func:`stream_ptr` without building a ``torch.cuda.Stream`` object
+    each call: the C call PyTorch's own generated code uses."""
+    return torch._C._cuda_getCurrentRawStream(t.get_device())

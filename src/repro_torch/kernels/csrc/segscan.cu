@@ -16,26 +16,81 @@
 // LIFO.  Op i carries T(a, b, dt) on (last, ticket): l' = max(l + a, b),
 //   valid PUSH (1, -INF, 1), valid POP (-1, 0, 0), invalid (0, -INF, 0)
 // composed (earlier ; later) = (a1+a2, max(b1+a2, b2, -INF), d1+d2).
-// Why the -INF clamp gives the same integers under every bracketing: a b
-// that comes from a real POP is exact, since max-plus composition without
-// the clamp is associative.  A b that comes only from PUSHes' -INF is
-// garbage, and where a bracketing clamps it differs; but garbage stays in
-// [-INF, -INF + n].  The state it meets is last + a_x with last >= 0 and
-// a_x >= -n, so last + a_x >= -n > -INF + n whenever n < 2^29, and the
-// garbage always loses the max.  The wrapper raises at n >= 2^29.
-//
 // Both compositions are associative but NOT commutative: every combine
-// below takes the earlier operand first.  One template (block_excl and the
-// three kernels) serves both; an Op struct supplies the transform.
+// below takes the earlier operand first.
+//
+// Why the -INF clamp gives the same integers under every bracketing (the
+// single-pass scan brackets a prefix as thread-serial items, then the
+// warp, then the block's warps, then windows of 32 tiles of the
+// look-back, nearest first; the reference as its associative_scan does):
+// without the clamp, max-plus composition is associative, and a prefix's
+// b is the max over its ops j of b_j + (the a's after j).  A term from a
+// real POP (b_j = 0) is at least -n and is never clamped, so it is exact
+// in every bracketing.  A term from a PUSH's or an invalid op's -INF is
+// garbage: where a bracketing clamps it differs, but it stays in
+// [-INF, -INF + n].  It meets either a real term (>= -n) or the state,
+// last + a_x with last >= 0 and a_x >= -n, so >= -n; and -n > -INF + n
+// whenever n < 2^29.  So the garbage never wins a max that is read, and
+// every position, bound and new state is the same integer.  The wrapper
+// raises at n >= 2^29.  The ticket t0 + dt (and + 1) is summed in uint32:
+// the reference's int32 sum wraps, and signed overflow is undefined here.
 //
 // What bounds them on an H100: memory.  FIFO reads 2 B/op (is_enq, valid)
 // and writes 5 (int32 position, bool matched); LIFO reads 2 and writes 9
-// (position, ticket, matched); 16 M ops move 117 MB and 184 MB, 35 and
-// 55 us at 3.35 TB/s.  The arithmetic is a few integer ops per element.  A
-// 65,536-op wave (64 blocks) is far below the card's width and is bound
-// by launch latency instead.
+// (position, ticket, matched); the tiered sweep reads 5 (int32 tier, bool
+// enq) and writes 4.  At 2^24 ops they move 117, 184 and 151 MB: 35, 55
+// and 45 us at 3.35 TB/s.  The arithmetic is a few integer ops per op.
 //
-// Design, simple and right first: three launches.
+// Design of the stack and tiered scans: one launch, inputs read once.
+//   * Tiles of 4,096 ops, each thread's ops consecutive: the stack takes
+//     128 threads x 32 ops, the tiered sweep 256 x 16 (one tier per
+//     thread in its per-tier steps).  Bools come in as 16-byte loads (16
+//     ops), int32 tiers four to a 16-byte load; a thread whose ops
+//     straddle n, or a base that is not 16-byte aligned, loads and stores
+//     with scalar accesses instead, so any contiguous view works.  Timed
+//     on an H100 during development: 32 ops a thread ran the stack faster
+//     at 2^24 ops than 16, and 128 threads kept one wave's latency below
+//     256's; the tiered sweep ran slower at 32.
+//   * Decoupled look-back (Merrill & Garland, "Single-pass Parallel Prefix
+//     Scan with Decoupled Look-back", NVIDIA 2016).  A block draws its tile
+//     from an atomic counter (atomicInc wraps it back to 0 on the last
+//     tile, so it is ready for the next call), so a tile's predecessors
+//     are running or done whatever order the hardware dispatches blocks
+//     in.  A tile publishes its aggregate (flag A), looks back with one
+//     warp over windows of 32 predecessors until it meets an inclusive
+//     prefix (flag P), and publishes its own inclusive prefix.  The value
+//     is too wide for one atomic word (3 int32, or P counts), so values
+//     and flags live in separate arrays: the writers store the value,
+//     then one thread fences (__threadfence) and stores the flag; the
+//     reader acquire-loads the flag, then reads the value past L1.
+//   * The flags carry an epoch: flag = 2 * epoch (A) or 2 * epoch + 1 (P),
+//     epoch >= 1 passed in by the launcher and raised every call.  A flag
+//     from an earlier call is below 2 * epoch and reads as "not yet", so
+//     the status buffer is never cleared between calls; the launcher
+//     caches one per (device, stream), zeroed once when it is allocated
+//     or grown.  The layout is `status_view`'s; the launcher sizes it.
+//   * The tile that finishes last in tile order writes the new state.
+// Stack: each thread composes its 32 ops serially, warps scan the thread
+// aggregates (__shfl_up_sync), warp 0 scans the 4 warp totals; the
+// look-back window is reduced in lane order (a higher lane is an earlier
+// tile).  Positions, then tickets, go through shared memory (padded one
+// word in 32, no bank conflicts) to coalesced 16-byte stores.
+// Tiered: an enqueue of tier t gets lasts[t] + 1 + (earlier enqueues of
+// tier t), and new_lasts = lasts + count[t]; a tier outside [0, P), or a
+// non-enqueue, gets -1.  The carry is a per-tier sum, so the look-back
+// sums a window's counts in any order: each lane reads one predecessor's
+// P counts, and a warp sum (__reduce_add_sync) per tier folds the window.
+// Ranks follow op order: each thread stages its ops' keys (the tier, or
+// -1) in shared memory, each warp walks its 512 ops in rounds of 32
+// consecutive ones, __match_any_sync groups a round's lanes by tier, and
+// per-warp per-tier running counts carry across rounds; an exclusive scan
+// over the 8 warps gives each warp its offset.  Positions overwrite the
+// keys and leave as 16-byte stores.  Shared memory: 16.5 KB of keys, 8 KB
+// of per-warp counts and 2 KB of per-tier prefix and counts at P = 256,
+// about 27 KB, far under the 227 KB a block may use.
+//
+// The FIFO scan still takes three launches, the design the first port
+// slice shipped: it is the next to move onto the single-pass template.
 //   1. block_totals: one op per thread; warp __shfl_up_sync scans, then a
 //      combine of the 32 warp totals; each block writes its total.
 //   2. carry_scan: ONE block scans the block totals exclusively, looping
@@ -43,33 +98,19 @@
 //      writes the new state to device memory.
 //   3. scan_emit: the per-block exclusive scan again, composed after the
 //      block's carry and the incoming state; emits the outputs.
-// The inputs are read twice (launches 1 and 3); a single-pass decoupled
-// look-back scan would read them once.  The ragged last block masks its
-// tail as identity transforms, so no padding copy is needed.  The state
-// is read through device pointers: a wave never syncs the host.
-//
-// Tiered sweep.  For an enqueue-only masked sweep the min-plus scan is a
-// count per tier: an enqueue of tier t gets lasts[t] + 1 + (earlier
-// enqueues of tier t), and new_lasts = lasts + count[t].  A tier outside
-// [0, P), or a non-enqueue, gets -1 and moves nothing.  It writes the
-// gathered pos [n] directly; the Pallas kernel wrote pos_all [P, n] and
-// its wrapper gathered one row per op, P times the bytes.  Bound: memory,
-// 5 B/op in (int32 tier, bool enq) and 4 out.  Three launches again:
-//   1. tier_block_counts: __match_any_sync groups a warp's lanes by tier;
-//      each group's leader adds its size to a shared-memory histogram;
-//      each block writes counts[t][block].
-//   2. tier_carry_scan: one block per tier scans its row of block counts
-//      exclusively and writes new_lasts[t].
-//   3. tier_emit: per-warp per-tier counts in shared memory, scanned over
-//      the 32 warps; an op's rank is its block's carry, plus its warp's
-//      prefix, plus its rank among its warp's same-tier lanes.
+// The state of every scan is read through device pointers: a wave never
+// syncs the host.
 #include <cstdint>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBlock = 1024;               // threads = ops per block
+constexpr int kBlock = 1024;               // FIFO: threads = ops per block
 constexpr int kWarps = kBlock / 32;
+constexpr int kTile = 4096;                // stack and tiered: ops per tile
+constexpr int kStackThreads = 128;         //   stack: 32 ops a thread
+constexpr int kTierThreads = 256;          //   tiered: 16 ops a thread
+constexpr int kMaxTiers = kTierThreads;    //   tiered: one tier per thread
 constexpr int32_t kInf = 1 << 30;          // repro core/scan_queue.py INF
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -77,7 +118,6 @@ struct T { int32_t a, b, c; };
 
 // FIFO: T(A, B, C) on (first, last).
 struct QueueOp {
-  static constexpr bool kTicket = false;
   __device__ static T ident() { return T{0, kInf, 0}; }
   // (x then y): x is the earlier transform.
   __device__ static T compose(T x, T y) {
@@ -100,12 +140,15 @@ struct QueueOp {
     if (!v) return -1;
     return e ? l_i + 1 : (f_i <= l_i ? f_i : -1);
   }
-  __device__ static int32_t ticket(T, int32_t, bool) { return 0; }
 };
+
+__device__ __forceinline__ int32_t wrap_add(int32_t x, int32_t y) {
+  return static_cast<int32_t>(static_cast<uint32_t>(x) +
+                              static_cast<uint32_t>(y));
+}
 
 // LIFO: T(a, b, dt) on (last, ticket).
 struct StackOp {
-  static constexpr bool kTicket = true;
   __device__ static T ident() { return T{0, -kInf, 0}; }
   __device__ static T compose(T x, T y) {
     return T{x.a + y.a, max(max(x.b + y.a, y.b), -kInf), x.c + y.c};
@@ -116,10 +159,9 @@ struct StackOp {
   }
   __device__ static void finish(T run, int32_t l, int32_t t, int32_t* out) {
     out[0] = max(l + run.a, run.b);
-    out[1] = t + run.c;
+    out[1] = wrap_add(t, run.c);
   }
-  __device__ static int32_t position(T x, int32_t l0, int32_t, bool e,
-                                     bool v) {
+  __device__ static int32_t position(T x, int32_t l0, bool e, bool v) {
     const int32_t l_i = max(l0 + x.a, x.b);
     if (!v) return -1;
     return e ? l_i + 1 : (l_i >= 1 ? l_i : -1);
@@ -127,19 +169,24 @@ struct StackOp {
   // a push's ticket, a pop's bound; like the reference, not masked by
   // valid (an invalid op's ticket is never read)
   __device__ static int32_t ticket(T x, int32_t t0, bool e) {
-    return e ? t0 + x.c + 1 : t0 + x.c;
+    return wrap_add(wrap_add(t0, x.c), e ? 1 : 0);
   }
-};
-
-// Plain sums (a only), for the tiered sweep's carry scan.
-struct CountOp {
-  __device__ static T ident() { return T{0, 0, 0}; }
-  __device__ static T compose(T x, T y) { return T{x.a + y.a, 0, 0}; }
 };
 
 __device__ __forceinline__ T shfl_up(T t, int off) {
   return T{__shfl_up_sync(kFull, t.a, off), __shfl_up_sync(kFull, t.b, off),
            __shfl_up_sync(kFull, t.c, off)};
+}
+
+__device__ __forceinline__ T shfl_down(T t, int off) {
+  return T{__shfl_down_sync(kFull, t.a, off),
+           __shfl_down_sync(kFull, t.b, off),
+           __shfl_down_sync(kFull, t.c, off)};
+}
+
+__device__ __forceinline__ T shfl(T t, int src) {
+  return T{__shfl_sync(kFull, t.a, src), __shfl_sync(kFull, t.b, src),
+           __shfl_sync(kFull, t.c, src)};
 }
 
 // Inclusive scan of one warp's transforms, in lane order.
@@ -221,8 +268,7 @@ __global__ void __launch_bounds__(kBlock)
 scan_emit(const uint8_t* __restrict__ is_e, const uint8_t* __restrict__ valid,
           const int32_t* __restrict__ carry, const int32_t* __restrict__ s0,
           const int32_t* __restrict__ s1, int32_t* __restrict__ pos,
-          uint8_t* __restrict__ matched, int32_t* __restrict__ tick,
-          int64_t n) {
+          uint8_t* __restrict__ matched, int64_t n) {
   __shared__ T warp_tot[kWarps];
   const int64_t i = (int64_t)blockIdx.x * kBlock + threadIdx.x;
   const bool in = i < n;
@@ -236,111 +282,405 @@ scan_emit(const uint8_t* __restrict__ is_e, const uint8_t* __restrict__ valid,
   const int32_t p = Op::position(x, *s0, *s1, e, v);
   pos[i] = p;
   matched[i] = p != -1;
-  if constexpr (Op::kTicket) tick[i] = Op::ticket(x, *s1, e);
 }
 
-template <class Op>
-int launch_scan(const void* is_e, const void* valid, const void* s0,
-                const void* s1, void* pos, void* matched, void* tick,
-                void* new_state, void* totals, void* carry, int n,
-                void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nb = (n + kBlock - 1) / kBlock;
-  const auto* e = static_cast<const uint8_t*>(is_e);
-  const auto* v = static_cast<const uint8_t*>(valid);
-  const auto* a = static_cast<const int32_t*>(s0);
-  const auto* b = static_cast<const int32_t*>(s1);
-  auto* tot = static_cast<int32_t*>(totals);
-  auto* car = static_cast<int32_t*>(carry);
-  if (nb > 0) block_totals<Op><<<nb, kBlock, 0, s>>>(e, v, tot, n);
-  carry_scan<Op><<<1, kBlock, 0, s>>>(tot, car, nb, a, b,
-                                      static_cast<int32_t*>(new_state));
-  if (nb > 0)
-    scan_emit<Op><<<nb, kBlock, 0, s>>>(
-        e, v, car, a, b, static_cast<int32_t*>(pos),
-        static_cast<uint8_t*>(matched), static_cast<int32_t*>(tick), n);
-  return static_cast<int>(cudaGetLastError());
+// ------------------------------------------- single-pass look-back -----
+// The status buffer: a tile counter (16 bytes), `slots` (even) uint64
+// flags, then two value arrays of `width` int32 per tile (aggregates,
+// inclusive prefixes).  The flags sit at a place fixed for the buffer's
+// life, whatever this call's tiles and width, so they never hold another
+// call's values (which could read as a flag of this epoch).  kernel.py's
+// _status sizes it.
+struct Status {
+  unsigned* counter;
+  unsigned long long* flag;
+  int32_t* agg;
+  int32_t* incl;
+};
+
+__device__ __forceinline__ Status status_view(void* buf, int slots,
+                                              int tiles, int width) {
+  auto* b = static_cast<uint8_t*>(buf);
+  Status s;
+  s.counter = reinterpret_cast<unsigned*>(b);
+  s.flag = reinterpret_cast<unsigned long long*>(b + 16);
+  s.agg = reinterpret_cast<int32_t*>(b + 16 +
+                                     8 * static_cast<size_t>(slots));
+  s.incl = s.agg + static_cast<size_t>(tiles) * width;
+  return s;
 }
 
-// ------------------------------------------------------- tiered sweep -----
-// The op's tier if it is an enqueue of a tier in [0, P), else -1.
-__device__ __forceinline__ int tier_key(const int32_t* tier,
-                                        const uint8_t* enq, int64_t i,
-                                        int64_t n, int P) {
-  if (i >= n || !enq[i]) return -1;
-  const int32_t t = tier[i];
-  return (t >= 0 && t < P) ? t : -1;
+// The tile this block scans, in the order blocks start: thread 0 draws it
+// and the block reads it from `slot` after a __syncthreads.
+__device__ __forceinline__ void draw_tile(const Status& st, int tiles,
+                                          int* slot) {
+  if (threadIdx.x == 0) *slot = atomicInc(st.counter, tiles - 1);
 }
 
-__global__ void __launch_bounds__(kBlock)
-tier_block_counts(const int32_t* __restrict__ tier,
-                  const uint8_t* __restrict__ enq,
-                  int32_t* __restrict__ counts, int64_t n, int P, int nb) {
-  extern __shared__ int32_t hist[];   // [P]
-  for (int j = threadIdx.x; j < P; j += kBlock) hist[j] = 0;
-  __syncthreads();
-  const int64_t i = (int64_t)blockIdx.x * kBlock + threadIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int key = tier_key(tier, enq, i, n, P);
-  const unsigned peers = __match_any_sync(kFull, key);
-  if (key >= 0 && lane == __ffs(peers) - 1)
-    atomicAdd(&hist[key], __popc(peers));
-  __syncthreads();
-  for (int j = threadIdx.x; j < P; j += kBlock)
-    counts[(int64_t)j * nb + blockIdx.x] = hist[j];
+__device__ __forceinline__ unsigned long long load_flag(
+    const unsigned long long* p) {
+  unsigned long long v;
+  asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+               : "=l"(v) : "l"(p) : "memory");
+  return v;
 }
 
-__global__ void __launch_bounds__(kBlock)
-tier_carry_scan(const int32_t* __restrict__ counts,
-                int32_t* __restrict__ carry, const int32_t* __restrict__ lasts,
-                int32_t* __restrict__ new_lasts, int nb) {
-  __shared__ T warp_tot[kWarps];
-  const int64_t row = (int64_t)blockIdx.x * nb;   // one block per tier
-  int32_t run = 0;
-  for (int base = 0; base < nb; base += kBlock) {
-    const int j = base + threadIdx.x;
-    T agg;
-    const T ex = block_excl<CountOp>(T{j < nb ? counts[row + j] : 0, 0, 0},
-                                     warp_tot, &agg);
-    if (j < nb) carry[row + j] = run + ex.a;
-    run += agg.a;
+// Publish a flag after this thread's value stores, and those of every
+// thread that met it at a barrier (__syncthreads / __syncwarp) since: the
+// fence is cumulative, so fence + relaxed store is a release (CUB's
+// pattern for wide values, and cooperative groups' grid barrier).
+__device__ __forceinline__ void publish(unsigned long long* p,
+                                        unsigned long long v) {
+  __threadfence();
+  asm volatile("st.relaxed.gpu.global.u64 [%0], %1;"
+               :: "l"(p), "l"(v) : "memory");
+}
+
+// Spin until predecessor j has published in this call; returns its flag.
+// A flag that never comes means a broken status buffer: trap (the launch
+// then fails) instead of hanging the card.
+__device__ __forceinline__ unsigned long long wait_flag(
+    const Status& st, int j, unsigned long long epoch) {
+  unsigned long long f;
+  for (unsigned spins = 0; (f = load_flag(st.flag + j)) < 2 * epoch;) {
+    __nanosleep(32);
+    if (++spins == (1u << 26)) asm volatile("trap;");
   }
-  if (threadIdx.x == 0)
-    new_lasts[blockIdx.x] = static_cast<int32_t>(
-        static_cast<uint32_t>(lasts[blockIdx.x]) + static_cast<uint32_t>(run));
+  return f;
 }
 
-__global__ void __launch_bounds__(kBlock)
-tier_emit(const int32_t* __restrict__ tier, const uint8_t* __restrict__ enq,
-          const int32_t* __restrict__ carry, const int32_t* __restrict__ lasts,
-          int32_t* __restrict__ pos, int64_t n, int P, int nb) {
-  extern __shared__ int32_t wc[];     // [kWarps][P] per-warp tier counts
-  for (int j = threadIdx.x; j < kWarps * P; j += kBlock) wc[j] = 0;
+// The stack's published value: (a, b, c) as one 16-byte store.
+__device__ __forceinline__ void put_T(int32_t* row, T t) {
+  __stcg(reinterpret_cast<int4*>(row), make_int4(t.a, t.b, t.c, 0));
+}
+
+__device__ __forceinline__ T get_T(const int32_t* row) {
+  const int4 v = __ldcg(reinterpret_cast<const int4*>(row));
+  return T{v.x, v.y, v.z};
+}
+
+// Warp 0 of tile `tile` > 0: the composition of every earlier tile, in
+// tile order, read from the status buffer.  Each window puts predecessor
+// tile - 1 - lane - 32k on lane `lane`; lanes past the nearest inclusive
+// prefix (or before tile 0) count as the identity.  All lanes return it.
+__device__ T stack_look_back(const Status& st, int tile,
+                             unsigned long long epoch, int lane) {
+  T prefix = StackOp::ident();
+  for (int top = tile - 1;; top -= 32) {
+    const int j = top - lane;
+    const unsigned long long f = j >= 0 ? wait_flag(st, j, epoch)
+                                        : 2 * epoch + 1;
+    const bool inclusive = f & 1;
+    const unsigned pmask = __ballot_sync(kFull, inclusive);
+    const int stop = pmask ? __ffs(pmask) - 1 : 31;
+    T x = StackOp::ident();
+    if (j >= 0 && lane <= stop)
+      x = get_T((inclusive ? st.incl : st.agg) + 4 * static_cast<size_t>(j));
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {   // lane order: higher = earlier
+      const T y = shfl_down(x, off);
+      if (lane + off < 32) x = StackOp::compose(y, x);
+    }
+    prefix = StackOp::compose(shfl(x, 0), prefix);
+    if (pmask) return prefix;
+  }
+}
+
+__device__ __forceinline__ bool aligned16(const void* p) {
+  return (reinterpret_cast<uintptr_t>(p) & 15) == 0;
+}
+
+// 16 bools from p[i, i + 16): one 16-byte load where it can, else bytes
+// (0 past n).
+__device__ __forceinline__ uint4 load16(const uint8_t* p, int64_t i,
+                                        int64_t n, bool vec) {
+  if (vec && i + 16 <= n) return __ldg(reinterpret_cast<const uint4*>(p + i));
+  uint32_t w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int k = 0; k < 16; ++k)
+    if (i + k < n) w[k >> 2] |= static_cast<uint32_t>(p[i + k] != 0)
+                                << (8 * (k & 3));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ bool item(const uint4& x, int k) {
+  const uint32_t w = k < 4 ? x.x : k < 8 ? x.y : k < 12 ? x.z : x.w;
+  return (w >> (8 * (k & 3))) & 0xffu;
+}
+
+// 4 int32 to p[i, i + 4), one 16-byte store where it can; i < n.
+__device__ __forceinline__ void store4(int32_t* p, int64_t i, int64_t n,
+                                       bool vec, int4 v) {
+  if (vec && i + 4 <= n) {
+    *reinterpret_cast<int4*>(p + i) = v;
+    return;
+  }
+  const int32_t w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+  for (int k = 0; k < 4; ++k)
+    if (i + k < n) p[i + k] = w[k];
+}
+
+__device__ __forceinline__ int pad(int o) { return o + (o >> 5); }
+
+constexpr int kStage = kTile + kTile / 32;   // padded staging, int32
+
+// A thread's kItems bools, in 16-byte words.
+template <int kItems>
+struct Bools {
+  uint4 w[kItems / 16];
+  __device__ bool operator[](int k) const { return item(w[k >> 4], k & 15); }
+};
+
+template <int kItems>
+__device__ __forceinline__ Bools<kItems> load_bools(const uint8_t* p,
+                                                    int64_t i, int64_t n) {
+  Bools<kItems> b;
+  const bool vec = aligned16(p);
+#pragma unroll
+  for (int q = 0; q < kItems / 16; ++q)
+    b.w[q] = load16(p, i + 16 * q, n, vec);
+  return b;
+}
+
+// The tile's staged int32 (stage[pad(o)] for op o of the tile) to
+// out[t0 + o], as coalesced 16-byte stores by kThreads threads.
+template <int kThreads>
+__device__ __forceinline__ void store_tile(int32_t* out, const int32_t* stage,
+                                           int64_t t0, int64_t n) {
+  const bool vec = aligned16(out);
+#pragma unroll
+  for (int r = 0; r < kTile / (4 * kThreads); ++r) {
+    const int o = 4 * (threadIdx.x + kThreads * r);
+    if (t0 + o >= n) break;
+    const int s = pad(o);              // o % 32 <= 28: no pad inside
+    store4(out, t0 + o, n, vec,
+           make_int4(stage[s], stage[s + 1], stage[s + 2], stage[s + 3]));
+  }
+}
+
+__global__ void __launch_bounds__(kStackThreads)
+stack_scan_lookback(const uint8_t* __restrict__ is_push,
+                    const uint8_t* __restrict__ valid,
+                    const int32_t* __restrict__ last,
+                    const int32_t* __restrict__ ticket,
+                    int32_t* __restrict__ pos, int32_t* __restrict__ tick,
+                    uint8_t* __restrict__ matched,
+                    int32_t* __restrict__ new_state, void* status,
+                    int slots, unsigned long long epoch, int64_t n,
+                    int tiles) {
+  constexpr int kItems = kTile / kStackThreads;
+  constexpr int kTileWarps = kStackThreads / 32;
+  __shared__ int32_t stage[kStage];    // positions, then tickets
+  __shared__ T warp_tot[kTileWarps];
+  __shared__ T tile_pre;
+  __shared__ int tile_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Status st = status_view(status, slots, tiles, 4);
+  draw_tile(st, tiles, &tile_s);
   __syncthreads();
-  const int64_t i = (int64_t)blockIdx.x * kBlock + threadIdx.x;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int key = tier_key(tier, enq, i, n, P);
-  const unsigned peers = __match_any_sync(kFull, key);
-  const int rank = __popc(peers & ((1u << lane) - 1u));
-  if (key >= 0 && lane == __ffs(peers) - 1) wc[warp * P + key] = __popc(peers);
+  const int tile = tile_s;
+  const int64_t t0 = static_cast<int64_t>(tile) * kTile;
+  const int64_t i0 = t0 + tid * kItems;
+  const auto e = load_bools<kItems>(is_push, i0, n);
+  const auto v = load_bools<kItems>(valid, i0, n);
+
+  T agg = StackOp::ident();            // this thread's ops, in order
+#pragma unroll
+  for (int k = 0; k < kItems; ++k)
+    agg = StackOp::compose(agg, StackOp::load(e[k], v[k]));
+  const T inc = warp_incl<StackOp>(agg, lane);
+  const T up = shfl_up(inc, 1);
+  T excl = lane == 0 ? StackOp::ident() : up;
+  if (lane == 31) warp_tot[warp] = inc;
   __syncthreads();
-  for (int t = threadIdx.x; t < P; t += kBlock) {   // exclusive over warps
-    int32_t run = 0;
-    for (int w = 0; w < kWarps; ++w) {
-      const int32_t c = wc[w * P + t];
-      wc[w * P + t] = run;
-      run += c;
+  if (warp == 0) {
+    T w = lane < kTileWarps ? warp_tot[lane] : StackOp::ident();
+    w = warp_incl<StackOp>(w, lane);
+    if (lane < kTileWarps) warp_tot[lane] = w;        // inclusive over warps
+    const T total = shfl(w, kTileWarps - 1);
+    T prefix = StackOp::ident();
+    if (lane == 0) {
+      put_T((tile == 0 ? st.incl : st.agg) + 4 * tile, total);
+      publish(st.flag + tile, 2 * epoch + (tile == 0));
+    }
+    if (tile > 0) {
+      prefix = stack_look_back(st, tile, epoch, lane);
+      if (lane == 0) {
+        put_T(st.incl + 4 * tile, StackOp::compose(prefix, total));
+        publish(st.flag + tile, 2 * epoch + 1);
+      }
+    }
+    if (lane == 0) {
+      tile_pre = prefix;
+      if (tile == tiles - 1)
+        StackOp::finish(StackOp::compose(prefix, total), *last, *ticket,
+                        new_state);
     }
   }
   __syncthreads();
-  if (i >= n) return;
-  int32_t p = -1;
-  if (key >= 0) {                     // int32 wrap-around, as in the reference
-    const uint32_t before = static_cast<uint32_t>(
-        carry[(int64_t)key * nb + blockIdx.x] + wc[warp * P + key] + rank);
-    p = static_cast<int32_t>(static_cast<uint32_t>(lasts[key]) + 1u + before);
+  if (warp > 0) excl = StackOp::compose(warp_tot[warp - 1], excl);
+  const T x0 = StackOp::compose(tile_pre, excl);
+  const int32_t l0 = *last, k0 = *ticket;
+  T x = x0;                            // positions, and matched
+  uint32_t m[kItems / 4];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    if ((k & 3) == 0) m[k >> 2] = 0;
+    const int32_t p = StackOp::position(x, l0, e[k], v[k]);
+    stage[pad(tid * kItems + k)] = p;
+    m[k >> 2] |= static_cast<uint32_t>(p != -1) << (8 * (k & 3));
+    x = StackOp::compose(x, StackOp::load(e[k], v[k]));
   }
-  pos[i] = p;
+  const bool vm = aligned16(matched);
+#pragma unroll
+  for (int q = 0; q < kItems / 16; ++q) {   // this thread's matched bytes
+    const int64_t i = i0 + 16 * q;
+    if (vm && i + 16 <= n) {
+      *reinterpret_cast<uint4*>(matched + i) =
+          make_uint4(m[4 * q], m[4 * q + 1], m[4 * q + 2], m[4 * q + 3]);
+    } else {
+      for (int k = 0; k < 16 && i + k < n; ++k)
+        matched[i + k] = (m[4 * q + (k >> 2)] >> (8 * (k & 3))) & 1u;
+    }
+  }
+  __syncthreads();
+  store_tile<kStackThreads>(pos, stage, t0, n);
+  __syncthreads();
+  x = x0;                              // tickets: only the counts move them
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    stage[pad(tid * kItems + k)] = StackOp::ticket(x, k0, e[k]);
+    x.c += e[k] && v[k];
+  }
+  __syncthreads();
+  store_tile<kStackThreads>(tick, stage, t0, n);
+}
+
+// ------------------------------------------------------- tiered sweep -----
+__global__ void __launch_bounds__(kTierThreads)
+tiered_scan_lookback(const int32_t* __restrict__ tier,
+                     const uint8_t* __restrict__ enq,
+                     const int32_t* __restrict__ lasts,
+                     int32_t* __restrict__ pos,
+                     int32_t* __restrict__ new_lasts, void* status,
+                     int slots, unsigned long long epoch, int64_t n, int P,
+                     int tiles) {
+  constexpr int kItems = kTile / kTierThreads;
+  constexpr int kTileWarps = kTierThreads / 32;
+  constexpr int kWarpOps = kTile / kTileWarps;
+  __shared__ int32_t key_s[kStage];    // keys (padded), then positions
+  __shared__ int32_t wc[kTileWarps][kMaxTiers];         // per-warp tier counts
+  __shared__ int32_t cnt_s[kMaxTiers], pre_s[kMaxTiers];
+  __shared__ int tile_s;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const Status st = status_view(status, slots, tiles, P);
+  draw_tile(st, tiles, &tile_s);
+  for (int t = lane; t < P; t += 32) wc[warp][t] = 0;
+  __syncthreads();
+  const int tile = tile_s;
+  const int64_t t0 = static_cast<int64_t>(tile) * kTile;
+  const int64_t i0 = t0 + tid * kItems;
+
+  // this thread's ops: enq in 16-byte words, tiers four to a 16-byte load;
+  // each op's key (its tier, or -1 if it takes no position) to key_s
+  const auto e = load_bools<kItems>(enq, i0, n);
+  const bool vt = aligned16(tier);
+#pragma unroll
+  for (int q = 0; q < kItems / 4; ++q) {
+    const int64_t i = i0 + 4 * q;
+    int4 x;
+    if (vt && i + 4 <= n) {
+      x = __ldg(reinterpret_cast<const int4*>(tier + i));
+    } else {
+      x.x = i < n ? tier[i] : 0;
+      x.y = i + 1 < n ? tier[i + 1] : 0;
+      x.z = i + 2 < n ? tier[i + 2] : 0;
+      x.w = i + 3 < n ? tier[i + 3] : 0;
+    }
+    const int32_t t4[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int k = 4 * q + j;
+      key_s[pad(tid * kItems + k)] =
+          (e[k] && t4[j] >= 0 && t4[j] < P) ? t4[j] : -1;
+    }
+  }
+  __syncthreads();
+
+  // rank within the warp's ops, rounds of 32 consecutive ones; kr packs
+  // (tier << 16) | rank, or -1 for an op that takes no position
+  int32_t kr[kItems];
+  const unsigned lower = (1u << lane) - 1u;
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const int key = key_s[pad(warp * kWarpOps + 32 * r + lane)];
+    const unsigned peers = __match_any_sync(kFull, key);
+    const int before = key >= 0 ? wc[warp][key] + __popc(peers & lower) : 0;
+    __syncwarp();
+    if (key >= 0 && lane == __ffs(peers) - 1) wc[warp][key] += __popc(peers);
+    __syncwarp();
+    kr[r] = key >= 0 ? (key << 16) | before : -1;
+  }
+  __syncthreads();
+  int32_t cnt = 0;                     // this thread's tier: tile count
+  if (tid < P) {                       // exclusive over warps, in place
+    for (int w = 0; w < kTileWarps; ++w) {
+      const int32_t c = wc[w][tid];
+      wc[w][tid] = cnt;
+      cnt += c;
+    }
+    cnt_s[tid] = cnt;
+    __stcg((tile == 0 ? st.incl : st.agg) + static_cast<size_t>(tile) * P +
+               tid, cnt);
+    pre_s[tid] = 0;
+  }
+  __syncthreads();
+  if (tid == 0) publish(st.flag + tile, 2 * epoch + (tile == 0));
+  if (warp == 0 && tile > 0) {
+    // each window: lane s reads predecessor top - s's counts (lanes past
+    // the nearest inclusive prefix read nothing); one warp sum per tier
+    for (int top = tile - 1;; top -= 32) {
+      const int j = top - lane;
+      const unsigned long long f = j >= 0 ? wait_flag(st, j, epoch)
+                                          : 2 * epoch + 1;
+      const unsigned pmask = __ballot_sync(kFull, f & 1);
+      const int stop = pmask ? __ffs(pmask) - 1 : 31;
+      const int32_t* row = j >= 0 && lane <= stop
+          ? (f & 1 ? st.incl : st.agg) + static_cast<size_t>(j) * P
+          : nullptr;
+#pragma unroll 4
+      for (int t = 0; t < P; ++t) {
+        const int32_t sum = __reduce_add_sync(kFull, row ? __ldcg(row + t)
+                                                         : 0);
+        if (lane == 0) pre_s[t] += sum;
+      }
+      if (pmask) break;
+    }
+    __syncwarp();
+    for (int t = lane; t < P; t += 32)
+      __stcg(st.incl + static_cast<size_t>(tile) * P + t,
+             pre_s[t] + cnt_s[t]);
+    __syncwarp();
+    if (lane == 0) publish(st.flag + tile, 2 * epoch + 1);
+  }
+  __syncthreads();
+  if (tid < P) {                       // int32 wrap-around, as the reference
+    const int32_t pre = pre_s[tid];
+    cnt_s[tid] = wrap_add(wrap_add(lasts[tid], 1), pre);   // first position
+    if (tile == tiles - 1) new_lasts[tid] = wrap_add(lasts[tid], pre + cnt);
+  }
+  __syncthreads();
+#pragma unroll
+  for (int r = 0; r < kItems; ++r) {
+    const int key = kr[r] >> 16;       // -1 stays -1
+    key_s[pad(warp * kWarpOps + 32 * r + lane)] =
+        kr[r] < 0 ? -1
+                  : wrap_add(wrap_add(cnt_s[key], wc[warp][key]),
+                             kr[r] & 0xffff);
+  }
+  __syncthreads();
+  store_tile<kTierThreads>(pos, key_s, t0, n);
 }
 
 }  // namespace
@@ -353,47 +693,61 @@ extern "C" int repro_queue_scan(const void* is_enq, const void* valid,
                                 void* pos, void* matched, void* new_state,
                                 void* totals, void* carry, int n,
                                 void* stream) {
-  return launch_scan<QueueOp>(is_enq, valid, first, last, pos, matched,
-                              nullptr, new_state, totals, carry, n, stream);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int nb = (n + kBlock - 1) / kBlock;
+  const auto* e = static_cast<const uint8_t*>(is_enq);
+  const auto* v = static_cast<const uint8_t*>(valid);
+  const auto* a = static_cast<const int32_t*>(first);
+  const auto* b = static_cast<const int32_t*>(last);
+  auto* tot = static_cast<int32_t*>(totals);
+  auto* car = static_cast<int32_t*>(carry);
+  if (nb > 0) block_totals<QueueOp><<<nb, kBlock, 0, s>>>(e, v, tot, n);
+  carry_scan<QueueOp><<<1, kBlock, 0, s>>>(tot, car, nb, a, b,
+                                           static_cast<int32_t*>(new_state));
+  if (nb > 0)
+    scan_emit<QueueOp><<<nb, kBlock, 0, s>>>(
+        e, v, car, a, b, static_cast<int32_t*>(pos),
+        static_cast<uint8_t*>(matched), n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // pos/tick/matched: [n] outputs; new_state: [2] int32 (new_last,
-// new_ticket); totals/carry as for repro_queue_scan.
+// new_ticket); status: the look-back buffer of this stream (status_view),
+// zeroed when allocated, with slots >= tiles = max(1, ceil(n / 4096))
+// flags and room for 8 * tiles * 4 bytes of values; epoch: above every
+// epoch this buffer has seen.  One launch of `tiles` blocks.
 extern "C" int repro_stack_scan(const void* is_push, const void* valid,
                                 const void* last, const void* ticket,
                                 void* pos, void* tick, void* matched,
-                                void* new_state, void* totals, void* carry,
-                                int n, void* stream) {
-  return launch_scan<StackOp>(is_push, valid, last, ticket, pos, matched,
-                              tick, new_state, totals, carry, n, stream);
+                                void* new_state, void* status, int slots,
+                                unsigned long long epoch, int n,
+                                void* stream) {
+  const int tiles = n > 0 ? (n + kTile - 1) / kTile : 1;
+  stack_scan_lookback<<<tiles, kStackThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(is_push), static_cast<const uint8_t*>(valid),
+      static_cast<const int32_t*>(last), static_cast<const int32_t*>(ticket),
+      static_cast<int32_t*>(pos), static_cast<int32_t*>(tick),
+      static_cast<uint8_t*>(matched), static_cast<int32_t*>(new_state),
+      status, slots, epoch, n, tiles);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // tier: [n] int32, enq: [n] bool, lasts: [P] int32; pos: [n] int32 and
-// new_lasts: [P] int32 outputs; counts/carry: scratch of P * max(1,
-// ceil(n / 1024)) int32 each.  1 <= P <= 256 (the emit kernel's shared
-// memory, 32 * P int32, stays under 48 KB).
+// new_lasts: [P] int32 outputs; status, slots and epoch as for
+// repro_stack_scan, with room for 8 * tiles * P bytes of values.
+// 1 <= P <= 256 (one tier per thread).
 extern "C" int repro_tiered_scan(const void* tier, const void* enq,
                                  const void* lasts, void* pos,
-                                 void* new_lasts, void* counts, void* carry,
-                                 int n, int n_tiers, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nb = (n + kBlock - 1) / kBlock;
-  const int nbc = nb > 0 ? nb : 1;
-  const auto* t = static_cast<const int32_t*>(tier);
-  const auto* e = static_cast<const uint8_t*>(enq);
-  auto* cnt = static_cast<int32_t*>(counts);
-  auto* car = static_cast<int32_t*>(carry);
-  if (nb > 0)
-    tier_block_counts<<<nb, kBlock, n_tiers * sizeof(int32_t), s>>>(
-        t, e, cnt, n, n_tiers, nbc);
-  else
-    cudaMemsetAsync(cnt, 0, n_tiers * sizeof(int32_t), s);
-  tier_carry_scan<<<n_tiers, kBlock, 0, s>>>(
-      cnt, car, static_cast<const int32_t*>(lasts),
-      static_cast<int32_t*>(new_lasts), nbc);
-  if (nb > 0)
-    tier_emit<<<nb, kBlock, kWarps * n_tiers * sizeof(int32_t), s>>>(
-        t, e, car, static_cast<const int32_t*>(lasts),
-        static_cast<int32_t*>(pos), n, n_tiers, nbc);
+                                 void* new_lasts, void* status, int slots,
+                                 unsigned long long epoch, int n,
+                                 int n_tiers, void* stream) {
+  const int tiles = n > 0 ? (n + kTile - 1) / kTile : 1;
+  tiered_scan_lookback<<<tiles, kTierThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(tier), static_cast<const uint8_t*>(enq),
+      static_cast<const int32_t*>(lasts), static_cast<int32_t*>(pos),
+      static_cast<int32_t*>(new_lasts), status, slots, epoch, n, n_tiers,
+      tiles);
   return static_cast<int>(cudaGetLastError());
 }

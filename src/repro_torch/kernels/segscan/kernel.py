@@ -4,7 +4,7 @@ Replace ``repro/kernels/segscan/kernel.py``: ``queue_scan_kernel`` (FIFO
 min-plus), ``stack_scan_kernel`` (LIFO max-plus) and
 ``tiered_queue_scan_kernel`` (the per-tier enqueue sweep).  The CUDA
 source says what bounds them and how they are built; this module checks
-the tensors and passes pointers.
+the tensors, keeps the look-back status buffers and passes pointers.
 """
 from __future__ import annotations
 
@@ -12,17 +12,22 @@ import ctypes
 
 import torch
 
-from ..backend import check_launch, load, stream_ptr
+from ..backend import check_launch, load, raw_stream, stream_ptr
 
-BLOCK = 1024   # ops per block, one per thread (must match segscan.cu)
-MAX_TIERS = 256   # the tiered emit's shared memory, 32 * P int32 (< 48 KB)
+BLOCK = 1024   # FIFO: ops per block, one per thread (must match segscan.cu)
+TILE = 4096    # stack and tiered: ops per tile (must match segscan.cu)
+MAX_TIERS = 256   # the tiered scan takes one tier per thread of a tile
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
     "repro_queue_scan": [_P] * 9 + [ctypes.c_int, _P],
-    "repro_stack_scan": [_P] * 10 + [ctypes.c_int, _P],
-    "repro_tiered_scan": [_P] * 7 + [ctypes.c_int, ctypes.c_int, _P],
+    "repro_stack_scan": [_P] * 9 + [ctypes.c_int, ctypes.c_ulonglong,
+                                    ctypes.c_int, _P],
+    "repro_tiered_scan": [_P] * 6 + [ctypes.c_int, ctypes.c_ulonglong,
+                                     ctypes.c_int, ctypes.c_int, _P],
 }
+# (device index, stream) -> (uint8 status buffer, flag slots, last epoch)
+_STATUS: dict = {}
 
 
 def _fn(name: str):
@@ -48,6 +53,34 @@ def _check(what: str, n_max: int, n: int, vecs, scalars):
     if n >= n_max:
         raise ValueError(f"{what}: n must stay below {n_max} (the INF "
                          f"saturation bound)")
+
+
+def _status(device: torch.device, stream: int, n: int, width: int):
+    """The look-back status buffer of ``(device, stream)``, its number of
+    flag slots, and this call's epoch.
+
+    Layout (``status_view`` in segscan.cu): a 16-byte tile counter,
+    ``slots`` uint64 flags, then aggregates and inclusive prefixes of
+    ``width`` int32 for each of this call's tiles.  The buffer is zeroed
+    once, when it is allocated or grown (each part to at least twice its
+    size); between calls nothing clears it: each call raises the epoch,
+    and the kernel reads a flag below ``2 * epoch`` as unset.  Calls on
+    one stream run in order, so they share a buffer safely; a dropped
+    buffer is reused by the allocator only after the work queued on its
+    stream.  Not for CUDA-graph capture: a replay would repeat the
+    captured epoch.
+    """
+    tiles = max(-(-n // TILE), 1)
+    key = (device.index, stream)
+    buf, slots, epoch = _STATUS.get(key, (None, 0, 0))
+    values = buf.numel() - 16 - 8 * slots if buf is not None else 0
+    if tiles > slots or 8 * tiles * width > values:
+        slots = max(2 * slots, tiles + tiles % 2)
+        values = max(2 * values, 8 * tiles * width)
+        buf = torch.zeros(16 + 8 * slots + values, dtype=torch.uint8,
+                          device=device)
+    _STATUS[key] = (buf, slots, epoch + 1)
+    return buf, slots, epoch + 1
 
 
 def queue_scan_kernel(is_enq: torch.Tensor, valid: torch.Tensor,
@@ -81,41 +114,48 @@ def queue_scan_kernel(is_enq: torch.Tensor, valid: torch.Tensor,
 
 def stack_scan_kernel(is_push: torch.Tensor, valid: torch.Tensor,
                       last: torch.Tensor, ticket: torch.Tensor):
-    """The LIFO max-plus scan, three launches as :func:`queue_scan_kernel`.
+    """The LIFO max-plus scan: one single-pass launch on the current
+    stream (decoupled look-back), no host sync.
 
     is_push/valid: [n] bool; last/ticket: 0-d int32, all on one CUDA
     device.  Returns (pos [n] int32 with ⊥ = -1, tick [n] int32, matched
-    [n] bool, new_last, new_ticket).  Raises at n >= 2^29, where garbage
-    below -INF + n could reach a real stack height.
+    [n] bool, new_last, new_ticket); pos, tick and the state are views of
+    one allocation.  Raises at n >= 2^29, where garbage below -INF + n
+    could reach a real stack height.
     """
     n = is_push.shape[0]
     _check("stack_scan_kernel", 2 ** 29, n,
            [("is_push", is_push, torch.bool), ("valid", valid, torch.bool)],
            [("last", last, torch.int32), ("ticket", ticket, torch.int32)])
     dev = is_push.device
-    nb = max(-(-n // BLOCK), 1)
-    pos = torch.empty(n, dtype=torch.int32, device=dev)
-    tick = torch.empty(n, dtype=torch.int32, device=dev)
+    pad = -n % 4                       # tick starts 16-byte aligned
+    out = torch.empty(2 * (n + pad) + 2, dtype=torch.int32, device=dev)
+    if pad:
+        pos, _, tick, _, state = out.split((n, pad, n, pad, 2))
+    else:
+        pos, tick, state = out.split((n, n, 2))
     matched = torch.empty(n, dtype=torch.bool, device=dev)
-    new_state = torch.empty(2, dtype=torch.int32, device=dev)
-    scratch = torch.empty(6 * nb, dtype=torch.int32, device=dev)
+    stream = raw_stream(pos)
+    status, slots, epoch = _status(dev, stream, n, 4)
     err = _fn("repro_stack_scan")(
         is_push.data_ptr(), valid.data_ptr(), last.data_ptr(),
         ticket.data_ptr(), pos.data_ptr(), tick.data_ptr(),
-        matched.data_ptr(), new_state.data_ptr(), scratch.data_ptr(),
-        scratch[3 * nb:].data_ptr(), n, stream_ptr(pos))
+        matched.data_ptr(), state.data_ptr(), status.data_ptr(), slots,
+        epoch, n, stream)
     check_launch(err, "stack_scan_kernel")
-    return pos, tick, matched, new_state[0], new_state[1]
+    new_last, new_ticket = state.unbind()
+    return pos, tick, matched, new_last, new_ticket
 
 
 def tiered_queue_scan_kernel(enq: torch.Tensor, tier: torch.Tensor,
                              lasts: torch.Tensor):
-    """The per-tier enqueue sweep: three launches (block tier counts, one
-    block per tier scanning them, emit).
+    """The per-tier enqueue sweep: one single-pass launch, as
+    :func:`stack_scan_kernel`.
 
     enq: [n] bool; tier: [n] int32; lasts: [P] int32, all on one CUDA
     device, 1 <= P <= 256.  Returns (pos [n] int32, -1 for a non-enqueue
-    or a tier outside [0, P); new_lasts [P] int32).
+    or a tier outside [0, P); new_lasts [P] int32), views of one
+    allocation.
     """
     n, P = enq.shape[0], lasts.shape[0]
     _check("tiered_queue_scan_kernel", 2 ** 30, n,
@@ -128,13 +168,16 @@ def tiered_queue_scan_kernel(enq: torch.Tensor, tier: torch.Tensor,
         raise ValueError(f"tiered_queue_scan_kernel: P must be in "
                          f"[1, {MAX_TIERS}], got {P}")
     dev = enq.device
-    nb = max(-(-n // BLOCK), 1)
-    pos = torch.empty(n, dtype=torch.int32, device=dev)
-    new_lasts = torch.empty(P, dtype=torch.int32, device=dev)
-    scratch = torch.empty(2 * P * nb, dtype=torch.int32, device=dev)
+    pad = -n % 4
+    out = torch.empty(n + pad + P, dtype=torch.int32, device=dev)
+    if pad:
+        pos, _, new_lasts = out.split((n, pad, P))
+    else:
+        pos, new_lasts = out.split((n, P))
+    stream = raw_stream(pos)
+    status, slots, epoch = _status(dev, stream, n, P)
     err = _fn("repro_tiered_scan")(
         tier.data_ptr(), enq.data_ptr(), lasts.data_ptr(), pos.data_ptr(),
-        new_lasts.data_ptr(), scratch.data_ptr(),
-        scratch[P * nb:].data_ptr(), n, P, stream_ptr(pos))
+        new_lasts.data_ptr(), status.data_ptr(), slots, epoch, n, P, stream)
     check_launch(err, "tiered_queue_scan_kernel")
     return pos, new_lasts

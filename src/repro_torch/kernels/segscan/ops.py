@@ -12,8 +12,12 @@ from ...core.scan_queue import priority_queue_scan
 from .ref import queue_scan_ref, stack_scan_ref, tiered_queue_scan_ref
 
 
-def _i32(x: torch.Tensor) -> torch.Tensor:
-    return x.to(torch.int32).contiguous()
+def _as(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``x`` itself where it already is a contiguous ``dtype`` tensor (no
+    conversion, no dispatch), else a contiguous ``dtype`` copy."""
+    if x.dtype == dtype and x.is_contiguous():
+        return x
+    return x.to(dtype).contiguous()
 
 
 def queue_scan(is_enq: torch.Tensor, valid: torch.Tensor,
@@ -30,7 +34,8 @@ def queue_scan(is_enq: torch.Tensor, valid: torch.Tensor,
         return queue_scan_ref(is_enq, valid, first, last)
     from .kernel import queue_scan_kernel
     out = queue_scan_kernel(is_enq.contiguous(), valid.contiguous(),
-                            _i32(first), _i32(last))
+                            first.to(torch.int32).contiguous(),
+                            last.to(torch.int32).contiguous())
     queue_scan.launches += 1
     return out
 
@@ -47,8 +52,8 @@ def stack_scan(is_push: torch.Tensor, valid: torch.Tensor,
     if is_push.device.type != "cuda":
         return stack_scan_ref(is_push, valid, last, ticket)
     from .kernel import stack_scan_kernel
-    out = stack_scan_kernel(is_push.contiguous(), valid.contiguous(),
-                            _i32(last), _i32(ticket))
+    out = stack_scan_kernel(_as(is_push, torch.bool), _as(valid, torch.bool),
+                            _as(last, torch.int32), _as(ticket, torch.int32))
     stack_scan.launches += 1
     return out
 
@@ -69,8 +74,9 @@ def tiered_queue_scan(enq: torch.Tensor, tier: torch.Tensor,
     if enq.device.type != "cuda":
         return tiered_queue_scan_ref(enq, tier, lasts)
     from .kernel import tiered_queue_scan_kernel
-    out = tiered_queue_scan_kernel(enq.to(torch.bool).contiguous(),
-                                   _i32(tier), _i32(lasts))
+    out = tiered_queue_scan_kernel(_as(enq, torch.bool),
+                                   _as(tier, torch.int32),
+                                   _as(lasts, torch.int32))
     tiered_queue_scan.launches += 1
     return out
 

@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from ...core.scan_queue import QueueState, StackState, queue_scan, stack_scan
+from ...core.scan_queue import (INF, QueueState, StackState, queue_scan,
+                                stack_compose, stack_scan)
 
 
 def queue_scan_ref(is_enq: torch.Tensor, valid: torch.Tensor,
@@ -57,3 +58,190 @@ def tiered_queue_scan_ref(enq: torch.Tensor, tier: torch.Tensor,
     wrap = torch.remainder(pos + 2 ** 31, 2 ** 32) - 2 ** 31
     new = torch.remainder(lasts + counts + 2 ** 31, 2 ** 32) - 2 ** 31
     return wrap.to(torch.int32), new.to(torch.int32)
+
+
+# ------------------------------------------------ single-pass models -----
+# Plain-torch models of how csrc/segscan.cu's single-pass kernels bracket
+# their scans: tiles of threads x items ops; each thread's items composed
+# serially; warps scanned in lane order; each tile's prefix from a
+# decoupled look-back over windows of WINDOW predecessors,
+# nearest first, stopping at the nearest one that has published its
+# inclusive prefix.  Which predecessors have done so when a tile looks
+# depends on timing on the card: ``p_inclusive`` and ``seed`` draw it
+# (tile 0 always has).  The tests hold these models bit for bit against
+# the JAX package, and their tile shapes against segscan.cu's; the
+# wrappers never call them.
+STACK_THREADS, STACK_ITEMS = 128, 32   # stack_scan_lookback's tile
+TIER_THREADS, TIER_ITEMS = 256, 16     # tiered_scan_lookback's tile
+WINDOW = 32                            # predecessors a look-back warp reads
+
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 -> int32 with two's-complement wrap-around."""
+    return (torch.remainder(x + 2 ** 31, 2 ** 32) - 2 ** 31).to(torch.int32)
+
+
+def _seen_inclusive(tiles: int, p_inclusive: float, seed: int):
+    g = torch.Generator().manual_seed(seed)
+    seen = torch.rand(tiles, tiles, generator=g) < p_inclusive
+    seen[:, 0] = True
+    return seen
+
+
+def _window(i: int, seen: torch.Tensor):
+    """Tile i's look-back windows: for each, the predecessor of each lane
+    (-1 before tile 0), whether it shows its inclusive prefix, and the
+    lanes that count (up to the nearest inclusive one)."""
+    top = i - 1
+    lanes = torch.arange(WINDOW)
+    while True:
+        j = top - lanes
+        inclusive = (j < 0) | seen[i, j.clamp(min=0)]
+        stop = int(inclusive.to(torch.int8).argmax()) if inclusive.any() \
+            else WINDOW - 1
+        yield j, inclusive, lanes <= stop
+        if inclusive.any():
+            return
+        top -= WINDOW
+
+
+def _stack_ident(shape):
+    return (torch.zeros(shape, dtype=torch.int32),
+            torch.full(shape, -INF, dtype=torch.int32),
+            torch.zeros(shape, dtype=torch.int32))
+
+
+def _where(mask, x, y):
+    return tuple(torch.where(mask, p, q) for p, q in zip(x, y))
+
+
+def _lane_scan(t, lanes: int):
+    """Inclusive scan along the last axis as ``warp_incl``: at step off,
+    lane l composes lane l - off's value before its own."""
+    lane = torch.arange(lanes)
+    off = 1
+    while off < lanes:
+        up = tuple(x.roll(off, -1) for x in t)
+        t = _where(lane >= off, stack_compose(up, t), t)
+        off *= 2
+    return t
+
+
+def stack_scan_lookback_model(is_push: torch.Tensor, valid: torch.Tensor,
+                              last: torch.Tensor, ticket: torch.Tensor, *,
+                              p_inclusive: float = 0.0, seed: int = 0):
+    """The single-pass LIFO scan's decomposition (``stack_scan_lookback``)
+    on the CPU.  Same arguments and results as :func:`stack_scan_ref`."""
+    n, items = is_push.shape[0], STACK_ITEMS
+    tile, warps = STACK_THREADS * items, STACK_THREADS // 32
+    tiles = max(-(-n // tile), 1)
+    pad = torch.zeros(tiles * tile - n, dtype=torch.bool)
+    e = torch.cat([is_push.to(torch.bool), pad])
+    v = torch.cat([valid.to(torch.bool), pad])
+    shape = (tiles, warps, 32, items)
+    ops = tuple(x.to(torch.int32).reshape(shape) for x in (
+        torch.where(v, torch.where(e, 1, -1), 0),
+        torch.where(v & ~e, 0, -INF), v & e))
+    agg = _stack_ident(shape[:-1])
+    for k in range(items):                     # each thread, serially
+        agg = stack_compose(agg, tuple(x[..., k] for x in ops))
+    inc = _lane_scan(agg, 32)
+    lane_excl = _where(torch.arange(32) == 0, _stack_ident(shape[:-1]),
+                       tuple(x.roll(1, -1) for x in inc))
+    # warp 0 scans the warp totals; its lanes past the warps hold identity
+    w = _stack_ident((tiles, 32))
+    w = tuple(torch.cat([x[..., 31], y[:, warps:]], -1)
+              for x, y in zip(inc, w))
+    w_inc = tuple(x[:, :warps] for x in _lane_scan(w, 32))
+    tile_agg = tuple(x[:, -1] for x in w_inc)
+    warp_excl = _where(torch.arange(warps) == 0, _stack_ident((tiles, warps)),
+                       tuple(x.roll(1, -1) for x in w_inc))
+    thread_excl = stack_compose(tuple(x[..., None] for x in warp_excl),
+                                lane_excl)
+    seen = _seen_inclusive(tiles, p_inclusive, seed)
+    pre, incl = [], []
+    for i in range(tiles):
+        prefix = _stack_ident(())
+        if i:
+            for j, inclusive, counts in _window(i, seen):
+                vals = _stack_ident((WINDOW,))
+                for lane in range(WINDOW):
+                    if counts[lane] and j[lane] >= 0:
+                        jj = int(j[lane])
+                        src = incl[jj] if inclusive[lane] else tuple(
+                            x[jj] for x in tile_agg)
+                        for x, y in zip(vals, src):
+                            x[lane] = y
+                lane_ids = torch.arange(WINDOW)
+                off = 1                        # tree in lane order, as
+                while off < WINDOW:            # shfl_down: higher = earlier
+                    dn = tuple(x.roll(-off, -1) for x in vals)
+                    vals = _where(lane_ids + off < WINDOW,
+                                  stack_compose(dn, vals), vals)
+                    off *= 2
+                prefix = stack_compose(tuple(x[0] for x in vals), prefix)
+        pre.append(prefix)
+        incl.append(stack_compose(prefix, tuple(x[i] for x in tile_agg)))
+    pre = tuple(torch.stack([p[k] for p in pre]) for k in range(3))
+    x = stack_compose(tuple(p[:, None, None] for p in pre), thread_excl)
+    l0, t0 = last.to(torch.int64), ticket.to(torch.int64)
+    pos, tick = [], []
+    for k in range(items):
+        ek, vk = e.reshape(shape)[..., k], v.reshape(shape)[..., k]
+        l_i = torch.maximum(l0 + x[0], x[1].to(torch.int64))
+        pos.append(torch.where(vk, torch.where(ek, l_i + 1, torch.where(
+            l_i >= 1, l_i, -1)), -1))
+        tick.append(_wrap32(t0 + x[2] + ek.to(torch.int64)))
+        x = stack_compose(x, tuple(o[..., k] for o in ops))
+    pos = torch.stack(pos, -1).reshape(-1)[:n].to(torch.int32)
+    tick = torch.stack(tick, -1).reshape(-1)[:n]
+    run = incl[-1]
+    new_last = torch.maximum(l0 + run[0], run[1].to(torch.int64))
+    return (pos, tick, pos != -1, new_last.to(torch.int32),
+            _wrap32(t0 + run[2]))
+
+
+def tiered_scan_lookback_model(enq: torch.Tensor, tier: torch.Tensor,
+                               lasts: torch.Tensor, *,
+                               p_inclusive: float = 0.0, seed: int = 0):
+    """The single-pass tiered sweep's decomposition
+    (``tiered_scan_lookback``) on the CPU: ranks by warp rounds of 32
+    consecutive ops with per-warp running counts, per-tier sums over the
+    look-back windows.  Same arguments and results as
+    :func:`tiered_queue_scan_ref`."""
+    P, n, items = lasts.shape[0], enq.shape[0], TIER_ITEMS
+    tile, warps = TIER_THREADS * items, TIER_THREADS // 32
+    tiles = max(-(-n // tile), 1)
+    tier = tier.to(torch.int64)
+    key = torch.where(enq.to(torch.bool) & (tier >= 0) & (tier < P), tier, -1)
+    key = torch.cat([key, torch.full((tiles * tile - n,), -1)])
+    key = key.reshape(tiles, warps, items, 32)   # [tile, warp, round, lane]
+    tiers = torch.arange(P)
+    seen = _seen_inclusive(tiles, p_inclusive, seed)
+    lasts = lasts.to(torch.int64)
+    cnt, incl, pos = [], [], []
+    for i in range(tiles):
+        hot = (key[i][..., None] == tiers).to(torch.int64)  # [w, r, l, P]
+        in_round = hot.cumsum(2) - hot             # earlier lanes, same tier
+        per_round = hot.sum(2)                     # [w, r, P]
+        running = per_round.cumsum(1) - per_round  # earlier rounds
+        per_warp = per_round.sum(1)                # [w, P]
+        warp_excl = per_warp.cumsum(0) - per_warp  # earlier warps
+        cnt.append(per_warp.sum(0))
+        pre = torch.zeros(P, dtype=torch.int64)
+        if i:
+            for j, inclusive, counts in _window(i, seen):
+                for lane in range(WINDOW):
+                    if counts[lane] and j[lane] >= 0:
+                        jj = int(j[lane])
+                        pre += incl[jj] if inclusive[lane] else cnt[jj]
+        incl.append(pre + cnt[-1])
+        k = key[i].clamp(min=0)
+        rank = (in_round.gather(-1, k[..., None])[..., 0]
+                + running[:, :, None, :].expand_as(hot).gather(
+                    -1, k[..., None])[..., 0]
+                + warp_excl[:, None, None, :].expand_as(hot).gather(
+                    -1, k[..., None])[..., 0])
+        pos.append(torch.where(key[i] >= 0, lasts[k] + 1 + pre[k] + rank,
+                               -1))
+    pos = _wrap32(torch.stack(pos).reshape(-1)[:n])
+    return pos, _wrap32(lasts + incl[-1])

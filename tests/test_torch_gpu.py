@@ -9,6 +9,8 @@ their tolerance is zero.  The attention and SSD kernels compute in f32 in
 another summation order than their plain versions on the same device
 tensors; each test states its tolerance.
 """
+import re
+
 import numpy as np
 import pytest
 import torch
@@ -23,6 +25,7 @@ from repro_torch.kernels.segscan import (queue_scan, queue_scan_ref,
                                          stack_scan, stack_scan_ref,
                                          tiered_queue_scan,
                                          tiered_queue_scan_ref)
+from repro_torch.kernels.segscan.kernel import TILE
 from repro_torch.kernels.ssd_scan import ssd_chunked_ref, ssd_scan
 
 pytestmark = pytest.mark.gpu
@@ -98,6 +101,153 @@ def test_tiered_scan_kernel_matches_plain(cuda, n, n_tiers):
         assert tiered_queue_scan.launches == before + 1
         for a, b in zip(got, tiered_queue_scan_ref(enq, tier, lasts)):
             assert torch.equal(a.cpu(), b)
+
+
+def _stack_case(n, rng, p_push, p_valid, device):
+    e = torch.from_numpy(rng.random(n) < p_push).to(device)
+    v = torch.from_numpy(rng.random(n) < p_valid).to(device)
+    return e, v
+
+
+# the single-pass scans' tile is TILE ops: its edges, a look-back across
+# windows of 32 tiles, and 2^24 + 1 (a ragged last tile at full size)
+@pytest.mark.parametrize("n", [TILE - 1, TILE, TILE + 1, 33 * TILE + 7,
+                               (1 << 24) + 1])
+def test_stack_scan_kernel_tile_edges(cuda, n):
+    rng = np.random.default_rng(n)
+    for p_push, p_valid in ((0.65, 1.0), (0.0, 1.0), (1.0, 1.0), (0.5, 0.8)):
+        e, v = _stack_case(n, rng, p_push, p_valid, cuda)
+        for last, tick in ((0, 0), (1_000_000, 5_000_000)):
+            a, b = _i32(last, cuda), _i32(tick, cuda)
+            got = stack_scan(e, v, a, b)
+            # the plain version on the card: integers, so the device does
+            # not change it, and 2^24 ops stay quick
+            for x, y in zip(got, stack_scan_ref(e, v, a, b)):
+                assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n", [TILE - 1, TILE, TILE + 1, (1 << 24) + 1])
+@pytest.mark.parametrize("n_tiers", [1, 4, 64, 256])
+def test_tiered_scan_kernel_tile_edges(cuda, n, n_tiers):
+    rng = np.random.default_rng(n + n_tiers)
+    tier = torch.from_numpy(rng.integers(-1, n_tiers + 1, n).astype(
+        np.int32)).to(cuda)
+    lasts = torch.from_numpy(rng.integers(-1, 1000, n_tiers).astype(
+        np.int32)).to(cuda)
+    for p_enq in (1.0, 0.0, 0.7):
+        enq = torch.from_numpy(rng.random(n) < p_enq).to(cuda)
+        got = tiered_queue_scan(enq, tier, lasts, lasts, n_tiers)
+        for x, y in zip(got, tiered_queue_scan_ref(enq, tier, lasts)):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("offset", [1, 3, 8, 15])
+def test_scan_kernels_take_unaligned_views(cuda, offset):
+    """A contiguous view whose base is not 16-byte aligned: the kernels
+    load (and store) it with scalar accesses where vector ones would
+    fault."""
+    rng = np.random.default_rng(offset)
+    n = 2 * TILE + 5
+    big_e, big_v = _stack_case(n + 16, rng, 0.6, 0.9, cuda)
+    e, v = big_e[offset:offset + n], big_v[16 - offset:16 - offset + n]
+    assert e.data_ptr() % 16 and v.data_ptr() % 16
+    a, b = _i32(3, cuda), _i32(40, cuda)
+    for x, y in zip(stack_scan(e, v, a, b), stack_scan_ref(e, v, a, b)):
+        assert torch.equal(x, y)
+    big_t = torch.from_numpy(rng.integers(0, 4, n + 4).astype(
+        np.int32)).to(cuda)
+    tier = big_t[offset % 4 or 1:][:n]
+    assert tier.data_ptr() % 16
+    lasts = _i32([5, 0, -1, 70], cuda)
+    for x, y in zip(tiered_queue_scan(e, tier, lasts, lasts, 4),
+                    tiered_queue_scan_ref(e, tier, lasts)):
+        assert torch.equal(x, y)
+
+
+def test_scan_kernels_2000_back_to_back_calls(cuda):
+    """2,000 calls queued without a sync between them, stack and tiered
+    interleaved (they share the stream's status buffer), n and inputs
+    changing every call; then each output is checked.  A flag left from
+    an earlier call, or an epoch that did not move, shows here."""
+    rng = np.random.default_rng(2000)
+    runs = []
+    for k in range(2000):
+        n = int(rng.integers(1, 6 * TILE))
+        e, v = _stack_case(n, rng, rng.random(), 0.9, cuda)
+        if k % 2:
+            P = 8 if k % 4 == 1 else 24     # both of the kernel's paths
+            tier = torch.from_numpy(rng.integers(-1, P + 1, n).astype(
+                np.int32)).to(cuda)
+            lasts = torch.from_numpy(rng.integers(0, 100, P).astype(
+                np.int32)).to(cuda)
+            args = (e, tier, lasts)
+            runs.append(("tiered", args, tiered_queue_scan(
+                e, tier, lasts, lasts, P)))
+        else:
+            args = (e, v, _i32(k, cuda), _i32(3 * k, cuda))
+            runs.append(("stack", args, stack_scan(*args)))
+    torch.cuda.synchronize()
+    for kind, args, got in runs:
+        want = (tiered_queue_scan_ref(*args) if kind == "tiered"
+                else stack_scan_ref(*args))
+        for x, y in zip(got, want):
+            assert torch.equal(x, y)
+
+
+def test_stack_scan_kernel_ticket_wraps(cuda):
+    """The ticket sum wraps like the reference's int32 (the kernel sums
+    it in uint32: signed overflow is undefined in C++)."""
+    rng = np.random.default_rng(7)
+    n = 3 * TILE + 11
+    e, v = _stack_case(n, rng, 0.8, 1.0, cuda)
+    a, b = _i32(10, cuda), _i32(2 ** 31 - 1000, cuda)
+    got = stack_scan(e, v, a, b)
+    assert int(got[4]) < 0 and int(got[1].min()) < 0    # it did wrap
+    for x, y in zip(got, stack_scan_ref(e, v, a, b)):
+        assert torch.equal(x, y)
+
+
+def test_scan_kernels_one_launch_per_call(cuda):
+    """By the profiler's kernel names, in one profiled window: the stack
+    and tiered scans run one kernel per call; the FIFO scan keeps its
+    three."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    rng = np.random.default_rng(1)
+    n, reps = 65_536, 10
+    e, v = _stack_case(n, rng, 0.65, 1.0, cuda)
+    tier = torch.from_numpy(rng.integers(0, 4, n).astype(np.int32)).to(cuda)
+    lasts = _i32([0, 0, 0, 0], cuda)
+    a, b = _i32(0, cuda), _i32(-1, cuda)
+    calls = [lambda: stack_scan(e, v, a, b),
+             lambda: tiered_queue_scan(e, tier, lasts, lasts, 4),
+             lambda: queue_scan(e, v, a, b)]
+    for fn in calls:                   # builds, and the status buffer
+        fn()
+    torch.cuda.synchronize()
+    want = {"stack_scan_lookback": 1, "tiered_scan_lookback": 1,
+            "block_totals": 1, "carry_scan": 1, "scan_emit": 1}
+    # the profiler on the card's machine can lose a session's first
+    # kernels: a lead-in kernel (spin_kernel, left out) comes first, and
+    # a session that saw other counts runs again
+    for _ in range(5):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+            for fn in calls:
+                for _ in range(reps):
+                    fn()
+            torch.cuda.synchronize()
+        per_call = {}
+        for ev in prof.key_averages():
+            if (ev.device_type == DeviceType.CUDA and ev.count
+                    and "spin_kernel" not in ev.key):
+                m = re.search(r"::(\w+)", ev.key)
+                name = m.group(1) if m else ev.key
+                per_call[name] = per_call.get(name, 0) + ev.count / reps
+        if per_call == want:
+            break
+    assert per_call == want
 
 
 @pytest.mark.parametrize("n_shards", [1, 48, 64])
