@@ -6,19 +6,22 @@ It builds the port's CUDA kernels from ``src/repro_torch/kernels/csrc``,
 holds each kernel against its plain PyTorch version and times both (the
 queue kernels bit for bit; flash attention and the SSD scan within a
 stated tolerance, and beside ``scaled_dot_product_attention``).  The
-single-pass stack and tiered scans are also held at their tile's edges,
-at 2^24 + 1 ops and over 2,000 back-to-back calls, and must run one
-kernel per call by the profiler's kernel names; the four queue kernels
-report their device ms per call from the profiler beside the wrapper's
-CUDA-event ms, which at one wave is mostly the host's.  Then it drives
-the port through its entry points at full size:
+single-pass FIFO, stack and tiered scans are also held at their tile's
+edges, at 2^24 + 1 ops and over 2,000 back-to-back calls, and must run
+one kernel per call by the profiler's kernel names (the tiered scan one
+per group of 256 tiers, by the profiler and by its wrapper's count); the
+four queue kernels report their device ms per call from the
+profiler beside the wrapper's CUDA-event ms, which at one wave is mostly
+the host's.  Then it drives the port through its entry points at full
+size:
 
 * the elastic FIFO queue (64 shards x 65,536 slots x 4 int32 words), the
   elastic LIFO stack (64 shards x 32,768 slots x depth 4) and the elastic
   4-tier priority queue (64 shards x 16,384 slots per tier), each to a
   backlog above 1,000,000 elements, a LEAVE of 16 of 64 shards, a JOIN
   back and a drain to ⊥, plus a small relaxed priority queue (8 -> 6
-  shards) through the hash-route report;
+  shards) through the hash-route report and a 300-tier priority queue
+  (4 -> 6 -> 4 shards) on the card against the same waves on the CPU;
 * the prefill of zamba2-1.2b at full width and depth (random weights
   from the seed): 4 prompts of 4,096 tokens through 6 flash-attention
   calls (all on the tensor-core kernel) and 38 SSD-scan calls (three
@@ -199,12 +202,15 @@ def phase_build():
 
 
 def phase_queue_scan(torch, rng, results):
+    """The FIFO scan at its tile's edges, one wave, 2^24 and 2^24 + 1, in
+    three mixes and three states (the last near 2^29, where INF + last
+    nears 2^31), against its plain version; timed at one wave and 2^24."""
     from repro_torch.kernels.segscan import queue_scan, queue_scan_ref
     dev = torch.device("cuda")
     mixes = {"enq65": (0.65, 1.0), "deq_only": (0.0, 1.0),
              "valid80": (0.5, 0.8)}
-    states = [(0, -1), (1_000_000, 1_005_000)]
-    for n in (65_536, 16_777_216):
+    states = [(0, -1), (1_000_000, 1_005_000), (2 ** 29 - 3000, 2 ** 29)]
+    for n in _scan_sizes():
         worst, launches0 = 0, queue_scan.launches
         for mix, (p_enq, p_valid) in mixes.items():
             e = torch.from_numpy(rng.random(n) < p_enq).to(dev)
@@ -212,25 +218,28 @@ def phase_queue_scan(torch, rng, results):
             for f, l in states:
                 f_t = torch.tensor(f, dtype=torch.int32, device=dev)
                 l_t = torch.tensor(l, dtype=torch.int32, device=dev)
-                got = queue_scan(e, v, f_t, l_t)
                 want = queue_scan_ref(e, v, f_t, l_t)
+                got = queue_scan(e, v, f_t, l_t)
                 torch.cuda.synchronize()
-                same = all(torch.equal(a, b) for a, b in zip(got, want))
-                check(same, f"queue_scan n={n} {mix} state={(f, l)} "
-                            f"bit-identical to its plain version")
+                check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                      f"queue_scan n={n} {mix} state={(f, l)} "
+                      f"bit-identical to its plain version")
                 worst = max(worst, max_abs_err(got, want))
-        # time the main-path mix from the empty queue
-        e = torch.from_numpy(rng.random(n) < 0.65).to(dev)
-        v = torch.ones(n, dtype=torch.bool, device=dev)
-        f_t = torch.tensor(0, dtype=torch.int32, device=dev)
-        l_t = torch.tensor(-1, dtype=torch.int32, device=dev)
-        ms = time_ms(lambda: queue_scan(e, v, f_t, l_t), 100, torch)
-        plain = time_ms(lambda: queue_scan_ref(e, v, f_t, l_t), 20, torch)
-        b_ms, b_by = bound(7 * n + 16, SCAN_OPS * n)
         rec = {"n": n, "mixes": list(mixes), "states": states,
-               "bit_identical": True, "max_abs_err": worst,
-               "launches": queue_scan.launches - launches0, "ms": ms,
-               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+               "bit_identical": True,
+               "max_abs_err": worst,
+               "launches": queue_scan.launches - launches0}
+        if n in TIMED_N:
+            # the main-path mix from the empty queue
+            e = torch.from_numpy(rng.random(n) < 0.65).to(dev)
+            v = torch.ones(n, dtype=torch.bool, device=dev)
+            f_t = torch.tensor(0, dtype=torch.int32, device=dev)
+            l_t = torch.tensor(-1, dtype=torch.int32, device=dev)
+            ms, plain = _time_pair(
+                torch, lambda: queue_scan(e, v, f_t, l_t),
+                lambda: queue_scan_ref(e, v, f_t, l_t))
+            b_ms, b_by = bound(7 * n + 16, SCAN_OPS * n)
+            rec.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by)
         results[("queue_scan", n)] = rec
         emit("kernel:queue_scan", **rec)
 
@@ -319,14 +328,16 @@ def phase_stack_scan(torch, rng, results):
 def phase_tiered_scan(torch, rng, results):
     from repro_torch.kernels.segscan import (tiered_queue_scan,
                                              tiered_queue_scan_ref)
+    from repro_torch.kernels.segscan.kernel import MAX_TIERS
     dev = torch.device("cuda")
     # (enqueue share, valid share, out-of-range tiers)
     mixes = {"enq_only": (1.0, 1.0, False), "deq_only": (0.0, 1.0, False),
              "valid80_out_of_range": (0.65, 0.8, True)}
-    n_tiers = (1, 4, 64, 256)
+    n_tiers = (1, 4, 64, 256, 257, 512)     # past 256: one launch a group
     for n in _scan_sizes():
-        worst, launches0 = 0, tiered_queue_scan.launches
+        worst, launches0, per_call = 0, tiered_queue_scan.launches, {}
         for P in n_tiers:
+            at_p = tiered_queue_scan.launches
             firsts = torch.from_numpy(rng.integers(0, 1000, P).astype(
                 np.int32)).to(dev)
             lasts = firsts + 500
@@ -343,7 +354,12 @@ def phase_tiered_scan(torch, rng, results):
                       f"tiered_queue_scan n={n} P={P} {mix} bit-identical "
                       f"to its plain version")
                 worst = max(worst, max_abs_err(got, want))
+            per_call[P] = (tiered_queue_scan.launches - at_p) / len(mixes)
+            check(per_call[P] == -(-P // MAX_TIERS),
+                  f"tiered_queue_scan n={n} P={P}: one launch per group of "
+                  f"{MAX_TIERS} tiers, got {per_call[P]} a call")
         rec = {"n": n, "n_tiers": list(n_tiers), "mixes": list(mixes),
+               "kernels_per_call": per_call,
                "bit_identical": True, "max_abs_err": worst,
                "launches": tiered_queue_scan.launches - launches0}
         if n in TIMED_N:
@@ -397,12 +413,13 @@ def phase_scan_host_split(torch, rng, results):
 
 
 def phase_scan_back_to_back(torch, results):
-    """2,000 stack and tiered calls queued back to back with no sync
-    between them (they share the stream's look-back status buffer), n
-    and inputs changing every call, then each checked against its plain
-    version: a flag left from an earlier call, or an epoch that did not
-    move, would show here."""
-    from repro_torch.kernels.segscan import (stack_scan, stack_scan_ref,
+    """2,000 FIFO, stack and tiered calls in turn, queued back to back
+    with no sync between them (they share the stream's look-back status
+    buffer), n and inputs changing every call, then each checked against
+    its plain version: a flag left from an earlier call, or an epoch that
+    did not move, would show here."""
+    from repro_torch.kernels.segscan import (queue_scan, queue_scan_ref,
+                                             stack_scan, stack_scan_ref,
                                              tiered_queue_scan,
                                              tiered_queue_scan_ref)
     from repro_torch.kernels.segscan.kernel import TILE
@@ -410,30 +427,36 @@ def phase_scan_back_to_back(torch, results):
     gen = torch.Generator(device=dev).manual_seed(3)
     sizes = torch.randint(1, 6 * TILE, (2000,), generator=gen,
                           device=dev).tolist()
+    plain = {"fifo": queue_scan_ref, "stack": stack_scan_ref,
+             "tiered": tiered_queue_scan_ref}
     runs = []
     for k, n in enumerate(sizes):
         e = torch.rand(n, generator=gen, device=dev) < 0.6
-        if k % 2:
-            P = 8 if k % 4 == 1 else 24     # both of the kernel's paths
+        if k % 3 == 1:
+            P = 8 if k % 2 else 24
             tier = torch.randint(-1, P + 1, (n,), generator=gen, device=dev,
                                  dtype=torch.int32)
             lasts = torch.randint(0, 100, (P,), generator=gen, device=dev,
                                   dtype=torch.int32)
-            runs.append(((e, tier, lasts), tiered_queue_scan(
+            runs.append(("tiered", (e, tier, lasts), tiered_queue_scan(
                 e, tier, lasts, lasts, P)))
+            continue
+        v = torch.rand(n, generator=gen, device=dev) < 0.9
+        if k % 3 == 2:
+            args = (e, v, torch.tensor(k, dtype=torch.int32, device=dev),
+                    torch.tensor(k + n // 3, dtype=torch.int32, device=dev))
+            runs.append(("fifo", args, queue_scan(*args)))
         else:
-            v = torch.rand(n, generator=gen, device=dev) < 0.9
             args = (e, v, torch.tensor(k, dtype=torch.int32, device=dev),
                     torch.tensor(3 * k, dtype=torch.int32, device=dev))
-            runs.append((args, stack_scan(*args)))
+            runs.append(("stack", args, stack_scan(*args)))
     torch.cuda.synchronize()
-    for args, got in runs:
-        want = (tiered_queue_scan_ref(*args) if len(args) == 3
-                else stack_scan_ref(*args))
-        check(all(torch.equal(x, y) for x, y in zip(got, want)),
-              f"back-to-back call with n={args[0].shape[0]} bit-identical "
-              f"to its plain version")
+    for kind, args, got in runs:
+        check(all(torch.equal(x, y) for x, y in zip(got, plain[kind](*args))),
+              f"back-to-back {kind} call with n={args[0].shape[0]} "
+              f"bit-identical to its plain version")
     rec = {"calls": len(runs), "n_range": [1, 6 * TILE - 1],
+           "calls_by_scan": {k: sum(r[0] == k for r in runs) for k in plain},
            "bit_identical": True}
     results["scan_back_to_back"] = rec
     emit("kernel:scan_back_to_back", **rec)
@@ -927,6 +950,67 @@ def phase_elastic_priority(torch, rng, results):
     emit("path:elastic_priority", **rec)
 
 
+def phase_priority_many_tiers(torch, rng, results):
+    """ElasticDevicePriorityQueue with 300 tiers, more than one tiered
+    launch takes (two launches a wave, counted), on 4 shards: two bursts, a JOIN of 2, a
+    burst, a LEAVE of 2 and a drain, on the card against the same staged
+    waves on the CPU (bit for bit) and the host tier model."""
+    from repro_torch.dqueue import ElasticDevicePriorityQueue
+    from repro_torch.kernels.segscan import tiered_queue_scan
+    P_, N, CAP, W, L, K = 300, 4, 256, 4, 1_024, 4
+    queues = {d: ElasticDevicePriorityQueue(
+        N, n_prios=P_, cap=CAP, payload_width=W, ops_per_shard=L,
+        pool_size=8, device=d) for d in ("cuda", "cpu")}
+    card = queues["cuda"]
+    model = TierChecker(P_, [1 / P_] * P_)
+    plan = [("burst", 0.7), ("burst", 0.7), ("grow", 2), ("burst", 0.5),
+            ("shrink", [4, 5]), ("burst", 0.0), ("burst", 0.0)]
+    bursts, migrations, waves, seconds, high = [], [], 0, 0.0, 0
+    tiered_queue_scan.launches = 0
+    for action, arg in plan:
+        if action != "burst":
+            moved = [(q.grow(arg) if action == "grow" else q.shrink(arg))
+                     ["moved"] for q in queues.values()]
+            check(moved[0] == moved[1] == card.size,
+                  f"{action}: moved == size on the card and the CPU")
+            migrations.append({"kind": action, "moved": moved[0],
+                               "n_shards": card.n_shards})
+            continue
+        staged = model.stage(K, card.n_shards * L, arg, rng)
+        outs = {}
+        for d, q in queues.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = q.run_waves(*(torch.from_numpy(x).to(q.device)
+                                for x in staged))
+            outs[d] = [o.cpu().numpy() for o in out]
+            if d == "cuda":
+                seconds += time.perf_counter() - t0
+        check(all(np.array_equal(a, b) for a, b in zip(outs["cuda"],
+                                                       outs["cpu"])),
+              "300 tiers: the card's burst bit-identical to the CPU's")
+        bursts.append(model.verify(*staged, *outs["cuda"],
+                                   n_shards=card.n_shards))
+        check(card.sizes == model.sizes, "tier sizes match the model")
+        high += int((outs["cuda"][0] >= 256).sum())
+        waves += K
+    launches = tiered_queue_scan.launches
+    check(launches == 2 * waves, f"two tiered launches a wave on the card "
+                                 f"({launches} for {waves} waves)")
+    check(high > 0, "ops placed in tiers past the first launch's 256")
+    check(card.size == 0 and sum(b["bottom"] for b in bursts) > 0,
+          "drained to ⊥")
+    rec = {"n_prios": P_, "kernels_per_wave": launches / waves, "n_shards":
+           "4 -> 6 -> 4", "cap_per_tier": CAP, "ops_per_shard": L, "K": K,
+           "waves": waves, "ms_per_wave": seconds / waves * 1e3,
+           "tiered_scan_launches": launches,
+           "ops_in_tiers_past_255": high, "migrations": migrations,
+           "card_equals_cpu": True, "priority_order": "ok",
+           "bursts": bursts}
+    results["priority_300_tiers"] = rec
+    emit("path:priority_300_tiers", **rec)
+
+
 def phase_relaxed_priority(torch, rng, results):
     """A small relaxed queue (8 shards x 64 ops, relaxation 1): the host
     resolution loop, and an 8 -> 6 migration whose hash-balance report
@@ -1049,11 +1133,10 @@ def phase_profile(torch, rng, results):
 def phase_scan_device_split(torch, rng, results):
     """The device side of the four queue kernels' wrapper calls, at the
     sizes their wrappers were timed at: the kernels each call ran and
-    their device ms, from the profiler's kernel durations; the stack and
-    tiered scans must run one kernel per call, the FIFO scan its three.
-    It runs after the paths, with the other profiled phases: a profiler
-    session slows the launches that follow it, so none comes before the
-    paths are timed."""
+    their device ms, from the profiler's kernel durations; the FIFO, stack
+    and tiered scans must run one kernel per call, the tiered scan at 512 tiers two.  It runs after the
+    paths, with the other profiled phases: a profiler session slows the
+    launches that follow it, so none comes before the paths are timed."""
     from repro_torch.kernels.hash_route import hash_route
     from repro_torch.kernels.segscan import (queue_scan, stack_scan,
                                              tiered_queue_scan)
@@ -1064,22 +1147,42 @@ def phase_scan_device_split(torch, rng, results):
         v = torch.ones(n, dtype=torch.bool, device=dev)
         tier = torch.from_numpy(rng.choice(4, n, p=[0.4, 0.3, 0.2, 0.1])
                                 .astype(np.int32)).to(dev)
+        tier512 = torch.from_numpy(rng.integers(0, 512, n).astype(
+            np.int32)).to(dev)
         lasts = torch.full((4,), 200_000, dtype=torch.int32, device=dev)
+        lasts512 = torch.zeros(512, dtype=torch.int32, device=dev)
         f_t = torch.tensor(0, dtype=torch.int32, device=dev)
         l_t = torch.tensor(-1, dtype=torch.int32, device=dev)
         a = torch.tensor(500_000, dtype=torch.int32, device=dev)
         b = torch.tensor(700_000, dtype=torch.int32, device=dev)
         calls = {"queue_scan": (lambda: queue_scan(e, v, f_t, l_t),
-                                {"block_totals", "carry_scan", "scan_emit"}),
+                                {"queue_scan_lookback": 1}),
                  "stack_scan": (lambda: stack_scan(e, v, a, b),
-                                {"stack_scan_lookback"}),
+                                {"stack_scan_lookback": 1}),
                  "tiered_queue_scan": (
                      lambda: tiered_queue_scan(e, tier, lasts, lasts, 4),
-                     {"tiered_scan_lookback"})}
+                     {"tiered_scan_lookback": 1})}
         for name, (fn, expect) in calls.items():
             split = _device_split(torch, fn, f"{name} n={n}", expect)
             results[(name, n)].update(split)
             out[f"{name} n={n}"] = split
+        # two groups: two launches, beside the re-base, merge and concat
+        calls = _kernel_calls(torch, lambda: tiered_queue_scan(
+            e, tier512, lasts512, lasts512, 512), reps=20)
+        if calls:
+            check(calls.get("tiered_scan_lookback", (0, 0))[0] == 2.0,
+                  f"tiered_queue_scan n={n} P=512: two tiered launches per "
+                  f"call, got {calls}")
+            split = {"device_ms": sum(ms for _, ms in calls.values()),
+                     "tiered_scan_lookback_ms": calls[
+                         "tiered_scan_lookback"][1],
+                     "device_kernels": {k: c for k, (c, _) in calls.items()}}
+        else:
+            split = {"device_ms": "not measured",
+                     "device_kernels": "not measured"}
+        results[("tiered_queue_scan", n)]["device_ms_512_tiers"] = split[
+            "device_ms"]
+        out[f"tiered_queue_scan n={n} P=512"] = split
     for n_shards in (48, 64):
         r = results[("hash_route", 16_777_216, n_shards)]
         pos = torch.from_numpy(((r["base"] + np.arange(r["n"], dtype=np.int64)
@@ -1367,17 +1470,16 @@ def _device_split(torch, fn, what: str, expect=None) -> dict:
     """The device side of one wrapper call, from the profiler's kernel
     durations: the kernels it ran and their summed device ms, to set
     beside the wrapper's CUDA-event ms (which at one wave is the host's
-    issue time).  With ``expect``, checks that the call ran exactly those
-    kernels, once each."""
+    issue time).  With ``expect`` ({kernel name: launches per call}),
+    checks that the call ran exactly those kernels, that many times."""
     calls = _kernel_calls(torch, fn, reps=20)
     if not calls:
         return {"device_ms": "not measured", "device_kernels": "not measured"}
     per_call = {k: c for k, (c, _) in calls.items()}
     if expect is not None:
-        check(per_call == {k: 1.0 for k in expect},
+        check(per_call == {k: float(c) for k, c in expect.items()},
               f"{what}: one call ran {per_call} (launches per call by "
-              f"kernel name), expected one launch of each of "
-              f"{sorted(expect)}")
+              f"kernel name), expected {expect}")
     return {"device_ms": sum(ms for _, ms in calls.values()),
             "device_kernels": per_call}
 
@@ -1705,6 +1807,7 @@ def main() -> int:
     phase_elastic(torch, rng, results)
     phase_elastic_lifo(torch, rng, results)
     phase_elastic_priority(torch, rng, results)
+    phase_priority_many_tiers(torch, rng, results)
     phase_relaxed_priority(torch, rng, results)
     phase_profile(torch, rng, results)
     phase_scan_device_split(torch, rng, results)
@@ -1715,7 +1818,7 @@ def main() -> int:
     phase_serve_zamba2(torch, rng, results, zamba)
     hb = results["hash_balance"]
 
-    def scan_row(name, n, path, launches, replaces):
+    def scan_row(name, n, path, launches, replaces, **extra):
         r = results[(name, n)]
         return {"name": name, "route": "cuda",
                 "source": "src/repro_torch/kernels/csrc/segscan.cu",
@@ -1726,11 +1829,15 @@ def main() -> int:
                 "device_ms": r["device_ms"],
                 "device_kernels": r["device_kernels"],
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-                "bound_by": r["bound_by"], "library_ms": None}
+                "bound_by": r["bound_by"], "library_ms": None, **extra}
+    q24 = results[("queue_scan", TIMED_N[1])]
     kernels = [
         scan_row("queue_scan", 65_536, "elastic_fifo",
                  results["elastic_fifo"]["queue_scan_launches"],
-                 "src/repro/kernels/segscan/kernel.py:244"),
+                 "src/repro/kernels/segscan/kernel.py:244",
+                 kernel="queue_scan_lookback, one launch a call",
+                 ms_2e24=q24["ms"], device_ms_2e24=q24["device_ms"],
+                 bound_ms_2e24=q24["bound_ms"]),
         {"name": "hash_route", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hash_route.cu",
          "replaces": "src/repro/kernels/hash_route/kernel.py:49",
@@ -1746,7 +1853,11 @@ def main() -> int:
                  "src/repro/kernels/segscan/kernel.py:303"),
         scan_row("tiered_queue_scan", 65_536, "elastic_priority",
                  results["elastic_priority"]["tiered_scan_launches"],
-                 "src/repro/kernels/segscan/kernel.py:361"),
+                 "src/repro/kernels/segscan/kernel.py:361",
+                 kernels_per_call=results[("tiered_queue_scan", 65_536)][
+                     "kernels_per_call"],
+                 launches_300_tiers=results["priority_300_tiers"][
+                     "tiered_scan_launches"]),
     ]
     pre = results["prefill_zamba2"]
 

@@ -35,22 +35,46 @@
 // raises at n >= 2^29.  The ticket t0 + dt (and + 1) is summed in uint32:
 // the reference's int32 sum wraps, and signed overflow is undefined here.
 //
+// Why the INF saturation gives the same integers under every bracketing
+// (the FIFO's argument, beside the stack's above): without the clamp,
+// min-plus composition is associative, and a prefix's B is the min over its
+// ops j of (the C's before j) + B_j + (the A's after j).  The clamp is
+// absorbing: with A, C >= 0, min(min(u, INF) + a, c + min(v, INF), INF) =
+// min(u + a, c + v, INF), since INF + a and c + INF are both >= INF.  So
+// a composition of clamped parts is the clamp of the unclamped whole, and
+// thread-serial items, the warp, the block's warps and the look-back's
+// windows of 32 tiles (nearest first) all give min(B, INF), the integer
+// the reference's associative_scan gives.  No sum overflows: A and C stay
+// at most n, B at most INF before its clamp, so a sum is at most INF + n
+// < 2^31 whenever n < 2^30; the state adds first + A and last + B (the
+// reference sums the same int32s).  The wrapper raises at n >= 2^30.
+//
 // What bounds them on an H100: memory.  FIFO reads 2 B/op (is_enq, valid)
 // and writes 5 (int32 position, bool matched); LIFO reads 2 and writes 9
 // (position, ticket, matched); the tiered sweep reads 5 (int32 tier, bool
 // enq) and writes 4.  At 2^24 ops they move 117, 184 and 151 MB: 35, 55
 // and 45 us at 3.35 TB/s.  The arithmetic is a few integer ops per op.
 //
-// Design of the stack and tiered scans: one launch, inputs read once.
-//   * Tiles of 4,096 ops, each thread's ops consecutive: the stack takes
-//     128 threads x 32 ops, the tiered sweep 256 x 16 (one tier per
-//     thread in its per-tier steps).  Bools come in as 16-byte loads (16
-//     ops), int32 tiers four to a 16-byte load; a thread whose ops
-//     straddle n, or a base that is not 16-byte aligned, loads and stores
-//     with scalar accesses instead, so any contiguous view works.  Timed
-//     on an H100 during development: 32 ops a thread ran the stack faster
-//     at 2^24 ops than 16, and 128 threads kept one wave's latency below
-//     256's; the tiered sweep ran slower at 32.
+// Design: one launch per call, inputs read once.  The FIFO scan
+// (queue_scan_lookback) replaces the TPU's two pallas_calls and the carry
+// scan between them (queue_scan_kernel: _totals_kernel, then _scan_kernel
+// on the carries), which read the wave twice; it shares every part with
+// the stack scan but its transform and its outputs.
+//   * Tiles of 4,096 ops, each thread's ops consecutive: the stack takes 128
+//     threads x 32 ops, the tiered sweep 256 x 16 (one tier per thread in its
+//     per-tier steps), the FIFO 256 x 16 (below).  Bools come in as 16-byte
+//     loads (16 ops), int32 tiers four to a 16-byte load; a thread whose ops
+//     straddle n, or a base that is not 16-byte aligned, loads and stores with
+//     scalar accesses instead, so any contiguous view works.  Timed on an H100
+//     during development: 32 ops a thread ran the stack faster at 2^24 ops
+//     than 16, and 128 threads kept one wave's latency below 256's; the tiered
+//     sweep ran slower at 32.  The FIFO takes 256 x 16, the shape its traffic
+//     runs: at one wave (16 tiles, all in flight at once) the shorter
+//     per-thread chains finished in 5.1 us against 5.95 at 128 x 32; 128 x 32
+//     was faster only from 2^22 ops, where more tiles in flight win (0.068
+//     against 0.074 ms at 2^24), a size no queue path reaches.  Per op, the
+//     FIFO steps its (first, last) rather than composing a transform: an ENQ
+//     or DEQ moves one counter.
 //   * Decoupled look-back (Merrill & Garland, "Single-pass Parallel Prefix
 //     Scan with Decoupled Look-back", NVIDIA 2016).  A block draws its tile
 //     from an atomic counter (atomicInc wraps it back to 0 on the last
@@ -67,14 +91,17 @@
 //     epoch >= 1 passed in by the launcher and raised every call.  A flag
 //     from an earlier call is below 2 * epoch and reads as "not yet", so
 //     the status buffer is never cleared between calls; the launcher
-//     caches one per (device, stream), zeroed once when it is allocated
-//     or grown.  The layout is `status_view`'s; the launcher sizes it.
+//     caches one per (device, stream), shared by all three scans, zeroed
+//     once when it is allocated or grown.  The layout is `status_view`'s;
+//     the launcher sizes it.  A CUDA graph would replay one epoch, so the
+//     launcher refuses to be captured.
 //   * The tile that finishes last in tile order writes the new state.
-// Stack: each thread composes its 32 ops serially, warps scan the thread
-// aggregates (__shfl_up_sync), warp 0 scans the 4 warp totals; the
-// look-back window is reduced in lane order (a higher lane is an earlier
-// tile).  Positions, then tickets, go through shared memory (padded one
-// word in 32, no bank conflicts) to coalesced 16-byte stores.
+// FIFO and stack (tile_prefix): each thread composes its 16 (FIFO) or 32
+// (stack) ops serially, warps scan the thread aggregates (__shfl_up_sync),
+// warp 0 scans the 8 or 4 warp totals; the look-back window is reduced in lane order (a higher
+// lane is an earlier tile).  Positions (and the stack's tickets) go
+// through shared memory (padded one word in 32, no bank conflicts) to
+// coalesced 16-byte stores; matched flags leave packed, 16 a store.
 // Tiered: an enqueue of tier t gets lasts[t] + 1 + (earlier enqueues of
 // tier t), and new_lasts = lasts + count[t]; a tier outside [0, P), or a
 // non-enqueue, gets -1.  The carry is a per-tier sum, so the look-back
@@ -87,17 +114,8 @@
 // over the 8 warps gives each warp its offset.  Positions overwrite the
 // keys and leave as 16-byte stores.  Shared memory: 16.5 KB of keys, 8 KB
 // of per-warp counts and 2 KB of per-tier prefix and counts at P = 256,
-// about 27 KB, far under the 227 KB a block may use.
-//
-// The FIFO scan still takes three launches, the design the first port
-// slice shipped: it is the next to move onto the single-pass template.
-//   1. block_totals: one op per thread; warp __shfl_up_sync scans, then a
-//      combine of the 32 warp totals; each block writes its total.
-//   2. carry_scan: ONE block scans the block totals exclusively, looping
-//      over chunks of 1024 with a running carry (so n = 2^24 works), and
-//      writes the new state to device memory.
-//   3. scan_emit: the per-block exclusive scan again, composed after the
-//      block's carry and the incoming state; emits the outputs.
+// about 27 KB, far under the 227 KB a block may use.  One launch takes at
+// most 256 tiers; the launcher makes one launch per group of 256 tiers.
 // The state of every scan is read through device pointers: a wave never
 // syncs the host.
 #include <cstdint>
@@ -105,9 +123,8 @@
 
 namespace {
 
-constexpr int kBlock = 1024;               // FIFO: threads = ops per block
-constexpr int kWarps = kBlock / 32;
-constexpr int kTile = 4096;                // stack and tiered: ops per tile
+constexpr int kTile = 4096;                // ops per tile, every scan
+constexpr int kQueueThreads = 256;         //   FIFO: 16 ops a thread
 constexpr int kStackThreads = 128;         //   stack: 32 ops a thread
 constexpr int kTierThreads = 256;          //   tiered: 16 ops a thread
 constexpr int kMaxTiers = kTierThreads;    //   tiered: one tier per thread
@@ -127,18 +144,18 @@ struct QueueOp {
     if (!v) return ident();
     return e ? T{0, kInf, 1} : T{1, 1, 0};
   }
+  // compose(x, load(e, v)) for x of this scan (b <= INF, c < INF - 1):
+  // an ENQ leaves b at min(b, c + INF, INF) = b, a DEQ's min(b + 1, c + 1)
+  // is below INF
+  __device__ static T then(T x, bool e, bool v) {
+    if (v && e) return T{x.a, x.b, x.c + 1};
+    if (v) return T{x.a + 1, min(x.b + 1, x.c + 1), x.c};
+    return x;
+  }
   // new (first, last) after the whole batch's transform
   __device__ static void finish(T run, int32_t f, int32_t l, int32_t* out) {
     out[0] = min(f + run.a, l + run.b);
     out[1] = l + run.c;
-  }
-  // position of an op whose exclusive prefix transform is x
-  __device__ static int32_t position(T x, int32_t f0, int32_t l0, bool e,
-                                     bool v) {
-    const int32_t f_i = min(f0 + x.a, l0 + x.b);
-    const int32_t l_i = l0 + x.c;
-    if (!v) return -1;
-    return e ? l_i + 1 : (f_i <= l_i ? f_i : -1);
   }
 };
 
@@ -156,6 +173,9 @@ struct StackOp {
   __device__ static T load(bool e, bool v) {
     if (!v) return ident();
     return e ? T{1, -kInf, 1} : T{-1, 0, 0};
+  }
+  __device__ static T then(T x, bool e, bool v) {
+    return compose(x, load(e, v));
   }
   __device__ static void finish(T run, int32_t l, int32_t t, int32_t* out) {
     out[0] = max(l + run.a, run.b);
@@ -198,90 +218,6 @@ __device__ __forceinline__ T warp_incl(T t, int lane) {
     if (lane >= off) t = Op::compose(u, t);
   }
   return t;
-}
-
-// Exclusive scan over the block, in thread order; *agg gets the block's
-// total.  warp_tot is __shared__ scratch of kWarps entries.  All threads
-// of the block must call it.
-template <class Op>
-__device__ T block_excl(T t, T* warp_tot, T* agg) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  T inc = warp_incl<Op>(t, lane);
-  T prev = shfl_up(inc, 1);
-  T excl = lane == 0 ? Op::ident() : prev;
-  if (lane == 31) warp_tot[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    T w = warp_tot[lane];             // kWarps == 32 warps, one per lane
-    w = warp_incl<Op>(w, lane);
-    warp_tot[lane] = w;               // inclusive over warps
-  }
-  __syncthreads();
-  if (warp > 0) excl = Op::compose(warp_tot[warp - 1], excl);
-  *agg = warp_tot[kWarps - 1];
-  __syncthreads();                    // warp_tot may be reused next
-  return excl;
-}
-
-template <class Op>
-__global__ void __launch_bounds__(kBlock)
-block_totals(const uint8_t* __restrict__ is_e,
-             const uint8_t* __restrict__ valid, int32_t* __restrict__ totals,
-             int64_t n) {
-  __shared__ T warp_tot[kWarps];
-  const int64_t i = (int64_t)blockIdx.x * kBlock + threadIdx.x;
-  const bool in = i < n;
-  T agg;
-  block_excl<Op>(Op::load(in && is_e[i], in && valid[i]), warp_tot, &agg);
-  if (threadIdx.x == 0) {
-    totals[3 * blockIdx.x + 0] = agg.a;
-    totals[3 * blockIdx.x + 1] = agg.b;
-    totals[3 * blockIdx.x + 2] = agg.c;
-  }
-}
-
-template <class Op>
-__global__ void __launch_bounds__(kBlock)
-carry_scan(const int32_t* __restrict__ totals, int32_t* __restrict__ carry,
-           int nb, const int32_t* __restrict__ s0,
-           const int32_t* __restrict__ s1, int32_t* __restrict__ new_state) {
-  __shared__ T warp_tot[kWarps];
-  T run = Op::ident();                // every thread keeps the same copy
-  for (int base = 0; base < nb; base += kBlock) {
-    const int j = base + threadIdx.x;
-    T t = j < nb ? T{totals[3 * j], totals[3 * j + 1], totals[3 * j + 2]}
-                 : Op::ident();
-    T agg;
-    T excl = Op::compose(run, block_excl<Op>(t, warp_tot, &agg));
-    if (j < nb) {
-      carry[3 * j + 0] = excl.a;
-      carry[3 * j + 1] = excl.b;
-      carry[3 * j + 2] = excl.c;
-    }
-    run = Op::compose(run, agg);
-  }
-  if (threadIdx.x == 0) Op::finish(run, *s0, *s1, new_state);
-}
-
-template <class Op>
-__global__ void __launch_bounds__(kBlock)
-scan_emit(const uint8_t* __restrict__ is_e, const uint8_t* __restrict__ valid,
-          const int32_t* __restrict__ carry, const int32_t* __restrict__ s0,
-          const int32_t* __restrict__ s1, int32_t* __restrict__ pos,
-          uint8_t* __restrict__ matched, int64_t n) {
-  __shared__ T warp_tot[kWarps];
-  const int64_t i = (int64_t)blockIdx.x * kBlock + threadIdx.x;
-  const bool in = i < n;
-  const bool e = in && is_e[i], v = in && valid[i];
-  T agg;
-  T excl = block_excl<Op>(Op::load(e, v), warp_tot, &agg);
-  if (!in) return;
-  const T c{carry[3 * blockIdx.x], carry[3 * blockIdx.x + 1],
-            carry[3 * blockIdx.x + 2]};
-  const T x = Op::compose(c, excl);
-  const int32_t p = Op::position(x, *s0, *s1, e, v);
-  pos[i] = p;
-  matched[i] = p != -1;
 }
 
 // ------------------------------------------- single-pass look-back -----
@@ -349,7 +285,8 @@ __device__ __forceinline__ unsigned long long wait_flag(
   return f;
 }
 
-// The stack's published value: (a, b, c) as one 16-byte store.
+// A FIFO or stack tile's published value: (a, b, c) as one 16-byte
+// store.
 __device__ __forceinline__ void put_T(int32_t* row, T t) {
   __stcg(reinterpret_cast<int4*>(row), make_int4(t.a, t.b, t.c, 0));
 }
@@ -363,9 +300,10 @@ __device__ __forceinline__ T get_T(const int32_t* row) {
 // tile order, read from the status buffer.  Each window puts predecessor
 // tile - 1 - lane - 32k on lane `lane`; lanes past the nearest inclusive
 // prefix (or before tile 0) count as the identity.  All lanes return it.
-__device__ T stack_look_back(const Status& st, int tile,
-                             unsigned long long epoch, int lane) {
-  T prefix = StackOp::ident();
+template <class Op>
+__device__ T look_back(const Status& st, int tile, unsigned long long epoch,
+                       int lane) {
+  T prefix = Op::ident();
   for (int top = tile - 1;; top -= 32) {
     const int j = top - lane;
     const unsigned long long f = j >= 0 ? wait_flag(st, j, epoch)
@@ -373,15 +311,15 @@ __device__ T stack_look_back(const Status& st, int tile,
     const bool inclusive = f & 1;
     const unsigned pmask = __ballot_sync(kFull, inclusive);
     const int stop = pmask ? __ffs(pmask) - 1 : 31;
-    T x = StackOp::ident();
+    T x = Op::ident();
     if (j >= 0 && lane <= stop)
       x = get_T((inclusive ? st.incl : st.agg) + 4 * static_cast<size_t>(j));
 #pragma unroll
     for (int off = 1; off < 32; off <<= 1) {   // lane order: higher = earlier
       const T y = shfl_down(x, off);
-      if (lane + off < 32) x = StackOp::compose(y, x);
+      if (lane + off < 32) x = Op::compose(y, x);
     }
-    prefix = StackOp::compose(shfl(x, 0), prefix);
+    prefix = Op::compose(shfl(x, 0), prefix);
     if (pmask) return prefix;
   }
 }
@@ -459,6 +397,126 @@ __device__ __forceinline__ void store_tile(int32_t* out, const int32_t* stage,
   }
 }
 
+// A thread's kItems flags, packed four to a word in m, to p[i0, i0 +
+// kItems): 16-byte stores where it can, else bytes.
+template <int kItems>
+__device__ __forceinline__ void store_bools(uint8_t* p, const uint32_t* m,
+                                            int64_t i0, int64_t n) {
+  const bool vec = aligned16(p);
+#pragma unroll
+  for (int q = 0; q < kItems / 16; ++q) {
+    const int64_t i = i0 + 16 * q;
+    if (vec && i + 16 <= n) {
+      *reinterpret_cast<uint4*>(p + i) =
+          make_uint4(m[4 * q], m[4 * q + 1], m[4 * q + 2], m[4 * q + 3]);
+    } else {
+      for (int k = 0; k < 16 && i + k < n; ++k)
+        p[i + k] = (m[4 * q + (k >> 2)] >> (8 * (k & 3))) & 1u;
+    }
+  }
+}
+
+// The FIFO and stack scans' common part, for tile `tile` of a block of
+// kThreads threads: each thread composes its kItems ops serially, warps
+// scan the thread aggregates, warp 0 scans the warp totals, publishes the
+// tile's aggregate, looks back, publishes its inclusive prefix, and (on
+// the last tile) writes the new state from (*s0, *s1).  Returns the
+// composition of every op before this thread's first.  All threads of the
+// block call it.
+template <class Op, int kThreads, int kItems>
+__device__ __forceinline__ T tile_prefix(const Status& st, int tile,
+                                         int tiles, unsigned long long epoch,
+                                         const Bools<kItems>& e,
+                                         const Bools<kItems>& v,
+                                         const int32_t* s0, const int32_t* s1,
+                                         int32_t* new_state) {
+  constexpr int kTileWarps = kThreads / 32;
+  __shared__ T warp_tot[kTileWarps];
+  __shared__ T tile_pre;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  T agg = Op::ident();                 // this thread's ops, in order
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) agg = Op::then(agg, e[k], v[k]);
+  const T inc = warp_incl<Op>(agg, lane);
+  const T up = shfl_up(inc, 1);
+  T excl = lane == 0 ? Op::ident() : up;
+  if (lane == 31) warp_tot[warp] = inc;
+  __syncthreads();
+  if (warp == 0) {
+    T w = lane < kTileWarps ? warp_tot[lane] : Op::ident();
+    w = warp_incl<Op>(w, lane);
+    if (lane < kTileWarps) warp_tot[lane] = w;        // inclusive over warps
+    const T total = shfl(w, kTileWarps - 1);
+    T prefix = Op::ident();
+    if (lane == 0) {
+      put_T((tile == 0 ? st.incl : st.agg) + 4 * tile, total);
+      publish(st.flag + tile, 2 * epoch + (tile == 0));
+    }
+    if (tile > 0) {
+      prefix = look_back<Op>(st, tile, epoch, lane);
+      if (lane == 0) {
+        put_T(st.incl + 4 * tile, Op::compose(prefix, total));
+        publish(st.flag + tile, 2 * epoch + 1);
+      }
+    }
+    if (lane == 0) {
+      tile_pre = prefix;
+      if (tile == tiles - 1)
+        Op::finish(Op::compose(prefix, total), *s0, *s1, new_state);
+    }
+  }
+  __syncthreads();
+  if (warp > 0) excl = Op::compose(warp_tot[warp - 1], excl);
+  return Op::compose(tile_pre, excl);
+}
+
+// At most 64 registers, so that 4 tiles of 256 threads fit an SM.
+__global__ void __launch_bounds__(kQueueThreads, 1024 / kQueueThreads)
+queue_scan_lookback(const uint8_t* __restrict__ is_enq,
+                    const uint8_t* __restrict__ valid,
+                    const int32_t* __restrict__ first,
+                    const int32_t* __restrict__ last,
+                    int32_t* __restrict__ pos, uint8_t* __restrict__ matched,
+                    int32_t* __restrict__ new_state, void* status,
+                    int slots, unsigned long long epoch, int64_t n,
+                    int tiles) {
+  constexpr int kItems = kTile / kQueueThreads;
+  __shared__ int32_t stage[kStage];    // positions
+  __shared__ int tile_s;
+  const int tid = threadIdx.x;
+  const Status st = status_view(status, slots, tiles, 4);
+  draw_tile(st, tiles, &tile_s);
+  __syncthreads();
+  const int tile = tile_s;
+  const int64_t t0 = static_cast<int64_t>(tile) * kTile;
+  const int64_t i0 = t0 + tid * kItems;
+  const auto e = load_bools<kItems>(is_enq, i0, n);
+  const auto v = load_bools<kItems>(valid, i0, n);
+  const T x = tile_prefix<QueueOp, kQueueThreads, kItems>(
+      st, tile, tiles, epoch, e, v, first, last, new_state);
+  // (first, last) before this thread's first op, then stepped through its
+  // ops: an ENQ takes last + 1, a DEQ first while first <= last.  Applying
+  // the ops one at a time is applying their composition, and the clamp
+  // never bites: a prefix's B is INF before its first DEQ and at most
+  // n + 1 after it.  So each op gets the reference's min(first + A,
+  // last + B) and last + C of its prefix.
+  int32_t f = min(*first + x.a, *last + x.b), l = *last + x.c;
+  uint32_t m[kItems / 4];
+#pragma unroll
+  for (int k = 0; k < kItems; ++k) {
+    if ((k & 3) == 0) m[k >> 2] = 0;
+    const bool enq = v[k] && e[k], deq = v[k] && !e[k];
+    const int32_t p = enq ? l + 1 : deq && f <= l ? f : -1;
+    stage[pad(tid * kItems + k)] = p;
+    m[k >> 2] |= static_cast<uint32_t>(p != -1) << (8 * (k & 3));
+    l += enq;
+    if (deq) f = min(f + 1, l + 1);
+  }
+  store_bools<kItems>(matched, m, i0, n);
+  __syncthreads();
+  store_tile<kQueueThreads>(pos, stage, t0, n);
+}
+
 __global__ void __launch_bounds__(kStackThreads)
 stack_scan_lookback(const uint8_t* __restrict__ is_push,
                     const uint8_t* __restrict__ valid,
@@ -470,12 +528,9 @@ stack_scan_lookback(const uint8_t* __restrict__ is_push,
                     int slots, unsigned long long epoch, int64_t n,
                     int tiles) {
   constexpr int kItems = kTile / kStackThreads;
-  constexpr int kTileWarps = kStackThreads / 32;
   __shared__ int32_t stage[kStage];    // positions, then tickets
-  __shared__ T warp_tot[kTileWarps];
-  __shared__ T tile_pre;
   __shared__ int tile_s;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tid = threadIdx.x;
   const Status st = status_view(status, slots, tiles, 4);
   draw_tile(st, tiles, &tile_s);
   __syncthreads();
@@ -484,43 +539,8 @@ stack_scan_lookback(const uint8_t* __restrict__ is_push,
   const int64_t i0 = t0 + tid * kItems;
   const auto e = load_bools<kItems>(is_push, i0, n);
   const auto v = load_bools<kItems>(valid, i0, n);
-
-  T agg = StackOp::ident();            // this thread's ops, in order
-#pragma unroll
-  for (int k = 0; k < kItems; ++k)
-    agg = StackOp::compose(agg, StackOp::load(e[k], v[k]));
-  const T inc = warp_incl<StackOp>(agg, lane);
-  const T up = shfl_up(inc, 1);
-  T excl = lane == 0 ? StackOp::ident() : up;
-  if (lane == 31) warp_tot[warp] = inc;
-  __syncthreads();
-  if (warp == 0) {
-    T w = lane < kTileWarps ? warp_tot[lane] : StackOp::ident();
-    w = warp_incl<StackOp>(w, lane);
-    if (lane < kTileWarps) warp_tot[lane] = w;        // inclusive over warps
-    const T total = shfl(w, kTileWarps - 1);
-    T prefix = StackOp::ident();
-    if (lane == 0) {
-      put_T((tile == 0 ? st.incl : st.agg) + 4 * tile, total);
-      publish(st.flag + tile, 2 * epoch + (tile == 0));
-    }
-    if (tile > 0) {
-      prefix = stack_look_back(st, tile, epoch, lane);
-      if (lane == 0) {
-        put_T(st.incl + 4 * tile, StackOp::compose(prefix, total));
-        publish(st.flag + tile, 2 * epoch + 1);
-      }
-    }
-    if (lane == 0) {
-      tile_pre = prefix;
-      if (tile == tiles - 1)
-        StackOp::finish(StackOp::compose(prefix, total), *last, *ticket,
-                        new_state);
-    }
-  }
-  __syncthreads();
-  if (warp > 0) excl = StackOp::compose(warp_tot[warp - 1], excl);
-  const T x0 = StackOp::compose(tile_pre, excl);
+  const T x0 = tile_prefix<StackOp, kStackThreads, kItems>(
+      st, tile, tiles, epoch, e, v, last, ticket, new_state);
   const int32_t l0 = *last, k0 = *ticket;
   T x = x0;                            // positions, and matched
   uint32_t m[kItems / 4];
@@ -532,18 +552,7 @@ stack_scan_lookback(const uint8_t* __restrict__ is_push,
     m[k >> 2] |= static_cast<uint32_t>(p != -1) << (8 * (k & 3));
     x = StackOp::compose(x, StackOp::load(e[k], v[k]));
   }
-  const bool vm = aligned16(matched);
-#pragma unroll
-  for (int q = 0; q < kItems / 16; ++q) {   // this thread's matched bytes
-    const int64_t i = i0 + 16 * q;
-    if (vm && i + 16 <= n) {
-      *reinterpret_cast<uint4*>(matched + i) =
-          make_uint4(m[4 * q], m[4 * q + 1], m[4 * q + 2], m[4 * q + 3]);
-    } else {
-      for (int k = 0; k < 16 && i + k < n; ++k)
-        matched[i + k] = (m[4 * q + (k >> 2)] >> (8 * (k & 3))) & 1u;
-    }
-  }
+  store_bools<kItems>(matched, m, i0, n);
   __syncthreads();
   store_tile<kStackThreads>(pos, stage, t0, n);
   __syncthreads();
@@ -686,28 +695,21 @@ tiered_scan_lookback(const int32_t* __restrict__ tier,
 }  // namespace
 
 // pos/matched: [n] outputs; new_state: [2] int32 (new_first, new_last);
-// totals/carry: scratch of 3 * ceil(n / 1024) int32 each.  Returns the
-// cudaGetLastError() after the launches (0 on success).
+// status, slots and epoch as for repro_stack_scan.  One launch of `tiles`
+// blocks.  Returns the cudaGetLastError() after the launch (0 on success).
 extern "C" int repro_queue_scan(const void* is_enq, const void* valid,
                                 const void* first, const void* last,
                                 void* pos, void* matched, void* new_state,
-                                void* totals, void* carry, int n,
+                                void* status, int slots,
+                                unsigned long long epoch, int n,
                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int nb = (n + kBlock - 1) / kBlock;
-  const auto* e = static_cast<const uint8_t*>(is_enq);
-  const auto* v = static_cast<const uint8_t*>(valid);
-  const auto* a = static_cast<const int32_t*>(first);
-  const auto* b = static_cast<const int32_t*>(last);
-  auto* tot = static_cast<int32_t*>(totals);
-  auto* car = static_cast<int32_t*>(carry);
-  if (nb > 0) block_totals<QueueOp><<<nb, kBlock, 0, s>>>(e, v, tot, n);
-  carry_scan<QueueOp><<<1, kBlock, 0, s>>>(tot, car, nb, a, b,
-                                           static_cast<int32_t*>(new_state));
-  if (nb > 0)
-    scan_emit<QueueOp><<<nb, kBlock, 0, s>>>(
-        e, v, car, a, b, static_cast<int32_t*>(pos),
-        static_cast<uint8_t*>(matched), n);
+  const int tiles = n > 0 ? (n + kTile - 1) / kTile : 1;
+  queue_scan_lookback<<<tiles, kQueueThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint8_t*>(is_enq), static_cast<const uint8_t*>(valid),
+      static_cast<const int32_t*>(first), static_cast<const int32_t*>(last),
+      static_cast<int32_t*>(pos), static_cast<uint8_t*>(matched),
+      static_cast<int32_t*>(new_state), status, slots, epoch, n, tiles);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -736,7 +738,7 @@ extern "C" int repro_stack_scan(const void* is_push, const void* valid,
 // tier: [n] int32, enq: [n] bool, lasts: [P] int32; pos: [n] int32 and
 // new_lasts: [P] int32 outputs; status, slots and epoch as for
 // repro_stack_scan, with room for 8 * tiles * P bytes of values.
-// 1 <= P <= 256 (one tier per thread).
+// 1 <= P <= 256 (one tier per thread; the launcher groups larger P).
 extern "C" int repro_tiered_scan(const void* tier, const void* enq,
                                  const void* lasts, void* pos,
                                  void* new_lasts, void* status, int slots,

@@ -4,7 +4,8 @@ Replace ``repro/kernels/segscan/kernel.py``: ``queue_scan_kernel`` (FIFO
 min-plus), ``stack_scan_kernel`` (LIFO max-plus) and
 ``tiered_queue_scan_kernel`` (the per-tier enqueue sweep).  The CUDA
 source says what bounds them and how they are built; this module checks
-the tensors, keeps the look-back status buffers and passes pointers.
+the tensors, keeps the look-back status buffers and passes pointers;
+``tier_groups`` splits a sweep wider than one launch takes.
 """
 from __future__ import annotations
 
@@ -12,15 +13,19 @@ import ctypes
 
 import torch
 
-from ..backend import check_launch, load, raw_stream, stream_ptr
+from ..backend import check_launch, load, raw_stream
 
-BLOCK = 1024   # FIFO: ops per block, one per thread (must match segscan.cu)
-TILE = 4096    # stack and tiered: ops per tile (must match segscan.cu)
-MAX_TIERS = 256   # the tiered scan takes one tier per thread of a tile
+# Tile shapes, as segscan.cu's constants (a test reads them there)
+TILE = 4096                 # ops per tile, every scan
+QUEUE_THREADS = 256         # queue_scan_lookback: 16 ops a thread
+STACK_THREADS = 128         # stack_scan_lookback: 32 ops a thread
+TIER_THREADS = 256          # tiered_scan_lookback: 16 ops a thread
+MAX_TIERS = TIER_THREADS    # tiers one tiered launch takes: one a thread
 
 _P = ctypes.c_void_p
 _ARGTYPES = {
-    "repro_queue_scan": [_P] * 9 + [ctypes.c_int, _P],
+    "repro_queue_scan": [_P] * 8 + [ctypes.c_int, ctypes.c_ulonglong,
+                                    ctypes.c_int, _P],
     "repro_stack_scan": [_P] * 9 + [ctypes.c_int, ctypes.c_ulonglong,
                                     ctypes.c_int, _P],
     "repro_tiered_scan": [_P] * 6 + [ctypes.c_int, ctypes.c_ulonglong,
@@ -65,11 +70,16 @@ def _status(device: torch.device, stream: int, n: int, width: int):
     once, when it is allocated or grown (each part to at least twice its
     size); between calls nothing clears it: each call raises the epoch,
     and the kernel reads a flag below ``2 * epoch`` as unset.  Calls on
-    one stream run in order, so they share a buffer safely; a dropped
-    buffer is reused by the allocator only after the work queued on its
-    stream.  Not for CUDA-graph capture: a replay would repeat the
-    captured epoch.
+    one stream run in order, so the FIFO, stack and tiered scans share a
+    buffer safely; a dropped buffer is reused by the allocator only after
+    the work queued on its stream.  Raises under CUDA-graph capture: a
+    replay would repeat the captured epoch, and flags of the previous
+    replay would read as this call's.
     """
+    if torch.cuda.is_current_stream_capturing():
+        raise RuntimeError(
+            "the segscan kernels cannot be captured in a CUDA graph: each "
+            "call raises a host-side epoch that a replay would repeat")
     tiles = max(-(-n // TILE), 1)
     key = (device.index, stream)
     buf, slots, epoch = _STATUS.get(key, (None, 0, 0))
@@ -85,31 +95,30 @@ def _status(device: torch.device, stream: int, n: int, width: int):
 
 def queue_scan_kernel(is_enq: torch.Tensor, valid: torch.Tensor,
                       first: torch.Tensor, last: torch.Tensor):
-    """Three launches on the current stream: block totals, one block's
-    exclusive scan of them (which also writes the new state), and the
-    per-block scan that emits positions.  No host sync.
+    """The FIFO min-plus scan: one single-pass launch on the current
+    stream (decoupled look-back), no host sync.
 
-    is_enq/valid: [n] bool, contiguous, on one CUDA device; first/last:
-    0-d int32 on the same device.  Returns (pos [n] int32, matched [n]
-    bool, new_first, new_last), the last two 0-d int32 on the device.
+    is_enq/valid: [n] bool; first/last: 0-d int32, all on one CUDA
+    device.  Returns (pos [n] int32 with ⊥ = -1, matched [n] bool,
+    new_first, new_last); pos and the state are views of one allocation.
     """
     n = is_enq.shape[0]
     _check("queue_scan_kernel", 2 ** 30, n,
            [("is_enq", is_enq, torch.bool), ("valid", valid, torch.bool)],
            [("first", first, torch.int32), ("last", last, torch.int32)])
     dev = is_enq.device
-    nb = max(-(-n // BLOCK), 1)
-    pos = torch.empty(n, dtype=torch.int32, device=dev)
+    stream = raw_stream(is_enq)
+    status, slots, epoch = _status(dev, stream, n, 4)
+    out = torch.empty(n + 2, dtype=torch.int32, device=dev)
+    pos, state = out.split((n, 2))
     matched = torch.empty(n, dtype=torch.bool, device=dev)
-    new_state = torch.empty(2, dtype=torch.int32, device=dev)
-    scratch = torch.empty(6 * nb, dtype=torch.int32, device=dev)
     err = _fn("repro_queue_scan")(
         is_enq.data_ptr(), valid.data_ptr(), first.data_ptr(),
         last.data_ptr(), pos.data_ptr(), matched.data_ptr(),
-        new_state.data_ptr(), scratch.data_ptr(),
-        scratch[3 * nb:].data_ptr(), n, stream_ptr(pos))
+        state.data_ptr(), status.data_ptr(), slots, epoch, n, stream)
     check_launch(err, "queue_scan_kernel")
-    return pos, matched, new_state[0], new_state[1]
+    new_first, new_last = state.unbind()
+    return pos, matched, new_first, new_last
 
 
 def stack_scan_kernel(is_push: torch.Tensor, valid: torch.Tensor,
@@ -128,6 +137,8 @@ def stack_scan_kernel(is_push: torch.Tensor, valid: torch.Tensor,
            [("is_push", is_push, torch.bool), ("valid", valid, torch.bool)],
            [("last", last, torch.int32), ("ticket", ticket, torch.int32)])
     dev = is_push.device
+    stream = raw_stream(is_push)
+    status, slots, epoch = _status(dev, stream, n, 4)
     pad = -n % 4                       # tick starts 16-byte aligned
     out = torch.empty(2 * (n + pad) + 2, dtype=torch.int32, device=dev)
     if pad:
@@ -135,8 +146,6 @@ def stack_scan_kernel(is_push: torch.Tensor, valid: torch.Tensor,
     else:
         pos, tick, state = out.split((n, n, 2))
     matched = torch.empty(n, dtype=torch.bool, device=dev)
-    stream = raw_stream(pos)
-    status, slots, epoch = _status(dev, stream, n, 4)
     err = _fn("repro_stack_scan")(
         is_push.data_ptr(), valid.data_ptr(), last.data_ptr(),
         ticket.data_ptr(), pos.data_ptr(), tick.data_ptr(),
@@ -147,10 +156,37 @@ def stack_scan_kernel(is_push: torch.Tensor, valid: torch.Tensor,
     return pos, tick, matched, new_last, new_ticket
 
 
+def tier_groups(scan, enq: torch.Tensor, tier: torch.Tensor,
+                lasts: torch.Tensor, group: int = MAX_TIERS):
+    """The tiered sweep over any number of tiers P, ``group`` at a time.
+
+    ``scan(enq, tier, lasts)`` is a sweep of at most ``group`` tiers
+    (``(pos [n], new_lasts)``; -1 for an op outside its tiers).  At P <=
+    ``group`` it is called once on the inputs as they are.  Otherwise group
+    g sees the tiers re-based by ``g * group`` (so the group's tiers are
+    ``[0, group)`` and every other tier, out-of-range ones included, falls
+    outside) and ``lasts[g * group : (g + 1) * group]``; exactly one group
+    places each op that takes a position, and every other group gives it
+    -1, so the groups' positions merge by ``where`` and their new lasts
+    concatenate.  Tiers are independent, so the result is the one sweep's.
+    """
+    P = lasts.shape[0]
+    if P <= group:
+        return scan(enq, tier, lasts)
+    pos, new_lasts = None, []
+    for g0 in range(0, P, group):
+        p, nl = scan(enq, tier - g0 if g0 else tier, lasts[g0:g0 + group])
+        pos = p if pos is None else torch.where(p != -1, p, pos)
+        new_lasts.append(nl)
+    return pos, torch.cat(new_lasts)
+
+
 def tiered_queue_scan_kernel(enq: torch.Tensor, tier: torch.Tensor,
                              lasts: torch.Tensor):
-    """The per-tier enqueue sweep: one single-pass launch, as
-    :func:`stack_scan_kernel`.
+    """The per-tier enqueue sweep of at most 256 tiers: one single-pass
+    launch on the current stream, as :func:`stack_scan_kernel`, no host
+    sync.  The wrapper makes one launch per group of 256 tiers past that
+    (:func:`tier_groups`).
 
     enq: [n] bool; tier: [n] int32; lasts: [P] int32, all on one CUDA
     device, 1 <= P <= 256.  Returns (pos [n] int32, -1 for a non-enqueue
@@ -165,17 +201,17 @@ def tiered_queue_scan_kernel(enq: torch.Tensor, tier: torch.Tensor,
         raise ValueError("tiered_queue_scan_kernel: lasts must be a "
                          "contiguous [P] int32 tensor on the ops' device")
     if not 1 <= P <= MAX_TIERS:
-        raise ValueError(f"tiered_queue_scan_kernel: P must be in "
-                         f"[1, {MAX_TIERS}], got {P}")
+        raise ValueError(f"tiered_queue_scan_kernel: P must be in [1, "
+                         f"{MAX_TIERS}], got {P}")
     dev = enq.device
+    stream = raw_stream(enq)
+    status, slots, epoch = _status(dev, stream, n, P)
     pad = -n % 4
     out = torch.empty(n + pad + P, dtype=torch.int32, device=dev)
     if pad:
         pos, _, new_lasts = out.split((n, pad, P))
     else:
         pos, new_lasts = out.split((n, P))
-    stream = raw_stream(pos)
-    status, slots, epoch = _status(dev, stream, n, P)
     err = _fn("repro_tiered_scan")(
         tier.data_ptr(), enq.data_ptr(), lasts.data_ptr(), pos.data_ptr(),
         new_lasts.data_ptr(), status.data_ptr(), slots, epoch, n, P, stream)

@@ -1,8 +1,9 @@
 """Public wrappers of the segscan kernels: kernel on CUDA, plain on CPU.
 
 Counterpart of ``repro/kernels/segscan/ops.py``.  No padding is needed:
-the CUDA kernels mask their ragged last block themselves.  Each wrapper
-counts the kernel launch sequences it makes in ``<wrapper>.launches``.
+the CUDA kernels mask their ragged last tile themselves.  Each wrapper
+counts its kernel's launches in ``<wrapper>.launches``, where it makes
+them: one a call, and one per group of 256 tiers for a tiered sweep.
 """
 from __future__ import annotations
 
@@ -33,9 +34,8 @@ def queue_scan(is_enq: torch.Tensor, valid: torch.Tensor,
     if is_enq.device.type != "cuda":
         return queue_scan_ref(is_enq, valid, first, last)
     from .kernel import queue_scan_kernel
-    out = queue_scan_kernel(is_enq.contiguous(), valid.contiguous(),
-                            first.to(torch.int32).contiguous(),
-                            last.to(torch.int32).contiguous())
+    out = queue_scan_kernel(_as(is_enq, torch.bool), _as(valid, torch.bool),
+                            _as(first, torch.int32), _as(last, torch.int32))
     queue_scan.launches += 1
     return out
 
@@ -66,19 +66,22 @@ def tiered_queue_scan(enq: torch.Tensor, tier: torch.Tensor,
     enq: [n] bool (the wave's valid enqueues); tier: [n] int32 (a tier
     outside [0, n_tiers) assigns no position); firsts/lasts: [n_tiers]
     int32.  Returns (pos [n] int32 with ⊥ = -1, new_lasts [n_tiers]); an
-    enqueue-only sweep never moves ``firsts``.  Kernel on CUDA tensors,
-    plain version on CPU ones.
+    enqueue-only sweep never moves ``firsts``.  Kernel on CUDA tensors
+    (one launch per group of 256 tiers; each group reads the whole wave
+    again), plain version on CPU ones.
     """
     if lasts.shape[0] != n_tiers or firsts.shape[0] != n_tiers:
         raise ValueError(f"firsts/lasts must have {n_tiers} entries")
     if enq.device.type != "cuda":
         return tiered_queue_scan_ref(enq, tier, lasts)
-    from .kernel import tiered_queue_scan_kernel
-    out = tiered_queue_scan_kernel(_as(enq, torch.bool),
-                                   _as(tier, torch.int32),
-                                   _as(lasts, torch.int32))
-    tiered_queue_scan.launches += 1
-    return out
+    from .kernel import tier_groups, tiered_queue_scan_kernel
+
+    def launch(enq, tier, lasts):
+        out = tiered_queue_scan_kernel(enq, tier, lasts)
+        tiered_queue_scan.launches += 1
+        return out
+    return tier_groups(launch, _as(enq, torch.bool), _as(tier, torch.int32),
+                       _as(lasts, torch.int32))
 
 
 def make_tier_scan(n_tiers: int):

@@ -10,8 +10,9 @@ from __future__ import annotations
 
 import torch
 
-from ...core.scan_queue import (INF, QueueState, StackState, queue_scan,
-                                stack_compose, stack_scan)
+from ...core.scan_queue import (INF, QueueState, StackState, queue_compose,
+                                queue_scan, stack_compose, stack_scan)
+from .kernel import QUEUE_THREADS, STACK_THREADS, TIER_THREADS, TILE
 
 
 def queue_scan_ref(is_enq: torch.Tensor, valid: torch.Tensor,
@@ -69,10 +70,11 @@ def tiered_queue_scan_ref(enq: torch.Tensor, tier: torch.Tensor,
 # inclusive prefix.  Which predecessors have done so when a tile looks
 # depends on timing on the card: ``p_inclusive`` and ``seed`` draw it
 # (tile 0 always has).  The tests hold these models bit for bit against
-# the JAX package, and their tile shapes against segscan.cu's; the
-# wrappers never call them.
-STACK_THREADS, STACK_ITEMS = 128, 32   # stack_scan_lookback's tile
-TIER_THREADS, TIER_ITEMS = 256, 16     # tiered_scan_lookback's tile
+# the JAX package; their tile shapes are the launcher's, which a test holds
+# against segscan.cu's.  The wrappers never call them.
+QUEUE_ITEMS = TILE // QUEUE_THREADS    # ops a thread, each kernel
+STACK_ITEMS = TILE // STACK_THREADS
+TIER_ITEMS = TILE // TIER_THREADS
 WINDOW = 32                            # predecessors a look-back warp reads
 
 def _wrap32(x: torch.Tensor) -> torch.Tensor:
@@ -104,66 +106,71 @@ def _window(i: int, seen: torch.Tensor):
         top -= WINDOW
 
 
-def _stack_ident(shape):
-    return (torch.zeros(shape, dtype=torch.int32),
-            torch.full(shape, -INF, dtype=torch.int32),
-            torch.zeros(shape, dtype=torch.int32))
+def _ident(b: int):
+    """The identity transform (0, b, 0) of a composition, by shape."""
+    def ident(shape):
+        return (torch.zeros(shape, dtype=torch.int32),
+                torch.full(shape, b, dtype=torch.int32),
+                torch.zeros(shape, dtype=torch.int32))
+    return ident
+
+
+_queue_ident, _stack_ident = _ident(INF), _ident(-INF)
 
 
 def _where(mask, x, y):
     return tuple(torch.where(mask, p, q) for p, q in zip(x, y))
 
 
-def _lane_scan(t, lanes: int):
+def _lane_scan(t, lanes: int, compose):
     """Inclusive scan along the last axis as ``warp_incl``: at step off,
     lane l composes lane l - off's value before its own."""
     lane = torch.arange(lanes)
     off = 1
     while off < lanes:
         up = tuple(x.roll(off, -1) for x in t)
-        t = _where(lane >= off, stack_compose(up, t), t)
+        t = _where(lane >= off, compose(up, t), t)
         off *= 2
     return t
 
 
-def stack_scan_lookback_model(is_push: torch.Tensor, valid: torch.Tensor,
-                              last: torch.Tensor, ticket: torch.Tensor, *,
-                              p_inclusive: float = 0.0, seed: int = 0):
-    """The single-pass LIFO scan's decomposition (``stack_scan_lookback``)
-    on the CPU.  Same arguments and results as :func:`stack_scan_ref`."""
-    n, items = is_push.shape[0], STACK_ITEMS
-    tile, warps = STACK_THREADS * items, STACK_THREADS // 32
+def _tile_prefix_model(e, v, ops, compose, ident, threads: int, items: int,
+                       p_inclusive: float, seed: int):
+    """``tile_prefix`` and ``look_back`` on the CPU: each op's exclusive
+    prefix transform and the composition of all ops, bracketed as the
+    kernels bracket them.  ``ops(e, v)`` gives the per-op transforms of
+    the bools; returns (e, v padded to whole tiles and shaped [tiles,
+    warps, 32, items], the prefixes in that shape, the run)."""
+    n = e.shape[0]
+    tile, warps = threads * items, threads // 32
     tiles = max(-(-n // tile), 1)
     pad = torch.zeros(tiles * tile - n, dtype=torch.bool)
-    e = torch.cat([is_push.to(torch.bool), pad])
-    v = torch.cat([valid.to(torch.bool), pad])
     shape = (tiles, warps, 32, items)
-    ops = tuple(x.to(torch.int32).reshape(shape) for x in (
-        torch.where(v, torch.where(e, 1, -1), 0),
-        torch.where(v & ~e, 0, -INF), v & e))
-    agg = _stack_ident(shape[:-1])
+    e = torch.cat([e.to(torch.bool), pad]).reshape(shape)
+    v = torch.cat([v.to(torch.bool), pad]).reshape(shape)
+    ops = tuple(x.to(torch.int32) for x in ops(e, v))
+    agg = ident(shape[:-1])
     for k in range(items):                     # each thread, serially
-        agg = stack_compose(agg, tuple(x[..., k] for x in ops))
-    inc = _lane_scan(agg, 32)
-    lane_excl = _where(torch.arange(32) == 0, _stack_ident(shape[:-1]),
+        agg = compose(agg, tuple(x[..., k] for x in ops))
+    inc = _lane_scan(agg, 32, compose)
+    lane_excl = _where(torch.arange(32) == 0, ident(shape[:-1]),
                        tuple(x.roll(1, -1) for x in inc))
     # warp 0 scans the warp totals; its lanes past the warps hold identity
-    w = _stack_ident((tiles, 32))
+    w = ident((tiles, 32))
     w = tuple(torch.cat([x[..., 31], y[:, warps:]], -1)
               for x, y in zip(inc, w))
-    w_inc = tuple(x[:, :warps] for x in _lane_scan(w, 32))
+    w_inc = tuple(x[:, :warps] for x in _lane_scan(w, 32, compose))
     tile_agg = tuple(x[:, -1] for x in w_inc)
-    warp_excl = _where(torch.arange(warps) == 0, _stack_ident((tiles, warps)),
+    warp_excl = _where(torch.arange(warps) == 0, ident((tiles, warps)),
                        tuple(x.roll(1, -1) for x in w_inc))
-    thread_excl = stack_compose(tuple(x[..., None] for x in warp_excl),
-                                lane_excl)
+    thread_excl = compose(tuple(x[..., None] for x in warp_excl), lane_excl)
     seen = _seen_inclusive(tiles, p_inclusive, seed)
     pre, incl = [], []
     for i in range(tiles):
-        prefix = _stack_ident(())
+        prefix = ident(())
         if i:
             for j, inclusive, counts in _window(i, seen):
-                vals = _stack_ident((WINDOW,))
+                vals = ident((WINDOW,))
                 for lane in range(WINDOW):
                     if counts[lane] and j[lane] >= 0:
                         jj = int(j[lane])
@@ -176,25 +183,77 @@ def stack_scan_lookback_model(is_push: torch.Tensor, valid: torch.Tensor,
                 while off < WINDOW:            # shfl_down: higher = earlier
                     dn = tuple(x.roll(-off, -1) for x in vals)
                     vals = _where(lane_ids + off < WINDOW,
-                                  stack_compose(dn, vals), vals)
+                                  compose(dn, vals), vals)
                     off *= 2
-                prefix = stack_compose(tuple(x[0] for x in vals), prefix)
+                prefix = compose(tuple(x[0] for x in vals), prefix)
         pre.append(prefix)
-        incl.append(stack_compose(prefix, tuple(x[i] for x in tile_agg)))
+        incl.append(compose(prefix, tuple(x[i] for x in tile_agg)))
     pre = tuple(torch.stack([p[k] for p in pre]) for k in range(3))
-    x = stack_compose(tuple(p[:, None, None] for p in pre), thread_excl)
-    l0, t0 = last.to(torch.int64), ticket.to(torch.int64)
-    pos, tick = [], []
+    x = compose(tuple(p[:, None, None] for p in pre), thread_excl)
+    excl = []
+    for k in range(items):                     # each thread's ops again
+        excl.append(x)
+        x = compose(x, tuple(o[..., k] for o in ops))
+    excl = tuple(torch.stack([p[k] for p in excl], -1) for k in range(3))
+    return e, v, excl, incl[-1]
+
+
+def _queue_ops(e, v):
+    """valid ENQ (0, INF, 1), valid DEQ (1, 1, 0), invalid the identity."""
+    return (v & ~e, torch.where(v & ~e, 1, INF), v & e)
+
+
+def _stack_ops(e, v):
+    """valid PUSH (1, -INF, 1), valid POP (-1, 0, 0), invalid identity."""
+    return (torch.where(v, torch.where(e, 1, -1), 0),
+            torch.where(v & ~e, 0, -INF), v & e)
+
+
+def queue_scan_lookback_model(is_enq: torch.Tensor, valid: torch.Tensor,
+                              first: torch.Tensor, last: torch.Tensor, *,
+                              p_inclusive: float = 0.0, seed: int = 0):
+    """The single-pass FIFO scan's decomposition (``queue_scan_lookback``)
+    on the CPU, positions stepped from each thread's first state as the
+    kernel steps them.  Same arguments and results as
+    :func:`queue_scan_ref`."""
+    n, items = is_enq.shape[0], QUEUE_ITEMS
+    e, v, x, run = _tile_prefix_model(is_enq, valid, _queue_ops,
+                                      queue_compose, _queue_ident,
+                                      QUEUE_THREADS, items, p_inclusive,
+                                      seed)
+    f0, l0 = first.to(torch.int64), last.to(torch.int64)
+    # each thread's (first, last) before its first op, stepped through its
+    # ops as the kernel does
+    f = torch.minimum(f0 + x[0][..., 0], l0 + x[1][..., 0])
+    l = l0 + x[2][..., 0]
+    pos = []
     for k in range(items):
-        ek, vk = e.reshape(shape)[..., k], v.reshape(shape)[..., k]
-        l_i = torch.maximum(l0 + x[0], x[1].to(torch.int64))
-        pos.append(torch.where(vk, torch.where(ek, l_i + 1, torch.where(
-            l_i >= 1, l_i, -1)), -1))
-        tick.append(_wrap32(t0 + x[2] + ek.to(torch.int64)))
-        x = stack_compose(x, tuple(o[..., k] for o in ops))
+        enq, deq = v[..., k] & e[..., k], v[..., k] & ~e[..., k]
+        pos.append(torch.where(enq, l + 1, torch.where(deq & (f <= l), f,
+                                                       -1)))
+        l = l + enq.to(torch.int64)
+        f = torch.where(deq, torch.minimum(f + 1, l + 1), f)
     pos = torch.stack(pos, -1).reshape(-1)[:n].to(torch.int32)
-    tick = torch.stack(tick, -1).reshape(-1)[:n]
-    run = incl[-1]
+    new_first = torch.minimum(f0 + run[0], l0 + run[1])
+    return (pos, pos != -1, new_first.to(torch.int32),
+            (l0 + run[2]).to(torch.int32))
+
+
+def stack_scan_lookback_model(is_push: torch.Tensor, valid: torch.Tensor,
+                              last: torch.Tensor, ticket: torch.Tensor, *,
+                              p_inclusive: float = 0.0, seed: int = 0):
+    """The single-pass LIFO scan's decomposition (``stack_scan_lookback``)
+    on the CPU.  Same arguments and results as :func:`stack_scan_ref`."""
+    n = is_push.shape[0]
+    e, v, x, run = _tile_prefix_model(is_push, valid, _stack_ops,
+                                      stack_compose, _stack_ident,
+                                      STACK_THREADS, STACK_ITEMS,
+                                      p_inclusive, seed)
+    l0, t0 = last.to(torch.int64), ticket.to(torch.int64)
+    l_i = torch.maximum(l0 + x[0], x[1].to(torch.int64))
+    pos = torch.where(v, torch.where(e, l_i + 1, torch.where(
+        l_i >= 1, l_i, -1)), -1).reshape(-1)[:n].to(torch.int32)
+    tick = _wrap32(t0 + x[2] + e.to(torch.int64)).reshape(-1)[:n]
     new_last = torch.maximum(l0 + run[0], run[1].to(torch.int64))
     return (pos, tick, pos != -1, new_last.to(torch.int32),
             _wrap32(t0 + run[2]))

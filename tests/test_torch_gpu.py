@@ -16,7 +16,8 @@ import pytest
 import torch
 
 from repro_torch.dqueue import (DevicePriorityQueue, DeviceQueue,
-                                DeviceStack, ElasticDeviceQueue)
+                                DeviceStack, ElasticDevicePriorityQueue,
+                                ElasticDeviceQueue)
 from repro_torch.kernels.flash_attention import (attention_chunked,
                                                  flash_attention)
 from repro_torch.kernels.flash_attention.kernel import tc_route
@@ -126,6 +127,22 @@ def test_stack_scan_kernel_tile_edges(cuda, n):
                 assert torch.equal(x, y)
 
 
+@pytest.mark.parametrize("n", [TILE - 1, TILE, TILE + 1, 33 * TILE + 7,
+                               (1 << 24) + 1])
+def test_queue_scan_kernel_tile_edges(cuda, n):
+    """The FIFO scan through its wrapper, three mixes, and states from
+    the empty queue to one near 2^29."""
+    rng = np.random.default_rng(n)
+    for p_enq, p_valid in ((0.65, 1.0), (0.0, 1.0), (0.5, 0.8)):
+        e, v = _stack_case(n, rng, p_enq, p_valid, cuda)
+        for f, l in ((0, -1), (1_000_000, 1_005_000),
+                     (2 ** 29 - 3000, 2 ** 29)):
+            a, b = _i32(f, cuda), _i32(l, cuda)
+            want = queue_scan_ref(e, v, a, b)
+            for x, y in zip(queue_scan(e, v, a, b), want):
+                assert torch.equal(x, y)
+
+
 @pytest.mark.parametrize("n", [TILE - 1, TILE, TILE + 1, (1 << 24) + 1])
 @pytest.mark.parametrize("n_tiers", [1, 4, 64, 256])
 def test_tiered_scan_kernel_tile_edges(cuda, n, n_tiers):
@@ -137,6 +154,26 @@ def test_tiered_scan_kernel_tile_edges(cuda, n, n_tiers):
     for p_enq in (1.0, 0.0, 0.7):
         enq = torch.from_numpy(rng.random(n) < p_enq).to(cuda)
         got = tiered_queue_scan(enq, tier, lasts, lasts, n_tiers)
+        for x, y in zip(got, tiered_queue_scan_ref(enq, tier, lasts)):
+            assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n", [TILE + 1, 65_536, (1 << 24) + 1])
+@pytest.mark.parametrize("n_tiers", [257, 512])
+def test_tiered_scan_kernel_groups_tiers(cuda, n, n_tiers):
+    """More tiers than one launch takes: two launches, one per group of
+    256 re-based tiers, bit-identical to the plain sweep."""
+    rng = np.random.default_rng(n + n_tiers)
+    tier = torch.from_numpy(rng.integers(-1, n_tiers + 1, n).astype(
+        np.int32)).to(cuda)
+    lasts = torch.from_numpy(rng.integers(-1, 1000, n_tiers).astype(
+        np.int32)).to(cuda)
+    lasts[-1] = 2 ** 31 - 5                     # wraps like int32 sums
+    for p_enq in (1.0, 0.0, 0.7):
+        enq = torch.from_numpy(rng.random(n) < p_enq).to(cuda)
+        before = tiered_queue_scan.launches
+        got = tiered_queue_scan(enq, tier, lasts, lasts, n_tiers)
+        assert tiered_queue_scan.launches == before + 2
         for x, y in zip(got, tiered_queue_scan_ref(enq, tier, lasts)):
             assert torch.equal(x, y)
 
@@ -154,6 +191,8 @@ def test_scan_kernels_take_unaligned_views(cuda, offset):
     a, b = _i32(3, cuda), _i32(40, cuda)
     for x, y in zip(stack_scan(e, v, a, b), stack_scan_ref(e, v, a, b)):
         assert torch.equal(x, y)
+    for x, y in zip(queue_scan(e, v, a, b), queue_scan_ref(e, v, a, b)):
+        assert torch.equal(x, y)
     big_t = torch.from_numpy(rng.integers(0, 4, n + 4).astype(
         np.int32)).to(cuda)
     tier = big_t[offset % 4 or 1:][:n]
@@ -165,8 +204,8 @@ def test_scan_kernels_take_unaligned_views(cuda, offset):
 
 
 def test_scan_kernels_2000_back_to_back_calls(cuda):
-    """2,000 calls queued without a sync between them, stack and tiered
-    interleaved (they share the stream's status buffer), n and inputs
+    """2,000 calls queued without a sync between them, FIFO, stack and
+    tiered in turn (they share the stream's status buffer), n and inputs
     changing every call; then each output is checked.  A flag left from
     an earlier call, or an epoch that did not move, shows here."""
     rng = np.random.default_rng(2000)
@@ -174,8 +213,8 @@ def test_scan_kernels_2000_back_to_back_calls(cuda):
     for k in range(2000):
         n = int(rng.integers(1, 6 * TILE))
         e, v = _stack_case(n, rng, rng.random(), 0.9, cuda)
-        if k % 2:
-            P = 8 if k % 4 == 1 else 24     # both of the kernel's paths
+        if k % 3 == 1:
+            P = 8 if k % 2 else 24
             tier = torch.from_numpy(rng.integers(-1, P + 1, n).astype(
                 np.int32)).to(cuda)
             lasts = torch.from_numpy(rng.integers(0, 100, P).astype(
@@ -183,15 +222,42 @@ def test_scan_kernels_2000_back_to_back_calls(cuda):
             args = (e, tier, lasts)
             runs.append(("tiered", args, tiered_queue_scan(
                 e, tier, lasts, lasts, P)))
+        elif k % 3 == 2:
+            args = (e, v, _i32(k, cuda), _i32(k + n // 3, cuda))
+            runs.append(("fifo", args, queue_scan(*args)))
         else:
             args = (e, v, _i32(k, cuda), _i32(3 * k, cuda))
             runs.append(("stack", args, stack_scan(*args)))
     torch.cuda.synchronize()
+    plain = {"tiered": tiered_queue_scan_ref, "fifo": queue_scan_ref,
+             "stack": stack_scan_ref}
     for kind, args, got in runs:
-        want = (tiered_queue_scan_ref(*args) if kind == "tiered"
-                else stack_scan_ref(*args))
-        for x, y in zip(got, want):
+        for x, y in zip(got, plain[kind](*args)):
             assert torch.equal(x, y)
+
+
+def test_scan_kernels_refuse_cuda_graph_capture(cuda):
+    """A replay would repeat the captured call's epoch, and the previous
+    replay's flags would read as this call's: every segscan call under
+    capture raises before it launches."""
+    n = 3 * TILE + 5
+    rng = np.random.default_rng(5)
+    e, v = _stack_case(n, rng, 0.6, 0.9, cuda)
+    tier = torch.zeros(n, dtype=torch.int32, device=cuda)
+    lasts = _i32([0, 0, 0], cuda)
+    a, b = _i32(0, cuda), _i32(-1, cuda)
+    calls = [lambda: queue_scan(e, v, a, b), lambda: stack_scan(e, v, a, a),
+             lambda: tiered_queue_scan(e, tier, lasts, lasts, 3)]
+    for fn in calls:
+        fn()                            # builds, and the status buffer
+    torch.cuda.synchronize()
+    for fn in calls:
+        g = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="CUDA graph"):
+            with torch.cuda.graph(g):
+                fn()
+    for x, y in zip(queue_scan(e, v, a, b), queue_scan_ref(e, v, a, b)):
+        assert torch.equal(x, y)      # the stream's buffer still works
 
 
 def test_stack_scan_kernel_ticket_wraps(cuda):
@@ -208,9 +274,8 @@ def test_stack_scan_kernel_ticket_wraps(cuda):
 
 
 def test_scan_kernels_one_launch_per_call(cuda):
-    """By the profiler's kernel names, in one profiled window: the stack
-    and tiered scans run one kernel per call; the FIFO scan keeps its
-    three."""
+    """By the profiler's kernel names, in one profiled window: the FIFO,
+    stack and tiered scans run one kernel per call."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     rng = np.random.default_rng(1)
@@ -226,7 +291,7 @@ def test_scan_kernels_one_launch_per_call(cuda):
         fn()
     torch.cuda.synchronize()
     want = {"stack_scan_lookback": 1, "tiered_scan_lookback": 1,
-            "block_totals": 1, "carry_scan": 1, "scan_emit": 1}
+            "queue_scan_lookback": 1}
     # the profiler on the card's machine can lose a session's first
     # kernels: a lead-in kernel (spin_kernel, left out) comes first, and
     # a session that saw other counts runs again
@@ -351,6 +416,38 @@ def test_device_priority_queue_64_shards_on_gpu_matches_cpu(cuda, pipelined):
                     + [st.store_vals[:, :256].cpu(), st.store_full.cpu(),
                        st.firsts.cpu(), st.lasts.cpu()])
     for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
+def test_elastic_priority_300_tiers_on_gpu_matches_cpu(cuda):
+    """300 tiers (two tiered launches a wave) on 4 shards through a JOIN
+    and a LEAVE, on the card against the same waves on the CPU."""
+    runs = []
+    for dev in ("cpu", cuda):
+        eq = ElasticDevicePriorityQueue(4, n_prios=300, cap=16,
+                                        payload_width=2, ops_per_shard=16,
+                                        pool_size=8, device=dev)
+        res, r = [], np.random.default_rng(300)
+        for i, action in enumerate([None, None, ("grow", 2), None,
+                                    ("shrink", [0, 3]), None]):
+            if action is not None:
+                st = (eq.grow(action[1]) if action[0] == "grow"
+                      else eq.shrink(action[1]))
+                assert st["moved"] == eq.size
+                continue
+            E, V, P = _waves(eq.n_shards, 16, 2, 3, seed=i)
+            PR = torch.from_numpy(r.integers(0, 300, E.shape).astype(
+                np.int32))
+            before = tiered_queue_scan.launches
+            res += [x.cpu() for x in eq.run_waves(
+                E.to(dev), V.to(dev), PR.to(dev), P.to(dev))]
+            if dev != "cpu":
+                assert tiered_queue_scan.launches == before + 6
+        st = eq.state
+        runs.append(res + [st.firsts.cpu(), st.lasts.cpu(),
+                           st.store_full.cpu(),
+                           st.store_vals[:, :300 * 16].cpu()])
+    for a, b in zip(*runs):
         assert torch.equal(a, b)
 
 

@@ -11,7 +11,11 @@ relaxation 1) run in one forced-multi-device subprocess that writes an
 ``.npz``; the port runs the same waves on ``device="cpu"``.  Tiers,
 positions, matched flags, dequeued values, ok and overflow flags,
 ``n_relaxed``, migration ``moved`` and hash balance, and the final store
-(junk slot excluded) must be equal.  Also: the host oracle
+(junk slot excluded) must be equal.  At 300 tiers, more than one launch
+of the port's tiered kernel takes, the JAX ``DevicePriorityQueue`` runs
+its fused Pallas sweep (interpret mode) and the port's
+``DevicePriorityQueue`` and ``ElasticDevicePriorityQueue`` the same
+waves.  Also: the host oracle
 ``repro.core.priority.PriorityOracle`` op by op through JOIN/LEAVE, a JAX
 final state continued in the port, and the per-tier overflow error.  All
 outputs are integers: the tolerance is zero.
@@ -437,3 +441,88 @@ def test_tier_overflow_raises_with_per_tier_occupancy():
                      np.zeros((1, 4, 1), np.int32))
     assert err.value.kind == "pqueue" and err.value.capacity == 4
     assert err.value.occupancy == [0, 5] and err.value.wave == 0
+
+
+# ------------------------------------------------- more than 256 tiers ----
+P300, CAP300, B300 = 300, 8, 3
+
+P300_SCRIPT = r"""
+import numpy as np, jax, jax.numpy as jnp
+from jax.sharding import Mesh
+from repro.dqueue import DevicePriorityQueue
+d = np.load(IN, allow_pickle=False)
+mesh = Mesh(np.array(jax.devices()[:4]), ("data",))
+# the fused sweep (grid tiers x tiles): the jnp loop's 300 masked scans
+# take minutes to compile on the CPU
+q = DevicePriorityQueue(mesh, "data", n_prios=P, cap=CAP, payload_width=2,
+                        ops_per_shard=4, fused_dispatch=True)
+st = q.init_state()
+out = {}
+for b in range(B):
+    st, *o = q.run_waves(st, *(jnp.asarray(d[f"{c}{b}"])
+                               for c in ("E", "V", "PR", "PW")))
+    for k, v in zip(KEYS, o):
+        out[f"b{b}_{k}"] = np.asarray(v)
+for k in ("firsts", "lasts", "store_vals", "store_full"):
+    out[k] = np.asarray(getattr(st, k))
+np.savez(OUT, **out)
+print("ok")
+"""
+
+
+def _bursts_300():
+    """B300 bursts of K waves on 4 shards x 4 ops; tiers over all 300 (a
+    quarter of the enqueues past tier 255), payload word 0 the op id."""
+    rng = np.random.default_rng(300)
+    nL, out = N * L, []
+    for b in range(B300):
+        E = rng.random((K, nL)) < (0.8 if b < 2 else 0.3)
+        V = rng.random((K, nL)) < 0.9
+        PR = np.where(rng.random((K, nL)) < 0.25,
+                      rng.integers(256, P300, (K, nL)),
+                      rng.integers(0, 256, (K, nL))).astype(np.int32)
+        PW = np.zeros((K, nL, W), np.int32)
+        PW[..., 0] = np.arange(b * K * nL, (b + 1) * K * nL).reshape(K, nL)
+        out.append((E, V, PR, PW))
+    return out
+
+
+@pytest.fixture(scope="module")
+def jax_run_300(tmp_path_factory):
+    tmp = tmp_path_factory.mktemp("priority300")
+    arrays = {f"{c}{b}": x for b, bt in enumerate(_bursts_300())
+              for c, x in zip(("E", "V", "PR", "PW"), bt)}
+    np.savez(tmp / "in.npz", **arrays)
+    script = (f"IN = {str(tmp / 'in.npz')!r}\nOUT = {str(tmp / 'out.npz')!r}\n"
+              f"P = {P300}\nCAP = {CAP300}\nB = {B300}\nKEYS = {KEYS!r}\n"
+              + P300_SCRIPT)
+    run_multidev(script, n_dev=4, timeout=600)
+    return dict(np.load(tmp / "out.npz"))
+
+
+@pytest.mark.parametrize("elastic", [False, True])
+def test_priority_queue_300_tiers_matches_jax(jax_run_300, elastic):
+    kw = dict(n_prios=P300, cap=CAP300, payload_width=W, ops_per_shard=L,
+              device="cpu")
+    if elastic:
+        q = ElasticDevicePriorityQueue(N, **kw)
+        outs = [_burst(q, *bt) for bt in _bursts_300()]
+        final = state_to_numpy(q.state)
+    else:
+        q = DevicePriorityQueue(N, **kw)
+        st, outs = q.init_state(), []
+        for bt in _bursts_300():
+            st, *o = q.run_waves(st, *(_t(x) for x in bt))
+            outs.append({k: v.numpy() for k, v in zip(KEYS, o)})
+        final = state_to_numpy(st)
+    for b, out in enumerate(outs):
+        for k in KEYS:
+            np.testing.assert_array_equal(out[k], jax_run_300[f"b{b}_{k}"],
+                                          err_msg=f"burst {b} {k}")
+    junk = P300 * CAP300
+    for k in ("firsts", "lasts", "store_full"):
+        np.testing.assert_array_equal(final[k], jax_run_300[k])
+    np.testing.assert_array_equal(final["store_vals"][:, :junk],
+                                  jax_run_300["store_vals"][:, :junk])
+    placed = np.concatenate([o["tier"].reshape(-1) for o in outs])
+    assert (placed >= 256).any() and outs[-1]["dok"].any()
