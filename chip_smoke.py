@@ -16,12 +16,16 @@ the host's.  Then it drives the port through its entry points at full
 size:
 
 * the elastic FIFO queue (64 shards x 65,536 slots x 4 int32 words), the
-  elastic LIFO stack (64 shards x 32,768 slots x depth 4) and the elastic
-  4-tier priority queue (64 shards x 16,384 slots per tier), each to a
-  backlog above 1,000,000 elements, a LEAVE of 16 of 64 shards, a JOIN
-  back and a drain to ⊥, plus a small relaxed priority queue (8 -> 6
-  shards) through the hash-route report and a 300-tier priority queue
-  (4 -> 6 -> 4 shards) on the card against the same waves on the CPU;
+  elastic LIFO stack (64 shards x 32,768 slots x depth 4), the elastic
+  4-tier priority queue (64 shards x 16,384 slots per tier) and the
+  elastic Seap queue (64 shards x 8 buckets x 16,384 slots, EDF
+  deadlines whose slack drifts, splits and on-demand merges of its
+  directory), each to a backlog above 1,000,000 elements, a LEAVE of 16
+  of 64 shards, a JOIN back and a drain to ⊥, plus a small relaxed
+  priority queue (8 -> 6 shards) through the hash-route report, a
+  300-tier priority queue (4 -> 6 -> 4 shards) and a Seap queue with keys
+  at both int32 edges (8 -> 6 -> 8 shards), each on the card against the
+  same waves on the CPU;
 * the prefill of zamba2-1.2b at full width and depth (random weights
   from the seed): 4 prompts of 4,096 tokens through 6 flash-attention
   calls (all on the tensor-core kernel) and 38 SSD-scan calls (three
@@ -29,12 +33,17 @@ size:
   and, cut to 6 layers, a bf16 prefill on the card against the same
   prefill on the CPU;
 * the FIFO serving engine over an 8-shard request queue serving 32
-  requests with the same model, resized 8 -> 6 between two bursts.
+  requests with the same model, resized 8 -> 6 between two bursts; the
+  EDF engine (the Seap queue, deferral and an autoscaler) serving 32
+  requests, loose deadlines then tight ones, resized 8 -> 6 between
+  them; and the tier engine (4 tiers, relaxation 1) serving 16.
 
 Each is checked against a host model written here (order, ⊥ counts,
 overflow, migration counts, the exchange budget, the kernels' launch
-counts, FIFO admission) and the queues' pipelined bursts against the
-sequential schedule.  One JSON line per phase; the line before the last
+counts, FIFO, tier and EDF admission; the Seap model follows the
+semantics stated in ``repro/core/seap.py`` and imports nothing of the
+JAX package) and the queues' pipelined bursts against the sequential
+schedule.  One JSON line per phase; the line before the last
 lists the kernels, the last line is the result.  Any failed check
 raises, and the exit code is then not 0.  Without a CUDA device, or
 outside a checkout, it fails before printing anything.
@@ -104,6 +113,7 @@ SCAN_OPS = 20          # int ops per op: transform, ~2 composes, emission
 HASH_OPS = 12          # int ops per element: splitmix32, shift, modulo
 TIER_OPS = 10          # int ops per op: key, warp match, rank, emission
 CARD = ""              # "name, power limit" from nvidia-smi, set in main()
+INT32_MIN, INT32_MAX = -(2 ** 31), 2 ** 31 - 1
 
 
 def emit(phase: str, **fields) -> None:
@@ -807,8 +817,9 @@ class TierChecker:
     [best, best + k] whose head position is owned by the dequeue's shard
     (position mod n_shards) instead."""
 
-    def __init__(self, P: int, tier_p, relaxation: int = 0):
+    def __init__(self, P: int, tier_p, relaxation: int = 0, payload=None):
         self.P, self.tier_p, self.k = P, tier_p, relaxation
+        self.payload = payload or _payload     # dequeued ids -> payload rows
         self.q = [deque() for _ in range(P)]
         self.heads, self.tails = [0] * P, [0] * P
         self.next_id = 0
@@ -882,7 +893,7 @@ class TierChecker:
                   "every matched dequeue found its element (none lost)")
             # vals are in serve order, which is wave order
             want = np.concatenate(vals) if vals else np.zeros(0, np.int64)
-            check(np.array_equal(dv[k][w_ok], _payload(want)),
+            check(np.array_equal(dv[k][w_ok], self.payload(want)),
                   "dequeued elements are exactly the model's, whole")
             check(int(nrel[k]) == rel, "relaxed serves match the model")
             n_enq += int((V[k] & E[k]).sum())
@@ -1058,6 +1069,318 @@ def phase_relaxed_priority(torch, rng, results):
     emit("path:relaxed_priority", **rec)
 
 
+class SeapChecker:
+    """Host-side Seap model, written from the semantics the reference
+    states (``repro/core/seap.py``'s docstring) in numpy and plain ints:
+    a key goes to the active bucket with the largest boundary ``lo <=
+    key``; a wave applies its enqueues (FIFO per bucket), then its
+    dequeues (the d-th takes the d-th element in boundary order), then
+    the rebalance: when a bucket passes ``split_occupancy`` and no id is
+    free, the lowest-id empty non-root bucket is dropped; then the
+    fullest bucket past the threshold is halved into the lowest free id,
+    at the floor midpoint of its range clamped to the observed key range
+    (one step inside each edge), when that midpoint lies strictly inside
+    the range.  ``payload`` maps dequeued ids to the payload rows."""
+
+    def __init__(self, B: int, split_occupancy: int, seed_bounds=(),
+                 payload=None):
+        seeds = list(seed_bounds)
+        self.B, self.occ = B, split_occupancy
+        self.lo = [INT32_MIN] + seeds + [INT32_MAX] * (B - 1 - len(seeds))
+        self.active = [True] * (1 + len(seeds)) + [False] * (
+            B - 1 - len(seeds))
+        self.heads, self.tails = [0] * B, [0] * B
+        self.q = [deque() for _ in range(B)]
+        self.key_lo, self.key_hi = INT32_MAX, INT32_MIN
+        self.next_id = self.wave_no = 0
+        self.splits = self.merges = 0
+        self.payload = payload or _payload
+
+    @property
+    def sizes(self) -> list:
+        return [t - h for h, t in zip(self.heads, self.tails)]
+
+    @property
+    def size(self) -> int:
+        return sum(self.sizes)
+
+    @property
+    def n_active(self) -> int:
+        return sum(self.active)
+
+    def directory(self) -> list:
+        return sorted((self.lo[b], b) for b in range(self.B)
+                      if self.active[b])
+
+    def stage(self, K: int, nL: int, p_enq: float, slack, rng):
+        """K waves of deadlines: wave number x 1,000 + slack drawn from
+        U[slack)."""
+        E = rng.random((K, nL)) < p_enq
+        V = np.ones((K, nL), bool)
+        wave = self.wave_no + np.arange(K)[:, None]
+        KY = (wave * 1000 + rng.integers(*slack, (K, nL))).astype(np.int32)
+        self.wave_no += K
+        ids = np.arange(self.next_id, self.next_id + K * nL, dtype=np.int64)
+        self.next_id += K * nL
+        return E, V, KY, _payload(ids).reshape(K, nL, 4)
+
+    def _rebalance(self):
+        B, lo, act, sizes = self.B, self.lo, self.active, self.sizes
+        over = [act[b] and sizes[b] > self.occ for b in range(B)]
+        if any(over) and all(act):            # merge on demand
+            for b in range(B):
+                if act[b] and sizes[b] == 0 and lo[b] != INT32_MIN:
+                    act[b] = False
+                    self.merges += 1
+                    break
+        if any(over) and not all(act):        # split the fullest
+            b_s = max(range(B), key=lambda b: (sizes[b] if over[b] else -1,
+                                               -b))
+            hi = min([lo[b] for b in range(B) if act[b] and lo[b] > lo[b_s]],
+                     default=INT32_MAX)
+            lo_eff = max(lo[b_s], self.key_lo - 1 if self.key_lo > INT32_MIN
+                         else INT32_MIN)
+            hi_eff = min(hi, self.key_hi + 1 if self.key_hi < INT32_MAX
+                         else INT32_MAX)
+            mid = (lo_eff + hi_eff) // 2
+            if lo[b_s] < mid < hi:
+                b_f = act.index(False)
+                lo[b_f], act[b_f] = mid, True
+                self.splits += 1
+
+    def _wave(self, e, v, key, ids):
+        n = e.size
+        enq, deq = v & e, v & ~e
+        bucket, pos = np.full(n, -1), np.full(n, -1)
+        order = self.directory()
+        los = np.array([lo for lo, _ in order], np.int64)
+        bid = np.array([b for _, b in order])
+        e_idx = np.flatnonzero(enq)
+        ke = key[e_idx].astype(np.int64)
+        be = bid[np.searchsorted(los, ke, side="right") - 1]
+        bucket[e_idx] = be
+        for b in range(self.B):
+            idx = e_idx[be == b]
+            pos[idx] = self.tails[b] + np.arange(idx.size)
+            self.q[b].append(ids[idx])
+            self.tails[b] += idx.size
+        if e_idx.size:
+            self.key_lo = min(self.key_lo, int(ke.min()))
+            self.key_hi = max(self.key_hi, int(ke.max()))
+        d_idx = np.flatnonzero(deq)
+        vals, c = [], 0
+        for _, b in order:                    # boundary order, FIFO inside
+            take = min(self.tails[b] - self.heads[b], d_idx.size - c)
+            sel = d_idx[c:c + take]
+            bucket[sel], pos[sel] = b, self.heads[b] + np.arange(take)
+            vals.append(_take(self.q[b], take))
+            self.heads[b] += take
+            c += take
+        served = np.zeros(n, bool)
+        served[d_idx[:c]] = True
+        self._rebalance()
+        return bucket, pos, enq | served, deq & served, vals, bid
+
+    def verify(self, E, V, KY, P, bucket, pos, m, dv, dok, ovf, nact):
+        check(not ovf.any(), "no overflow")
+        n_enq = n_deq = n_bottom = 0
+        for k in range(E.shape[0]):
+            ids = P[k, :, 0].astype(np.int64)
+            w_b, w_pos, w_m, w_ok, vals, order = self._wave(
+                E[k], V[k], KY[k], ids)
+            check(np.array_equal(bucket[k], w_b), "buckets match the model")
+            check(np.array_equal(pos[k], w_pos), "positions match the model")
+            check(np.array_equal(m[k], w_m), "⊥ set matches the model")
+            check(np.array_equal(dok[k], w_ok),
+                  "every matched dequeue found its element (none lost)")
+            want = np.concatenate(vals) if vals else np.zeros(0, np.int64)
+            check(np.array_equal(dv[k][w_ok], self.payload(want)),
+                  "dequeued elements are exactly the model's, whole")
+            check(int(nact[k]) == self.n_active,
+                  "directory size matches the model")
+            rank = np.argsort(order)[bucket[k][w_ok]]
+            check(bool((np.diff(rank) >= 0).all()),
+                  "a wave's dequeues come out in the directory's order")
+            n_enq += int((V[k] & E[k]).sum())
+            n_deq += int(w_ok.sum())
+            n_bottom += int((V[k] & ~E[k] & ~w_m).sum())
+        return {"enq": n_enq, "deq": n_deq, "bottom": n_bottom,
+                "n_active": self.n_active, "splits": self.splits,
+                "merges": self.merges}
+
+
+# the EDF traffic of benchmarks/micro.py:_measure_edf_mixed at 1,000 key
+# units a wave: deadlines = wave x 1,000 + slack, the slack drifting from
+# the first half's range to the second's
+SLACK_1, SLACK_2 = (2_000, 9_000), (13_000, 30_000)
+# 64 fill waves reach phase_elastic_seap's backlog: their deadlines span
+# [2,000, 72,000), and the seven seeds split that span into 8
+SEAP_SEEDS = [2_000 + i * 70_000 // 8 for i in range(1, 8)]
+SEAP_OCC = 64 * 16_384 // 4        # a quarter of a 64-shard bucket window
+
+
+def phase_elastic_seap(torch, rng, results):
+    """ElasticDeviceSeapQueue at full size: 64 shards x 8 buckets x 16,384
+    slots per bucket x 4 words (a 134 MB store, 1,048,576 a bucket), a
+    split threshold of a quarter of a bucket window and seven seed bounds
+    over the first phase's deadlines.  Fill to above 1,000,000, drain the
+    lowest buckets, drift the deadlines until an on-demand merge and a
+    split show, LEAVE 16, one 50/50 burst, JOIN 16, drain to ⊥; every wave
+    against the host Seap model."""
+    from repro_torch.dqueue import ElasticDeviceSeapQueue
+    from repro_torch.kernels.hash_route import hash_route
+    from repro_torch.kernels.segscan import tiered_queue_scan
+    N, B, CAP, W, L, K = 64, 8, 16_384, 4, 1_024, 16
+    OCC, seeds = SEAP_OCC, SEAP_SEEDS
+
+    def make(pipelined=True):
+        return ElasticDeviceSeapQueue(N, n_buckets=B, cap=CAP,
+                                      payload_width=W, ops_per_shard=L,
+                                      split_occupancy=OCC, seed_bounds=seeds,
+                                      pipelined=pipelined, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    eq = make()
+    rt = eq.runtime
+    model = SeapChecker(B, OCC, seeds)
+    kept, bursts, migrations, dirs = [], [], [], []
+    timing = {"waves": 0, "seconds": 0.0, "ops": 0}
+    tiered_queue_scan.launches = hash_route.launches = 0
+
+    def burst(p_enq, slack):
+        _run_burst(torch, rng, eq, rt, tiered_queue_scan, K, model, timing,
+                   bursts, kept, (p_enq, slack), "tiered-scan")
+        check(eq.sizes == model.sizes, "bucket sizes match the model")
+        check(eq.directory() == model.directory(),
+              "the directory matches the model")
+        dirs.append(eq.directory())
+
+    while eq.size < 1_000_000:                       # 1. fill
+        burst(0.65, SLACK_1)
+    filled = eq.size
+    while model.sizes[0] or model.sizes[1]:          # 2. drain the lowest
+        burst(0.2, SLACK_1)
+    while True:                                      # 3. drift
+        burst(0.65, SLACK_2)
+        if model.merges and model.splits:
+            break
+    backlog = eq.size
+    sizes_at_leave = eq.sizes
+    check(max(sizes_at_leave) <= 48 * CAP, "every bucket fits 48 shards")
+    _migrate(eq, rt, eq.shrink, list(range(48, 64)), migrations)  # LEAVE
+    check(eq.directory() == model.directory(), "the LEAVE kept the directory")
+    burst(0.5, SLACK_2)
+    _migrate(eq, rt, eq.grow, 16, migrations)                     # JOIN
+    check(eq.directory() == model.directory(), "the JOIN kept the directory")
+    n_bottom = 0
+    while eq.size > 0 or n_bottom == 0:                           # drain
+        burst(0.0, SLACK_2)
+        n_bottom += bursts[-1]["bottom"]
+    launches = tiered_queue_scan.launches
+    check(launches == timing["waves"], "one tiered launch per wave")
+    enq = sum(b["enq"] for b in bursts)
+    check(sum(b["deq"] for b in bursts) == enq and model.size == 0,
+          "conservation: every enqueued element dequeued once")
+    peak = torch.cuda.max_memory_allocated()
+    del eq
+    _sequential_matches(torch, make, kept, K)
+    rec = {"n_shards": N, "n_buckets": B, "cap_per_bucket": CAP,
+           "payload_width": W, "ops_per_shard": L, "K": K,
+           "split_occupancy": OCC, "seed_bounds": seeds,
+           "slack": [SLACK_1, SLACK_2], "filled": filled,
+           "backlog_max": max(filled, backlog), "backlog_at_leave": backlog,
+           "sizes_at_leave": sizes_at_leave, "bursts": len(bursts),
+           "waves": timing["waves"],
+           "waves_per_s": timing["waves"] / timing["seconds"],
+           "ops_per_s": timing["ops"] / timing["seconds"],
+           "wall_s": timing["seconds"], "migrations": migrations,
+           "tiered_scan_launches": launches, "splits": model.splits,
+           "merges": model.merges, "bottom_dequeues": n_bottom,
+           "max_memory_allocated": peak, "edf_order": "ok",
+           "sequential_equals_pipelined": True, "directories": dirs,
+           "burst_log": bursts}
+    results["elastic_seap"] = rec
+    emit("path:elastic_seap", **rec)
+
+
+def _edge_keys(shape, rng):
+    """Keys over [-5,000, 5,000) with clusters at both int32 edges."""
+    key = rng.integers(-5_000, 5_000, shape).astype(np.int64)
+    edge = rng.random(shape)
+    key[edge < 0.1] = INT32_MIN + rng.integers(0, 3, int((edge < 0.1).sum()))
+    key[edge > 0.9] = INT32_MAX - rng.integers(0, 3, int((edge > 0.9).sum()))
+    return key.astype(np.int32)
+
+
+def phase_seap_card_vs_cpu(torch, rng, results):
+    """A cold ElasticDeviceSeapQueue (8 buckets, 8 -> 6 -> 8 shards x
+    1,024 ops, keys with clusters at INT32_MIN and INT32_MAX) on the card
+    and on the CPU: every burst, the migrations (the hash-route report
+    included) and the final state bit for bit, and the host model."""
+    from repro_torch.dqueue import ElasticDeviceSeapQueue
+    from repro_torch.kernels.hash_route import hash_route
+    from repro_torch.kernels.segscan import tiered_queue_scan
+    B, CAP, L, K, OCC = 8, 8_192, 1_024, 4, 6_000
+    queues = {d: ElasticDeviceSeapQueue(
+        8, n_buckets=B, cap=CAP, payload_width=4, ops_per_shard=L,
+        split_occupancy=OCC, pool_size=8, device=d) for d in ("cuda", "cpu")}
+    card = queues["cuda"]
+    model = SeapChecker(B, OCC)
+    plan = [("burst", 0.7), ("burst", 0.7), ("shrink", [6, 7]),
+            ("burst", 0.5), ("grow", 2), ("burst", 0.3), ("burst", 0.0)]
+    bursts, migrations, waves, seconds = [], [], 0, 0.0
+    torch.cuda.reset_peak_memory_stats()
+    tiered_queue_scan.launches = hash_route.launches = 0
+    for action, arg in plan:
+        if action != "burst":
+            st = [q.grow(arg) if action == "grow" else q.shrink(arg)
+                  for q in queues.values()]
+            check(st[0]["moved"] == st[1]["moved"] == card.size,
+                  f"{action}: moved == size on the card and the CPU")
+            check(st[0]["hash_balance"] == st[1]["hash_balance"],
+                  f"{action}: the hash-route report equal on both")
+            migrations.append({"kind": action, "moved": st[0]["moved"],
+                               "hash_balance": st[0]["hash_balance"]})
+            continue
+        nL = card.n_shards * L
+        E, V, _, P = model.stage(K, nL, arg, (0, 1), rng)
+        staged = (E, V, _edge_keys((K, nL), rng), P)
+        outs = {}
+        for d, q in queues.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = q.run_waves(*(torch.from_numpy(x).to(q.device)
+                                for x in staged))
+            outs[d] = [o.cpu().numpy() for o in out]
+            if d == "cuda":
+                seconds += time.perf_counter() - t0
+        check(all(np.array_equal(a, b) for a, b in zip(outs["cuda"],
+                                                       outs["cpu"])),
+              "Seap: the card's burst bit-identical to the CPU's")
+        bursts.append(model.verify(*staged, *outs["cuda"]))
+        check(card.directory() == model.directory(),
+              "the directory matches the model")
+        waves += K
+    state = [[x.cpu() for x in q.state] for q in queues.values()]
+    junk = B * CAP
+    state[0][6], state[1][6] = state[0][6][:, :junk], state[1][6][:, :junk]
+    check(all(torch.equal(a, b) for a, b in zip(*state)),
+          "the final 8-field state equal on the card and the CPU")
+    check(tiered_queue_scan.launches == waves, "one tiered launch a wave")
+    check(hash_route.launches == 2, "one hash-route launch a migration")
+    check(model.splits > 0, "the directory split")
+    rec = {"n_buckets": B, "n_shards": "8 -> 6 -> 8", "ops_per_shard": L,
+           "K": K, "split_occupancy": OCC, "waves": waves,
+           "wall_s": seconds, "waves_per_s": waves / seconds,
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "tiered_scan_launches": tiered_queue_scan.launches,
+           "hash_route_launches": hash_route.launches,
+           "splits": model.splits, "merges": model.merges,
+           "directory": model.directory(), "migrations": migrations,
+           "card_equals_cpu": True, "bursts": bursts}
+    results["seap_card_vs_cpu"] = rec
+    emit("path:seap_card_vs_cpu", **rec)
+
+
 def _profile_burst(torch, structure, staged, label: str) -> dict:
     """One pipelined burst (after a warm-up burst) under torch.profiler:
     device time by operation, and the device's busy share of the burst's
@@ -1095,9 +1418,12 @@ def _profile_burst(torch, structure, staged, label: str) -> dict:
 
 
 def phase_profile(torch, rng, results):
-    """One 16-wave burst of each structure at full size, profiled."""
+    """One 16-wave burst of each structure at full size, profiled (the
+    Seap burst's directory is the full-size path's seeds)."""
     from repro_torch.dqueue import (ElasticDevicePriorityQueue,
-                                    ElasticDeviceQueue, ElasticDeviceStack)
+                                    ElasticDeviceQueue,
+                                    ElasticDeviceSeapQueue,
+                                    ElasticDeviceStack)
     dev = torch.device("cuda")
     nL = 64 * 1_024
 
@@ -1126,6 +1452,16 @@ def phase_profile(torch, rng, results):
         torch, pq, [on_card(tm.stage(16, nL, p, rng)) for p in (0.65, 0.5)],
         "priority: K=16, 64 shards x 1024 ops, 4 tiers, 50% enqueue")
     del pq
+    sq = ElasticDeviceSeapQueue(64, n_buckets=8, cap=16_384, payload_width=4,
+                                ops_per_shard=1_024, split_occupancy=SEAP_OCC,
+                                seed_bounds=SEAP_SEEDS, device="cuda")
+    sm = SeapChecker(8, SEAP_OCC, SEAP_SEEDS)
+    recs["seap"] = _profile_burst(
+        torch, sq, [on_card(sm.stage(16, nL, p, SLACK_1, rng))
+                    for p in (0.65, 0.5)],
+        "seap: K=16, 64 shards x 1024 ops, 8 buckets, 50% enqueue, "
+        "deadlines wave x 1,000 + U[2,000, 9,000)")
+    del sq
     results["profile"] = recs
     emit("profile", **recs)
 
@@ -1774,6 +2110,173 @@ def phase_serve_zamba2(torch, rng, results, zamba):
     emit("path:serve_zamba2", **rec)
 
 
+
+def _rid_payload(ids: np.ndarray) -> np.ndarray:
+    """The serving engine's queue payload: the request id, then 0."""
+    return np.stack([ids, np.zeros_like(ids)], -1).astype(np.int32)
+
+
+def _capture_bursts(eng) -> list:
+    """Keep every queue burst the engine runs: its shard count, staged
+    arrays and outputs, as device tensors (read after the run, so the
+    capture adds no host sync to the timed steps)."""
+    log, q = [], eng.queue
+    run = q.run_waves
+
+    def run_waves(*ops):
+        out = run(*ops)
+        log.append((q.n_shards, ops, out))
+        return out
+    q.run_waves = run_waves
+    return log
+
+
+def _zamba2_requests(rng, cfg, n, first_rid=0, **kw):
+    from repro_torch.serve import Request
+    return [Request(rid=first_rid + i, prompt=[int(t) for t in rng.integers(
+        0, cfg.vocab, int(rng.integers(16, 65)))], max_new=16, **kw)
+        for i in range(n)]
+
+
+def _serve_record(eng, reqs, wall, steps, launches, peak):
+    tokens = sum(len(r.out) for r in reqs)
+    return {"requests": len(reqs), "steps": steps, "wall_s": wall,
+            "decode_step_ms": wall / steps * 1e3,
+            "generated_tokens_per_s": tokens / wall,
+            "requests_per_s": len(reqs) / wall, "launches": launches,
+            "max_memory_allocated": peak, "metrics": eng.metrics()}
+
+
+def phase_serve_edf_zamba2(torch, rng, results, zamba):
+    """ServeEngine(deadline=True) over an 8-shard ElasticDeviceSeapQueue
+    serving zamba2-1.2b with deferral and an autoscaler: 16 requests with
+    loose deadlines, a resize 8 -> 6, 16 with tight ones; every queue
+    burst against the host Seap model, EDF order within each refill.
+    Then the tier mode (4 tiers, relaxation 1) on the same model with 16
+    requests, against the host tier model."""
+    from repro_torch.kernels.hash_route import hash_route
+    from repro_torch.kernels.segscan import tiered_queue_scan
+    from repro_torch.serve import (ControllerConfig, HysteresisController,
+                                   ServeEngine)
+    cfg, model, params = zamba
+    slots, max_seq, horizon, n_buckets = 8, 256, 64, 8
+    # a bucket window of 2 x 8 shards, deferral past it, and an autoscaler
+    # that grows at the first overloaded step (no shrink in this run)
+    ctl = HysteresisController(ControllerConfig(
+        high_watermark=0.75, low_watermark=0.0, high_patience=1,
+        low_patience=1_000_000, cooldown=0))
+    eng = ServeEngine(model, params, 8, max_slots=slots, max_seq=max_seq,
+                      queue_cap=2, deadline=True, n_buckets=n_buckets,
+                      deadline_horizon=horizon, admission="defer",
+                      autoscale=ctl, device="cuda")
+    grid = horizon // n_buckets
+    seeds = [i * grid for i in range(1, n_buckets)]
+    model_q = SeapChecker(n_buckets, 2 * slots, seeds, payload=_rid_payload)
+    loose = _zamba2_requests(rng, cfg, 16)
+    tight = _zamba2_requests(rng, cfg, 16, first_rid=16)
+    reqs = loose + tight
+    eng.step()                                   # warm-up: an idle step
+    log = _capture_bursts(eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tiered_queue_scan.launches = hash_route.launches = 0
+    t0 = time.perf_counter()
+    for i, r in enumerate(loose):
+        r.deadline = eng.step_no + 40 + i        # loose: 40-55 steps out
+    eng.submit(loose)
+    for _ in range(24):
+        eng.step()
+    pending = [r.rid for r in loose if r.start_step < 0]
+    mig = eng.resize(6)
+    check(mig["P_from"] == 8 and mig["P_to"] == 6, "resize 8 -> 6")
+    check(mig["moved"] == eng.queue.size == len(pending),
+          f"the resize kept every queued request ({len(pending)})")
+    eng.submit(tight, deadline=2)                # tight: 2 steps out
+    check(eng.run_until_drained(max_steps=2000), "served to the end")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = {"tiered_queue_scan": tiered_queue_scan.launches,
+                "hash_route": hash_route.launches}
+    n_waves = 0
+    for n_shards, ops, out in log:
+        host = [x.cpu().numpy() for x in (*ops, *out)]
+        model_q.verify(*host)
+        n_waves += host[0].shape[0]
+    check(launches["tiered_queue_scan"] == n_waves,
+          f"one tiered launch per queue wave ({n_waves} waves): {launches}")
+    check(launches["hash_route"] >= 2, "the resize and the autoscaler's "
+                                       "grow launched the hash route")
+    check(all(r.done and len(r.out) == 16 for r in reqs),
+          "all 32 requests served with 16 tokens each")
+    queued = [r for r in loose if r.rid in pending]
+    late_loose = min((r.start_step for r in queued), default=None)
+    check(late_loose is None or max(r.start_step for r in tight)
+          <= late_loose, "the tight deadlines were admitted ahead of the "
+                         "loose ones still queued")
+    check(ctl.stats["grows"] >= 1 and eng.admission_stats["deferred"] > 0,
+          "the tight burst was deferred and the autoscaler grew the queue")
+    steps = eng.step_no - 1
+    rec = {"arch": cfg.name, "slots": slots, "max_seq": max_seq,
+           "queue_cap": 2, "n_buckets": n_buckets, "seed_bounds": seeds,
+           "queue_shards": f"8 -> 6 -> {eng.queue.n_shards}",
+           "queued_at_resize": len(pending),
+           "migrations": [{k: m[k] for k in ("kind", "P_from", "P_to",
+                                             "moved", "wave_s")}
+                          for m in eng.queue.migrations],
+           "queue_waves": n_waves, "edf_order": "ok",
+           "deadline_stats": eng.deadline_stats(),
+           "admission_stats": {k: v for k, v in eng.admission_stats.items()
+                               if k != "decide_us"},
+           "autoscale": ctl.snapshot(),
+           **_serve_record(eng, reqs, wall, steps, launches, peak)}
+    results["serve_edf_zamba2"] = rec
+    emit("path:serve_edf_zamba2", **rec)
+
+    # the tier mode: 8 requests of the lowest tier fill the slots, then
+    # 8 of tiers 0-2 queue behind them
+    eng = ServeEngine(model, params, 8, max_slots=slots, max_seq=max_seq,
+                      priorities=4, relaxation=1, device="cuda")
+    model_t = TierChecker(4, None, relaxation=1, payload=_rid_payload)
+    first = _zamba2_requests(rng, cfg, 8, prio=3)
+    second = _zamba2_requests(rng, cfg, 8, first_rid=8)
+    for i, r in enumerate(second):
+        r.prio = (0, 0, 0, 1, 1, 2, 2, 0)[i]
+    reqs = first + second
+    eng.step()
+    log = _capture_bursts(eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tiered_queue_scan.launches = 0
+    t0 = time.perf_counter()
+    eng.submit(first)
+    eng.step()
+    eng.submit(second)
+    check(eng.run_until_drained(max_steps=2000), "tiers: served to the end")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    n_waves = 0
+    for n_shards, ops, out in log:
+        model_t.verify(*(x.cpu().numpy() for x in (*ops, *out)),
+                       n_shards=n_shards)
+        n_waves += ops[0].shape[0]
+    check(tiered_queue_scan.launches == n_waves,
+          "tiers: one tiered launch per queue wave")
+    check(all(r.done for r in reqs), "tiers: all 16 requests served")
+    top = max(r.start_step for r in second if r.prio == 0)
+    check(all(top <= r.start_step for r in second if r.prio >= 2),
+          "tier 0 admitted before the tiers below its relaxation")
+    rec = {"arch": cfg.name, "slots": slots, "priorities": 4,
+           "relaxation": 1, "queue_waves": n_waves, "tier_order": "ok",
+           "tier_wait_stats": eng.tier_wait_stats(),
+           **_serve_record(eng, reqs, wall, eng.step_no - 1,
+                           {"tiered_queue_scan": tiered_queue_scan.launches},
+                           peak)}
+    results["serve_tiers_zamba2"] = rec
+    emit("path:serve_tiers_zamba2", **rec)
+
+
 def main() -> int:
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -1809,6 +2312,8 @@ def main() -> int:
     phase_elastic_priority(torch, rng, results)
     phase_priority_many_tiers(torch, rng, results)
     phase_relaxed_priority(torch, rng, results)
+    phase_elastic_seap(torch, rng, results)
+    phase_seap_card_vs_cpu(torch, rng, results)
     phase_profile(torch, rng, results)
     phase_scan_device_split(torch, rng, results)
     phase_hash_balance(torch, rng, results)
@@ -1816,6 +2321,7 @@ def main() -> int:
     phase_ssd_scan(torch, results)
     zamba = phase_prefill_zamba2(torch, args.seed, results)
     phase_serve_zamba2(torch, rng, results, zamba)
+    phase_serve_edf_zamba2(torch, rng, results, zamba)
     hb = results["hash_balance"]
 
     def scan_row(name, n, path, launches, replaces, **extra):
@@ -1831,6 +2337,15 @@ def main() -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": None, **extra}
     q24 = results[("queue_scan", TIMED_N[1])]
+    # the tiered kernel's launches, counted on each path that runs it
+    tiered = {
+        "elastic_priority": results["elastic_priority"][
+            "tiered_scan_launches"],
+        "elastic_seap": results["elastic_seap"]["tiered_scan_launches"],
+        "serve_edf_zamba2": results["serve_edf_zamba2"]["launches"][
+            "tiered_queue_scan"],
+        "serve_tiers_zamba2": results["serve_tiers_zamba2"]["launches"][
+            "tiered_queue_scan"]}
     kernels = [
         scan_row("queue_scan", 65_536, "elastic_fifo",
                  results["elastic_fifo"]["queue_scan_launches"],
@@ -1851,9 +2366,11 @@ def main() -> int:
         scan_row("stack_scan", 65_536, "elastic_lifo",
                  results["elastic_lifo"]["stack_scan_launches"],
                  "src/repro/kernels/segscan/kernel.py:303"),
-        scan_row("tiered_queue_scan", 65_536, "elastic_priority",
-                 results["elastic_priority"]["tiered_scan_launches"],
+        scan_row("tiered_queue_scan", 65_536,
+                 "elastic_priority, elastic_seap, serve_edf_zamba2, "
+                 "serve_tiers_zamba2", sum(tiered.values()),
                  "src/repro/kernels/segscan/kernel.py:361",
+                 launches_by_path=tiered,
                  kernels_per_call=results[("tiered_queue_scan", 65_536)][
                      "kernels_per_call"],
                  launches_300_tiers=results["priority_300_tiers"][

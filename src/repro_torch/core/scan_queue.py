@@ -1,4 +1,4 @@
-"""The SKUEUE aggregation tree as a prefix scan: FIFO, LIFO and P tiers.
+"""The SKUEUE aggregation tree as a prefix scan: FIFO, LIFO, P tiers, Seap.
 
 Counterpart of ``repro/core/scan_queue.py``.  A request acts on the anchor
 state (f, l) = (first, last) as
@@ -26,6 +26,9 @@ gets (position l_i + 1, ticket t_i + 1), a POP (position l_i, bound t_i)
 if l_i >= 1, else ⊥.  :func:`stack_scan` is the plain version of the
 stack-scan kernel.  :func:`priority_queue_scan` runs P of these FIFO
 windows, one per tier, and resolves a wave's dequeues highest tier first.
+:func:`seap_queue_scan` runs one window per bucket of Seap's key
+directory, looked up by :func:`seap_bucket_lookup`, and rebalances the
+directory in the wave.
 """
 from __future__ import annotations
 
@@ -34,6 +37,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..kernels.backend import resolve_device
+from .seap import INT32_MAX, INT32_MIN
 
 INF = 2 ** 30   # +infinity of the tropical semiring; A, C >= 0 keep sums
 #                 below 2^31 for any wave shorter than 2^30 ops
@@ -329,3 +333,138 @@ def priority_queue_scan(is_enq: torch.Tensor, prio: torch.Tensor,
     pos = torch.where(d_matched, pos_d, pos).to(torch.int32)
     return (tier, pos, enq | d_matched, (firsts + taken).to(torch.int32),
             new_lasts.to(torch.int32), n_relaxed)
+
+
+# -------------------------------------------------- seap bucket scan -------
+def seap_bucket_lookup(key: torch.Tensor, lo: torch.Tensor,
+                       active: torch.Tensor) -> torch.Tensor:
+    """Predecessor lookup in the bucket directory: for each key, the
+    active bucket with the largest boundary ``lo <= key``.
+
+    The root bucket (id 0) keeps ``lo == INT32_MIN`` and is always active,
+    so every key has a home; active boundaries are distinct by the split
+    rule, so the argmax is unique (ties at ``INT32_MIN`` go to the root:
+    ``torch.argmax`` returns the first index, as ``jnp.argmax`` does).
+    The lookup is an ``[n, B]`` broadcast: 2 MB of int32 at n = 65,536
+    and B = 8, but 268 MB at B = 1,024.
+
+    key: [n] int32 (a wider integer type is cast); lo: [B] int32;
+    active: [B] bool.  Returns [n] int32 bucket ids.
+    """
+    key = key.to(torch.int32)
+    eligible = active[None, :] & (lo[None, :] <= key[:, None])
+    score = torch.where(eligible, lo[None, :], INT32_MIN)
+    return torch.argmax(score, dim=1).to(torch.int32)
+
+
+def seap_queue_scan(is_enq: torch.Tensor, key: torch.Tensor,
+                    valid: torch.Tensor, firsts: torch.Tensor,
+                    lasts: torch.Tensor, lo: torch.Tensor,
+                    active: torch.Tensor, key_lo: torch.Tensor,
+                    key_hi: torch.Tensor, *, n_buckets: int,
+                    split_occupancy: int, tier_scan=None):
+    """Batch position assignment for the arbitrary-key Seap queue (Seap's
+    search structure collapsed to a two-level bucket directory).
+
+    One wave applies all enqueues before all dequeues, then rebalances:
+
+      * enqueues: the bucket from :func:`seap_bucket_lookup`, then
+        per-bucket FIFO positions (the priority scan's machinery with
+        tier := bucket);
+      * dequeues: :func:`strict_batch_deletemin` over the directory
+        sorted by boundary, FIFO inside each bucket;
+      * rebalance: at most one split a wave (the fullest bucket above
+        ``split_occupancy`` is halved into the lowest free id, at the
+        floor midpoint of its range clamped to the observed key range),
+        preceded by at most one on-demand merge (the lowest-id active
+        empty non-root bucket is recycled when the split wants an id and
+        none is free).  Plain tensor arithmetic with no host read, so a
+        pipelined burst stays free of host synchronisation.
+
+    Args:
+      is_enq/valid: [n] bool (global wave order); key: [n] int32 (ignored
+        for dequeues; a wider integer type is cast, wrapping as int32
+        does); firsts/lasts/lo: [B] int32; active: [B] bool;
+        key_lo/key_hi: 0-d int32, the least and greatest key ever
+        enqueued (INT32_MAX/INT32_MIN while none was).
+      tier_scan: ``(enq, tier, firsts, lasts) -> (pos, new_lasts)``, the
+        fused per-tier enqueue sweep (``kernels.segscan.make_tier_scan``);
+        None runs one masked :func:`queue_scan` per bucket, the oracle.
+    Returns:
+      (bucket [n] int32 (-1 unmatched), pos [n] int32 (⊥ = -1), matched
+      [n] bool, new_firsts, new_lasts, new_lo, new_active, new_key_lo,
+      new_key_hi, n_active (0-d int32, the directory size after the
+      rebalance)).
+    """
+    B = n_buckets
+    dev = is_enq.device
+    key = key.to(torch.int32)
+    enq = is_enq & valid
+    deq = ~is_enq & valid
+    bucket_e = seap_bucket_lookup(key, lo, active)
+    bucket = torch.full(is_enq.shape, -1, dtype=torch.int32, device=dev)
+    pos = torch.full(is_enq.shape, BOTTOM, dtype=torch.int32, device=dev)
+    if tier_scan is not None:
+        pos_e, new_lasts = tier_scan(enq, bucket_e, firsts, lasts)
+        bucket = torch.where(enq & (pos_e >= 0), bucket_e, bucket)
+        pos = torch.where(enq, pos_e, pos)
+    else:
+        new_lasts = []
+        for b in range(B):
+            mask = enq & (bucket_e == b)
+            pos_b, _, st_b = queue_scan(mask, QueueState(firsts[b], lasts[b]),
+                                        valid=mask)
+            bucket = torch.where(mask, b, bucket)
+            pos = torch.where(mask, pos_b, pos)
+            new_lasts.append(st_b.last)
+        new_lasts = torch.stack(new_lasts)
+    avail = new_lasts - firsts + 1               # sizes after enqueues
+
+    # dequeues: batch-DeleteMin over the directory in boundary order
+    # (inactive buckets sort last and are empty, so none is taken; the
+    # sort is stable, as jnp.argsort, for the ties at INT32_MAX)
+    order = torch.argsort(torch.where(active, lo, INT32_MAX), stable=True)
+    t_s, pos_d, d_matched, taken_s = strict_batch_deletemin(
+        deq, avail[order], firsts[order], B)
+    taken = torch.empty_like(taken_s)
+    taken[order] = taken_s
+    bucket = torch.where(d_matched, order[t_s.long()].to(torch.int32),
+                         bucket)
+    pos = torch.where(d_matched, pos_d, pos)
+    matched = enq | d_matched
+    new_firsts = firsts + taken
+
+    # the running observed key range (enqueued keys only)
+    new_key_lo = torch.minimum(key_lo, torch.where(enq, key, INT32_MAX).min())
+    new_key_hi = torch.maximum(key_hi, torch.where(enq, key, INT32_MIN).max())
+
+    # rebalance: merge on demand, then split
+    sizes = new_lasts - new_firsts + 1
+    ids = torch.arange(B, dtype=torch.int32, device=dev)
+    occ = torch.where(active, sizes, -1)
+    over = occ > split_occupancy
+    cand = active & (sizes == 0) & (lo != INT32_MIN)
+    need = over.any() & ~(~active).any()         # want to split, no free id
+    active = torch.where(
+        (ids == torch.argmax(cand.to(torch.int32))) & need & cand.any(),
+        False, active)
+    free = ~active
+    b_s = torch.argmax(torch.where(over, occ, -1))  # fullest; ties: lowest
+    lo_s = lo.index_select(0, b_s.view(1))           # [1]: no host read
+    hi = torch.where(active & (lo > lo_s), lo, INT32_MAX).min()
+    # clamp the halving to the observed key range, saturating the +/-1 at
+    # the int32 edges (every operand int32: the -1 and +1 wrap in the arm
+    # that is not taken, as in the reference)
+    lo_eff = torch.maximum(lo_s, torch.where(new_key_lo == INT32_MIN,
+                                             INT32_MIN, new_key_lo - 1))
+    hi_eff = torch.minimum(hi, torch.where(new_key_hi == INT32_MAX,
+                                           INT32_MAX, new_key_hi + 1))
+    # floor((lo_eff + hi_eff) / 2) without leaving int32
+    mid = (lo_eff & hi_eff) + ((lo_eff ^ hi_eff) >> 1)
+    do_split = over.any() & free.any() & (mid > lo_s) & (mid < hi)
+    at_free = (ids == torch.argmax(free.to(torch.int32))) & do_split
+    new_lo = torch.where(at_free, mid, lo)
+    new_active = active | at_free
+    n_active = new_active.sum(dtype=torch.int32)
+    return (bucket, pos, matched, new_firsts, new_lasts, new_lo, new_active,
+            new_key_lo, new_key_hi, n_active)

@@ -1,8 +1,9 @@
-"""SKUEUE device path in PyTorch: queue, stack and priority tiers over one
-device's shards.
+"""SKUEUE device path in PyTorch: queue, stack, priority tiers and Seap's
+arbitrary keys over one device's shards.
 
 :class:`WaveEngine` drives a discipline (:class:`FifoDiscipline`,
-:class:`LifoDiscipline`, :class:`PriorityDiscipline`) at two exchanges per
+:class:`LifoDiscipline`, :class:`PriorityDiscipline`,
+:class:`SeapDiscipline`) at two exchanges per
 wave (one per wave in pipelined bursts); the elastic wrappers add runtime
 JOIN/LEAVE membership, :class:`QueueOverflowError` on capacity violation,
 and the pressure API.
@@ -13,11 +14,16 @@ from .elastic import ElasticDeviceQueue, ElasticDeviceStack
 from .errors import QueueOverflowError, ServeInvariantError
 from .priority_queue import (DevicePriorityQueue, ElasticDevicePriorityQueue,
                              PriorityDiscipline, PriorityQueueState)
+from .seap_queue import (DeviceSeapQueue, ElasticDeviceSeapQueue,
+                         SeapDiscipline, SeapQueueState,
+                         default_split_occupancy)
 from .wave_engine import Discipline, WaveEngine, post_enqueue_peak_overflow
 
 __all__ = ["DevicePriorityQueue", "DeviceQueue", "DeviceQueueState",
-           "DeviceStack", "DeviceStackState", "Discipline",
-           "ElasticDevicePriorityQueue", "ElasticDeviceQueue",
-           "ElasticDeviceStack", "FifoDiscipline", "LifoDiscipline",
-           "PriorityDiscipline", "PriorityQueueState", "QueueOverflowError",
-           "ServeInvariantError", "WaveEngine", "post_enqueue_peak_overflow"]
+           "DeviceSeapQueue", "DeviceStack", "DeviceStackState",
+           "Discipline", "ElasticDevicePriorityQueue", "ElasticDeviceQueue",
+           "ElasticDeviceSeapQueue", "ElasticDeviceStack", "FifoDiscipline",
+           "LifoDiscipline", "PriorityDiscipline", "PriorityQueueState",
+           "QueueOverflowError", "SeapDiscipline", "SeapQueueState",
+           "ServeInvariantError", "WaveEngine", "default_split_occupancy",
+           "post_enqueue_peak_overflow"]

@@ -104,13 +104,13 @@ def _make_runtime(n_shards: int, runtime, device, metrics: bool, name: str):
     if metrics:
         raise NotImplementedError(
             f"{name}(metrics=True): the Wavescope ring waits for a later "
-            f"slice (ROADMAP queue 1, item 11)")
+            f"slice (ROADMAP queue 1, item 3)")
     if runtime is None:
         return LocalRuntime(n_shards, device=device)
     if not isinstance(runtime, LocalRuntime):
         raise NotImplementedError(
             "only LocalRuntime is ported; the distributed and simulated "
-            "runtimes wait (ROADMAP queue 1, item 5)")
+            "runtimes wait (ROADMAP queue 1, item 8)")
     return runtime
 
 
@@ -139,7 +139,7 @@ class DeviceQueue:
         if not fused:
             raise NotImplementedError(
                 "DeviceQueue(fused=False): the five-exchange seed wave "
-                "waits for a later slice (ROADMAP queue 1, item 3)")
+                "waits for a later slice (ROADMAP queue 1, item 6)")
         runtime = _make_runtime(n_shards, runtime, device, metrics,
                                 "DeviceQueue")
         self.runtime = runtime
@@ -322,8 +322,10 @@ class LifoDiscipline(Discipline):
         got = best >= 0
         res_vals = sv[shard3, q_slot, d_pick]                 # [n, n, L, W]
         # remove the picked entries (unique per pop: tickets are unique)
-        stk[shard3, torch.where(got, q_slot, cap),
-            torch.where(got, d_pick, D - 1)] = -1
+        # a device-side -1: a Python scalar set through tensor indices is
+        # copied to the device from the host, a host sync
+        stk.index_put_((shard3, torch.where(got, q_slot, cap),
+                        torch.where(got, d_pick, D - 1)), stk.new_full((), -1))
         reply = torch.cat([got.to(torch.int32)[..., None], res_vals], -1)
         return (sv, stk), reply, slot_overflow
 

@@ -64,13 +64,13 @@ class _ElasticBase:
         if metrics:
             raise NotImplementedError(
                 "metrics=True: the Wavescope ring waits for a later slice "
-                "(ROADMAP queue 1, item 11)")
+                "(ROADMAP queue 1, item 3)")
         if runtime is None:
             runtime = LocalRuntime(pool_size or n_shards, device=device)
         elif not isinstance(runtime, LocalRuntime):
             raise NotImplementedError(
                 "only LocalRuntime is ported; the distributed and "
-                "simulated runtimes wait (ROADMAP queue 1, item 5)")
+                "simulated runtimes wait (ROADMAP queue 1, item 8)")
         elif pool_size is not None or device is not None:
             raise ValueError("pass pool_size=/device= OR runtime=, not both "
                              "(the runtime owns the shard pool)")
@@ -394,7 +394,7 @@ class ElasticDeviceQueue(_ElasticBase):
         if not fused:
             raise NotImplementedError(
                 "fused=False: the five-exchange seed wave waits for a later "
-                "slice (ROADMAP queue 1, item 3)")
+                "slice (ROADMAP queue 1, item 6)")
         self.fused = True
         super().__init__(n_shards, cap=cap, payload_width=payload_width,
                          ops_per_shard=ops_per_shard, pool_size=pool_size,

@@ -98,14 +98,16 @@ def ring_commit(store, recv, junk: int, W: int):
     r_slot, r_tag, r_vals = recv[..., 0], recv[..., 1], recv[..., 2:]
     put = (base + torch.where(r_tag == TAG_PUT, r_slot, junk)).reshape(-1)
     svf[put] = r_vals.reshape(-1, W)                 # junk row eats
-    sff[put] = True
+    # index_fill_, not ``sff[put] = True``: a Python scalar set through a
+    # tensor index is copied to the device from the host, a host sync
+    sff.index_fill_(0, put, True)
     sf[:, junk] = False
     is_get = r_tag == TAG_GET
     get_slot = torch.where(is_get, r_slot, junk)
     get = base + get_slot                            # [n, n, L]
     res_vals = svf[get]                              # [n, n, L, W]
     res_ok = is_get & sff[get] & (get_slot < junk)
-    sff[get.reshape(-1)] = False                     # remove on read
+    sff.index_fill_(0, get.reshape(-1), False)       # remove on read
     sf[:, junk] = False
     reply = torch.cat([res_ok.to(torch.int32)[..., None], res_vals], -1)
     return (sv, sf), reply, torch.zeros((), dtype=torch.bool,

@@ -11,7 +11,13 @@ layout is told by its keys:
   ``vals [n, cap+1, D, W]`` int32, ``ticks [n, cap+1, D]`` int32;
 * priority queue (``ElasticDevicePriorityQueue``): ``firsts``, ``lasts``
   ``[P]`` int32, ``store_vals [n, P*cap+1, W]`` int32, ``store_full [n,
-  P*cap+1]`` bool.
+  P*cap+1]`` bool;
+* Seap queue (``ElasticDeviceSeapQueue``): the priority queue's keys with
+  ``B`` buckets for ``P`` tiers, plus the directory: ``lo [B]`` int32,
+  ``active [B]`` bool, ``key_lo``, ``key_hi`` int32 scalars.
+
+A Seap state dict holds every key of a priority one, so the layout with
+the most fields whose keys are all present is taken.
 
 A model's parameters are carried by :func:`params_from_jax` and
 :func:`params_to_numpy`, bit for bit, bfloat16 included.
@@ -23,35 +29,46 @@ import torch
 
 from .dqueue.device_queue import DeviceQueueState, DeviceStackState
 from .dqueue.priority_queue import PriorityQueueState
+from .dqueue.seap_queue import SeapQueueState
 
-# state type -> (dtype of each field, in field order)
+# state type -> (dtype of each field, in field order); the interval pair
+# comes first and the store pair last in every layout
 _LAYOUTS = {
     DeviceQueueState: (np.int32, np.int32, np.int32, bool),
     DeviceStackState: (np.int32, np.int32, np.int32, np.int32),
     PriorityQueueState: (np.int32, np.int32, np.int32, bool),
+    SeapQueueState: (np.int32, np.int32, np.int32, bool, np.int32, np.int32,
+                     np.int32, bool),
 }
 
 
 def _layout_of(d: dict):
-    for cls in _LAYOUTS:
-        if all(k in d for k in cls._fields):
-            return cls
-    raise KeyError(f"state dict keys {sorted(d)} match no layout: "
-                   + "; ".join(str(c._fields) for c in _LAYOUTS))
+    """The layout with the most fields whose keys ``d`` all holds (a Seap
+    dict holds a priority dict's keys too)."""
+    fits = [cls for cls in _LAYOUTS if all(k in d for k in cls._fields)]
+    if not fits:
+        raise KeyError(f"state dict keys {sorted(d)} match no layout: "
+                       + "; ".join(str(c._fields) for c in _LAYOUTS))
+    return max(fits, key=lambda cls: len(cls._fields))
 
 
 def state_from_jax(d: dict, device):
     """The port's state (:class:`DeviceQueueState`,
-    :class:`DeviceStackState` or :class:`PriorityQueueState`) on
-    ``device`` from the reference's state dict of numpy arrays (or
-    anything ``np.asarray`` takes)."""
+    :class:`DeviceStackState`, :class:`PriorityQueueState` or
+    :class:`SeapQueueState`) on ``device`` from the reference's state dict
+    of numpy arrays (or anything ``np.asarray`` takes)."""
     cls = _layout_of(d)
     # np.array copies into C order and keeps 0-d scalars 0-d
     arrs = [np.array(d[k], dtype=dt) for k, dt in zip(cls._fields,
                                                       _LAYOUTS[cls])]
-    a, b, X, Y = arrs
-    if (a.shape != b.shape or X.ndim != Y.ndim + 1
-            or X.shape[:Y.ndim] != Y.shape):
+    a, b, X, Y = arrs[0], arrs[1], arrs[-2], arrs[-1]
+    ok = (a.shape == b.shape and X.ndim == Y.ndim + 1
+          and X.shape[:Y.ndim] == Y.shape)
+    if cls is SeapQueueState:     # the directory: [B] vectors, 0-d range
+        lo, active, key_lo, key_hi = arrs[2:6]
+        ok = (ok and a.ndim == 1 and lo.shape == active.shape == a.shape
+              and key_lo.ndim == key_hi.ndim == 0)
+    if not ok:
         raise ValueError(f"{cls.__name__}: shapes {[x.shape for x in arrs]} "
                          f"do not fit {cls._fields}")
     return cls(*(torch.from_numpy(x).to(device) for x in arrs))

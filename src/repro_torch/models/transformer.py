@@ -20,7 +20,7 @@ from . import layers as L
 from .ssm import init_mamba2, init_mamba_state, mamba2_block
 
 _NOT_PORTED = ("the {} family is not ported yet (ROADMAP.md, queue 1 "
-               "item 13)")
+               "item 9)")
 
 
 def _check_family(cfg):

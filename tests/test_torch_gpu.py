@@ -16,8 +16,9 @@ import pytest
 import torch
 
 from repro_torch.dqueue import (DevicePriorityQueue, DeviceQueue,
-                                DeviceStack, ElasticDevicePriorityQueue,
-                                ElasticDeviceQueue)
+                                DeviceSeapQueue, DeviceStack,
+                                ElasticDevicePriorityQueue,
+                                ElasticDeviceQueue, ElasticDeviceSeapQueue)
 from repro_torch.kernels.flash_attention import (attention_chunked,
                                                  flash_attention)
 from repro_torch.kernels.flash_attention.kernel import tc_route
@@ -581,3 +582,142 @@ def test_model_on_gpu_matches_cpu(cuda, request, arch, head_dim):
         gaps.append(float((gl.cpu() - cl).abs().max()))
     print(f"{case}: max |Δlogit| card vs CPU, prefill then decode: {gaps}")
     assert max(gaps) < GPU_CPU_LOGIT_TOL[case], gaps
+
+
+# ------------------------------------------------------------------ Seap --
+I32MIN, I32MAX = -(2 ** 31), 2 ** 31 - 1
+
+
+def _seap_keys(shape, seed):
+    """Keys over [-1000, 1000) with clusters at both int32 edges."""
+    rng = np.random.default_rng(seed)
+    key = rng.integers(-1000, 1000, shape)
+    edge = rng.random(shape)
+    key[edge < 0.05], key[edge > 0.95] = I32MIN, I32MAX
+    return torch.from_numpy(key.astype(np.int32))
+
+
+@pytest.mark.parametrize("pipelined", [True, False])
+def test_device_seap_queue_64_shards_on_gpu_matches_cpu(cuda, pipelined):
+    """64 shards x 8 buckets, a low split threshold (splits and on-demand
+    merges): the card's bursts bit-identical to the CPU's, one tiered
+    launch a wave."""
+    E, V, P = _waves(64, 16, 2, 4, seed=7)
+    KY = _seap_keys(E.shape, seed=7)
+    outs = []
+    for dev in ("cpu", cuda):
+        q = DeviceSeapQueue(64, n_buckets=8, cap=64, payload_width=2,
+                            ops_per_shard=16, split_occupancy=200,
+                            seed_bounds=[-500, 0, 500],
+                            pipelined=pipelined, device=dev)
+        st, res = q.init_state(), []
+        for mix in (E, ~E):                 # enqueue-heavy, then dequeue
+            before = tiered_queue_scan.launches
+            st, *o = q.run_waves(st, mix.to(dev), V.to(dev), KY.to(dev),
+                                 P.to(dev))
+            if dev != "cpu":
+                assert tiered_queue_scan.launches == before + 4
+            res += [x.cpu() for x in o]
+        outs.append(res + [x.cpu() for x in st[:6]]
+                    + [st.store_vals[:, :8 * 64].cpu(), st.store_full.cpu()])
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+    assert len(set(outs[1][6].tolist())) > 1, "the directory never changed"
+
+
+def test_elastic_seap_on_gpu_matches_cpu_through_join_and_leave(cuda):
+    runs = []
+    for dev in ("cpu", cuda):
+        eq = ElasticDeviceSeapQueue(4, n_buckets=4, cap=32, payload_width=2,
+                                    ops_per_shard=4, split_occupancy=6,
+                                    pool_size=8, device=dev)
+        res = []
+        for i, action in enumerate([None, ("grow", 2), None,
+                                    ("shrink", [0, 2, 4]), None,
+                                    ("grow", 2), None]):
+            if action is None:
+                E, V, P = _waves(eq.n_shards, 4, 2, 3, seed=i)
+                KY = _seap_keys(E.shape, seed=i)
+                res += [x.cpu() for x in eq.run_waves(
+                    E.to(dev), V.to(dev), KY.to(dev), P.to(dev))]
+            else:
+                st = (eq.grow(action[1]) if action[0] == "grow"
+                      else eq.shrink(action[1]))
+                assert st["moved"] == eq.size
+                res.append(torch.tensor(st["hash_balance"]["counts"]))
+                res.append(torch.tensor(eq.directory()))
+        runs.append(res + [x.cpu() for x in eq.state[:6]]
+                    + [eq.state.store_vals[:, :4 * 32].cpu(),
+                       eq.state.store_full.cpu()])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("kind", ["seap", "priority", "fifo", "stack"])
+def test_pipelined_burst_makes_no_host_sync(cuda, kind):
+    """A pipelined burst (dispatch, both exchanges and the commit) on
+    inputs already on the card runs under
+    ``set_sync_debug_mode("error")``: the Seap wave's directory lookup,
+    tiered sweep, DeleteMin and rebalance, and the strict priority, FIFO
+    and stack waves."""
+    E, V, P = _waves(64, 16, 2, 4, seed=11)
+    kw = dict(cap=64, payload_width=2, ops_per_shard=16, device=cuda)
+    extra = []
+    if kind == "seap":
+        q = DeviceSeapQueue(64, n_buckets=8, split_occupancy=100, **kw)
+        extra = [_seap_keys(E.shape, seed=11)]
+    elif kind == "priority":
+        q = DevicePriorityQueue(64, n_prios=4, **kw)
+        extra = [torch.from_numpy(np.random.default_rng(11).integers(
+            0, 4, E.shape).astype(np.int32))]
+    elif kind == "fifo":
+        q = DeviceQueue(64, **kw)
+    else:
+        q = DeviceStack(64, slot_depth=4, **kw)
+    args = [x.to(cuda) for x in (E, V, *extra, P)]
+    st, *_ = q.run_waves(q.init_state(), *args)     # builds, allocates
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        st, *out = q.run_waves(st, *args)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert out[q.engine.disc.n_disp_outs + 1].any()  # dequeues found values
+
+
+def test_edf_engine_on_gpu_admits_as_on_cpu(cuda):
+    """The EDF engine with deferral and a resize 3 -> 4, on the card and
+    on the CPU: the same admissions, deadline outcome and metrics (token
+    values aside, which admission never reads)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.serve import Request, ServeEngine
+    cfg = get_config("mamba2_130m").reduced(n_layers=2)
+    model = build_model(cfg)
+    params = model.init_params(0, device="cpu")
+    runs = []
+    for dev, p in (("cpu", params), (cuda, _to(params, cuda))):
+        eng = ServeEngine(model, p, 3, max_slots=3, max_seq=24,
+                          deadline=True, n_buckets=8, deadline_horizon=32,
+                          admission="defer", queue_cap=3, pool_size=4,
+                          device=dev)
+        rng = np.random.default_rng(5)
+        reqs = [Request(rid=i, prompt=[int(t) for t in rng.integers(
+            1, cfg.vocab, 3)], max_new=3) for i in range(18)]
+        before = tiered_queue_scan.launches
+        eng.submit(reqs[:12], deadline=30)         # three are deferred
+        eng.step()
+        eng.submit(reqs[12:], deadline=2)
+        eng.step()
+        eng.resize(4)
+        assert eng.run_until_drained(max_steps=400)
+        if dev != "cpu":
+            assert tiered_queue_scan.launches > before
+        m = eng.metrics()
+        m["admission_control"] = {
+            k: v for k, v in m["admission_control"].items()
+            if not k.startswith("decide_us")}
+        runs.append(([(r.rid, r.start_step, r.finish_step, r.deadline)
+                      for r in reqs], eng.deadline_stats(), m))
+    assert runs[0] == runs[1]

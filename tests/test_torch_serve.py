@@ -225,9 +225,7 @@ def test_resize_four_to_two_shards_like_jax(models):
     assert starts == sorted(starts), "FIFO admission across the resize"
 
 
-@pytest.mark.parametrize("kw", [{"priorities": 2}, {"deadline": True},
-                                {"telemetry": True}, {"admission": "shed"},
-                                {"autoscale": object()}])
+@pytest.mark.parametrize("kw", [{"telemetry": True}])
 def test_unported_modes_raise(models, kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(models[3], models[4], 1, device="cpu", **kw)
