@@ -37,6 +37,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..kernels.backend import resolve_device
+from ..kernels.relaxed import relaxed_deletemin
 from .seap import INT32_MAX, INT32_MIN
 
 INF = 2 ** 30   # +infinity of the tropical semiring; A, C >= 0 keep sums
@@ -235,43 +236,6 @@ def strict_batch_deletemin(deq: torch.Tensor, avail: torch.Tensor,
     return t_c.to(torch.int32), pos, matched, taken.to(torch.int32)
 
 
-def _relaxed_deletemin(deq, shard_of, avail, firsts, n_prios: int,
-                       relaxation: int, n_shards: int):
-    """The relaxed resolution: each dequeue in wave order takes the head of
-    the best non-empty tier p*, or the first tier in [p*, p* + k] whose
-    head is owned by the dequeue's own shard.  Each step depends on the
-    one before, so this runs on the host over the wave's dequeues (one
-    device-to-host copy of the wave's flags).  Returns (tier, pos, matched,
-    taken, n_relaxed) like the reference's ``lax.scan`` (ties go to the
-    first tier, as ``jnp.argmax`` gives them)."""
-    dev = deq.device
-    n = deq.shape[0]
-    avail_h, firsts_h = avail.tolist(), firsts.tolist()
-    shard_h = shard_of.tolist()
-    taken = [0] * n_prios
-    tier = [-1] * n
-    pos = [BOTTOM] * n
-    n_relaxed = 0
-    for i in torch.nonzero(deq.cpu()).flatten().tolist():
-        ne = [avail_h[p] - taken[p] > 0 for p in range(n_prios)]
-        if not any(ne):
-            continue                                  # ⊥: nothing moves
-        pstar = ne.index(True)
-        q = pstar
-        for c in range(pstar, min(pstar + relaxation, n_prios - 1) + 1):
-            if ne[c] and (firsts_h[c] + taken[c]) % n_shards == shard_h[i]:
-                q = c
-                break
-        tier[i], pos[i] = q, firsts_h[q] + taken[q]
-        taken[q] += 1
-        n_relaxed += q != pstar
-
-    def put(x, dt=torch.int32):
-        return torch.tensor(x, dtype=dt, device=dev)
-    t = put(tier)
-    return (t, put(pos), t >= 0, put(taken), put(n_relaxed))
-
-
 def priority_queue_scan(is_enq: torch.Tensor, prio: torch.Tensor,
                         valid: torch.Tensor, firsts: torch.Tensor,
                         lasts: torch.Tensor, *, n_prios: int,
@@ -284,7 +248,10 @@ def priority_queue_scan(is_enq: torch.Tensor, prio: torch.Tensor,
     wave applies its enqueues first (per-tier FIFO positions), then its
     dequeues highest tier first: strict mode (``relaxation=0``) is prefix
     arithmetic (:func:`strict_batch_deletemin`); ``relaxation=k`` lets a
-    dequeue take a locally owned head up to k tiers below the best one.
+    dequeue take a locally owned head up to k tiers below the best one,
+    a sequential walk over the wave's dequeues
+    (:func:`~repro_torch.kernels.relaxed.relaxed_deletemin`: one kernel
+    launch on CUDA, no host read).
 
     Args:
       is_enq/valid: [n] bool; prio: [n] int32 (ignored for dequeues; an
@@ -327,7 +294,7 @@ def priority_queue_scan(is_enq: torch.Tensor, prio: torch.Tensor,
     else:
         if shard_of is None or n_shards is None:
             raise ValueError("relaxation > 0 needs shard_of and n_shards")
-        t_c, pos_d, d_matched, taken, n_relaxed = _relaxed_deletemin(
+        t_c, pos_d, d_matched, taken, n_relaxed = relaxed_deletemin(
             deq, shard_of, avail, firsts, n_prios, relaxation, n_shards)
     tier = torch.where(d_matched, t_c, tier).to(torch.int32)
     pos = torch.where(d_matched, pos_d, pos).to(torch.int32)

@@ -97,14 +97,14 @@ class FifoDiscipline(Discipline):
         return (torch.full((nL,), -1, dtype=torch.int32, device=device),
                 torch.zeros((nL,), dtype=torch.bool, device=device))
 
+    def occupancy(self, carry):
+        """The one window's occupancy, ``[1]``."""
+        return (carry[1] - carry[0] + 1).reshape(1)
 
-def _make_runtime(n_shards: int, runtime, device, metrics: bool, name: str):
-    """The runtime of a fixed-size structure; raises for the options the
+
+def _make_runtime(n_shards: int, runtime, device):
+    """The runtime of a fixed-size structure; raises for the runtimes the
     port does not have yet."""
-    if metrics:
-        raise NotImplementedError(
-            f"{name}(metrics=True): the Wavescope ring waits for a later "
-            f"slice (ROADMAP queue 1, item 3)")
     if runtime is None:
         return LocalRuntime(n_shards, device=device)
     if not isinstance(runtime, LocalRuntime):
@@ -121,12 +121,15 @@ class DeviceQueue:
       n_shards: shards (the reference's mesh axis size).
       cap: slots per shard; payload_width: int32 words per element;
       ops_per_shard: wave width L.
-      fused: must be True (the two-exchange engine path); the reference's
-        five-collective seed path is not ported.
+      fused: True (default) runs the two-exchange engine wave; False the
+        reference's five-exchange seed wave (``_legacy_wave``), the
+        differential baseline, always sequential.
       pipelined: multi-wave bursts overlap wave k's dispatch with wave
         k-1's commit (K+1 exchanges); False keeps the sequential schedule.
-        Results are identical either way.
-      metrics: must be False (the device telemetry ring is not ported).
+        Results are identical either way.  Only meaningful with
+        ``fused=True``: ``self.pipelined`` reports False for the seed path.
+      metrics: write a Wavescope row per wave into a ``metrics_ring``-row
+        device ring (``drain_metrics``); needs ``fused=True``.
       runtime: a :class:`~repro_torch.runtime.LocalRuntime`; default one
         over ``n_shards`` shards on ``device``.
       device: where state and waves live; default CUDA (raises if absent).
@@ -135,25 +138,26 @@ class DeviceQueue:
     def __init__(self, n_shards: int, cap: int = 1024,
                  payload_width: int = 4, ops_per_shard: int = 64,
                  fused: bool = True, pipelined: bool = True,
-                 metrics: bool = False, runtime=None, device=None):
-        if not fused:
-            raise NotImplementedError(
-                "DeviceQueue(fused=False): the five-exchange seed wave "
-                "waits for a later slice (ROADMAP queue 1, item 6)")
-        runtime = _make_runtime(n_shards, runtime, device, metrics,
-                                "DeviceQueue")
+                 metrics: bool = False, metrics_ring: int = 64,
+                 runtime=None, device=None):
+        if metrics and not fused:
+            raise ValueError("Wavescope metrics need the fused engine path "
+                             "(fused=True)")
+        runtime = _make_runtime(n_shards, runtime, device)
         self.runtime = runtime
         self.device = runtime.device
         self.n_shards = n_shards
         self.cap = cap
         self.W = payload_width
         self.L = ops_per_shard
-        self.fused = True
-        self.pipelined = pipelined
-        self.metrics = False
-        self.engine = WaveEngine(
-            n_shards, FifoDiscipline(n_shards, cap, payload_width), runtime,
-            pipelined=pipelined)
+        self.fused = fused
+        self.pipelined = pipelined and fused  # the seed path is sequential
+        self.metrics = bool(metrics)
+        self.disc = FifoDiscipline(n_shards, cap, payload_width)
+        self.engine = (WaveEngine(n_shards, self.disc, runtime,
+                                  pipelined=pipelined, metrics=metrics,
+                                  metrics_ring=metrics_ring)
+                       if fused else None)
 
     def init_state(self) -> DeviceQueueState:
         """An empty queue on this structure's device."""
@@ -174,6 +178,9 @@ class DeviceQueue:
         is_enq/valid: [n_shards * L] bool; payload: [n_shards * L, W] int32.
         Returns (new_state, positions, matched, deq_vals, deq_ok, overflow).
         """
+        if self.engine is None:
+            st, outs = self._legacy_wave(state, (is_enq, valid, payload))
+            return (st,) + outs
         return self.engine.step(state, is_enq, valid, payload)
 
     def run_waves(self, state: DeviceQueueState, is_enq: torch.Tensor,
@@ -186,7 +193,66 @@ class DeviceQueue:
         (new_state, positions [K, n], matched [K, n], deq_vals [K, n, W],
         deq_ok [K, n], overflow [K]).
         """
-        return self.engine.run_waves(state, is_enq, valid, payload)
+        if self.engine is not None:
+            return self.engine.run_waves(state, is_enq, valid, payload)
+        if is_enq.shape[0] == 0:
+            raise ValueError("run_waves needs at least one wave")
+        rows = []
+        for k in range(is_enq.shape[0]):
+            state, outs = self._legacy_wave(state, (is_enq[k], valid[k],
+                                                    payload[k]))
+            rows.append(outs)
+        return (state,) + tuple(torch.stack(c) for c in zip(*rows))
+
+    def drain_metrics(self, *, reset: bool = False) -> list:
+        """Burst-boundary Wavescope drain (empty when metrics are off)."""
+        return self.engine.drain_metrics(reset=reset) if self.engine else []
+
+    # ------------------------------------------ seed five-exchange wave ----
+    def _legacy_wave(self, state: DeviceQueueState, ops):
+        """The reference's seed wave (``repro/dqueue/device_queue.py:
+        _legacy_wave``), the differential baseline of the fused path:
+        the same dispatch, then FIVE exchanges, one column each: PUT
+        slots and PUT payloads, commit the PUTs; GET slots, read and
+        remove; reply values and reply flags.  Returns (state, outs)."""
+        rt, n, cap, W = self.runtime, self.n_shards, self.cap, self.W
+        carry, (sv, sf) = self.disc.split(state)
+        d = self.disc.dispatch(carry, ops)
+        dev = sv.device
+        svf, sff = sv.view(-1, W), sf.view(-1)
+        base = (torch.arange(n, device=dev) * (cap + 1)).view(n, 1, 1)
+        dst = torch.arange(n, dtype=torch.int32, device=dev)
+        to_dst = d.owner[:, None, :] == dst[None, :, None]   # [src, dst, L]
+
+        # ---- stage 4a: PUT dispatch (enqueues) ----
+        put = to_dst & (d.tag == TAG_PUT)[:, None, :]
+        r_slot = rt.exchange(torch.where(put, d.slot[:, None, :], cap))
+        r_vals = rt.exchange(torch.where(put[..., None],
+                                         d.payload[:, None], 0))
+        flat = (base + r_slot).reshape(-1)
+        svf[flat] = r_vals.reshape(-1, W)            # the junk row eats
+        sff.index_fill_(0, flat, True)
+        sf[:, cap] = False
+
+        # ---- stage 4b: GET dispatch (dequeues) ----
+        get = to_dst & d.wants_reply[:, None, :]
+        g_slot = rt.exchange(torch.where(get, d.slot[:, None, :], cap))
+        g_flat = base + g_slot                       # [dst, src, L]
+        res_vals = svf[g_flat]
+        res_ok = sff[g_flat] & (g_slot < cap)
+        sff.index_fill_(0, g_flat.reshape(-1), False)  # remove on read
+        sf[:, cap] = False
+        back_vals = rt.exchange(res_vals)            # [src, dst, L, W]
+        back_ok = rt.exchange(res_ok)
+        s = torch.arange(n, device=dev)[:, None]
+        j = torch.arange(d.owner.shape[1], device=dev)[None, :]
+        own = d.owner.clamp(0, n - 1).long()
+        deq_vals = torch.where(d.wants_reply[..., None], back_vals[s, own, j],
+                               0).reshape(-1, W)
+        deq_ok = (d.wants_reply & back_ok[s, own, j]).reshape(-1)
+        pos, matched = d.outs
+        return (self.disc.merge(d.carry, (sv, sf)),
+                (pos, matched, deq_vals, deq_ok, d.overflow))
 
 
 # ------------------------------------------------------------ LIFO ---------
@@ -334,6 +400,10 @@ class LifoDiscipline(Discipline):
         return (torch.full((nL,), -1, dtype=torch.int32, device=device),
                 torch.zeros((nL,), dtype=torch.bool, device=device))
 
+    def occupancy(self, carry):
+        """The stack's one window, ``[1, last]``: its occupancy ``[1]``."""
+        return carry[0].reshape(1)
+
 
 class DeviceStack:
     """Distributed LIFO (paper Sec. VI) over ``n_shards`` shards on one
@@ -346,8 +416,8 @@ class DeviceStack:
     Args:
       n_shards, cap, payload_width, ops_per_shard: as :class:`DeviceQueue`.
       slot_depth: D, the (ticket, payload) entries per store slot.
-      pipelined, runtime, device: as :class:`DeviceQueue`.
-      metrics: must be False (the device telemetry ring is not ported).
+      pipelined, metrics, metrics_ring, runtime, device: as
+        :class:`DeviceQueue`.
     """
 
     TAG_PUSH = LifoDiscipline.TAG_PUSH
@@ -356,9 +426,9 @@ class DeviceStack:
     def __init__(self, n_shards: int, cap: int = 1024,
                  payload_width: int = 4, ops_per_shard: int = 64,
                  slot_depth: int = 4, pipelined: bool = True,
-                 metrics: bool = False, runtime=None, device=None):
-        self.runtime = _make_runtime(n_shards, runtime, device, metrics,
-                                     "DeviceStack")
+                 metrics: bool = False, metrics_ring: int = 64,
+                 runtime=None, device=None):
+        self.runtime = _make_runtime(n_shards, runtime, device)
         self.device = self.runtime.device
         self.n_shards = n_shards
         self.cap = cap
@@ -366,11 +436,13 @@ class DeviceStack:
         self.L = ops_per_shard
         self.D = slot_depth
         self.pipelined = pipelined
-        self.metrics = False
+        self.metrics = bool(metrics)
         self.engine = WaveEngine(
             n_shards, LifoDiscipline(n_shards, cap, payload_width,
                                      slot_depth),
-            self.runtime, pipelined=pipelined)
+            self.runtime, pipelined=pipelined, metrics=metrics,
+            metrics_ring=metrics_ring)
+        self.disc = self.engine.disc
 
     def init_state(self) -> DeviceStackState:
         """An empty stack on this structure's device."""
@@ -395,3 +467,7 @@ class DeviceStack:
         """K pre-staged push/pop waves (``[K, n_shards * L]``), no host
         sync between them; the store of ``state`` is updated in place."""
         return self.engine.run_waves(state, is_push, valid, payload)
+
+    def drain_metrics(self, *, reset: bool = False) -> list:
+        """Burst-boundary Wavescope drain (empty when metrics are off)."""
+        return self.engine.drain_metrics(reset=reset)

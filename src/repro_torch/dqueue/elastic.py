@@ -27,10 +27,16 @@ distinct new slots, so (new slot, depth) addressing cannot collide.  A
 multi-window structure (priority tiers) keeps one ``[first, last]`` window
 per tier in its own slot range and moves every window in the same single
 exchange.
+
+``save``/``restore`` write and read the reference's checkpoint format
+(the layout in the manifest); a restore at another shard count is a
+restore at the saved count plus one migration wave.
 """
 from __future__ import annotations
 
+import json
 import time
+from pathlib import Path
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -52,7 +58,8 @@ HASH_BALANCE_MAX_SIZE = 1 << 16  # skip the fidelity report for huge queues
 
 class _ElasticBase:
     """Shared machinery: shard bookkeeping, the inner fixed-size queue per
-    shard count, resizing, migration stats and the pressure API."""
+    shard set, resizing, migration stats, the pressure API, telemetry
+    and checkpoint save/restore."""
 
     _kind: str = "queue"
 
@@ -60,11 +67,8 @@ class _ElasticBase:
                  payload_width: int = 4, ops_per_shard: int = 64,
                  pool_size: Optional[int] = None, runtime=None,
                  device=None, pipelined: bool = True,
-                 metrics: bool = False, flight_k: int = 16):
-        if metrics:
-            raise NotImplementedError(
-                "metrics=True: the Wavescope ring waits for a later slice "
-                "(ROADMAP queue 1, item 3)")
+                 metrics: bool = False, metrics_ring: int = 64,
+                 flight_k: int = 16):
         if runtime is None:
             runtime = LocalRuntime(pool_size or n_shards, device=device)
         elif not isinstance(runtime, LocalRuntime):
@@ -83,40 +87,57 @@ class _ElasticBase:
         self.W = payload_width
         self.L = ops_per_shard
         self.pipelined = pipelined
-        self.metrics = False
+        self.metrics = bool(metrics)
+        self.metrics_ring = int(metrics_ring)
         self.recorder = FlightRecorder(flight_k)
         self._active = list(runtime.pool()[:n_shards])
         self._inner_cache: dict = {}
-        self.inner = self._get_inner(n_shards)
+        self.inner = self._get_inner(self._active)
         self.state = self.inner.init_state()
         self.migrations: List[dict] = []
 
-    def _get_inner(self, n: int):
-        """The fixed-size queue for ``n`` shards, cached per count."""
-        if n not in self._inner_cache:
-            self._inner_cache[n] = self._make_inner(n)
-        return self._inner_cache[n]
+    def _get_inner(self, shards: list):
+        """The fixed-size structure over ``shards``, cached per shard set
+        as the reference caches one per mesh (so a telemetry ring's wave
+        numbers restart on a new set, as there)."""
+        key = tuple(d.id for d in shards)
+        if key not in self._inner_cache:
+            self._inner_cache[key] = self._make_inner(len(shards))
+        return self._inner_cache[key]
 
     # ---------------------------------------------------------- overflow ---
     def _wave_capacity(self) -> int:
         """Elements one store window holds (the discipline's
         ``window_capacity``: ``n_shards * cap``, times ``D`` for the
         stack)."""
-        return self.inner.engine.disc.window_capacity
+        return self.inner.disc.window_capacity
 
     def _occupancies(self) -> list:
         return [self.size]
 
     _overflow_detail: str = ""
 
+    def _drain_telemetry(self) -> list:
+        """Burst-boundary Wavescope drain into the flight recorder (the
+        one host read of the telemetry; nothing with metrics off).
+        Returns the freshly drained wave summaries."""
+        eng = getattr(self.inner, "engine", None)
+        if not self.metrics or eng is None or not eng.metrics:
+            return []
+        rows = eng.drain_metrics(reset=True)
+        self.recorder.extend(rows)
+        return rows
+
     def trajectory(self) -> list:
         """The flight recorder's last-K wave summaries, oldest first."""
         return self.recorder.trajectory()
 
     def _check_overflow(self, ovf) -> None:
-        """Host-raise the wave's overflow flag (a 0-d or [K] bool tensor)
-        as a :class:`~.errors.QueueOverflowError`.  The one host read of a
-        step or burst."""
+        """Drain telemetry, then host-raise the wave's overflow flag (a 0-d
+        or [K] bool tensor) as a :class:`~.errors.QueueOverflowError`
+        carrying the flight recorder's trajectory.  Runs once per step or
+        burst, so the recorder sees every wave."""
+        self._drain_telemetry()
         o = self.runtime.to_host(ovf)
         if not bool(o.any()):
             return
@@ -184,7 +205,7 @@ class _ElasticBase:
         ops = [self._place(x) for x in ops]
         with self._burst_span(ops[0].shape[0] if multi else 1):
             self.state, *out = fn(self.state, *ops)
-        self._check_overflow(out[self.inner.engine.disc.n_disp_outs + 2])
+        self._check_overflow(out[self.inner.disc.n_disp_outs + 2])
         return tuple(out)
 
     # -------------------------------------------------------- membership ---
@@ -294,7 +315,7 @@ class _ElasticBase:
             X, Y = X[:P_new].contiguous(), Y[:P_new].contiguous()
         self.state = self._pack(a, b, X, Y)
         self._active = list(new_active)
-        self.inner = self._get_inner(P_new)
+        self.inner = self._get_inner(self._active)
         n_moved = int(rt.to_host(moved))
         stats = {
             "kind": kind, "P_from": P_old, "P_to": P_new,
@@ -331,6 +352,63 @@ class _ElasticBase:
                 "roundrobin_max": -(-size // P_new),
                 "counts": [int(c) for c in counts]}
 
+    # ------------------------------------------------------- checkpoints ---
+    def _layout(self) -> dict:
+        return {"kind": self._kind, "n_shards": self.n_shards,
+                "cap": self.cap, "W": self.W, "L": self.L}
+
+    @classmethod
+    def _layout_kwargs(cls, lay: dict) -> dict:
+        return {"cap": lay["cap"], "payload_width": lay["W"],
+                "ops_per_shard": lay["L"]}
+
+    def save(self, ckpt_dir, step: int):
+        """Checkpoint the state in the reference's format (the layout in
+        the manifest's ``meta``).  Returns the committed directory."""
+        from ..checkpoint import save_checkpoint
+        with span("checkpoint:save", cat="checkpoint", kind=self._kind,
+                  step=step):
+            return save_checkpoint(ckpt_dir, step, self._state_dict(),
+                                   meta={"layout": self._layout()})
+
+    @classmethod
+    def restore(cls, ckpt_dir, step: Optional[int] = None, *,
+                n_shards: Optional[int] = None, runtime=None, device=None,
+                **kw):
+        """Rebuild from a checkpoint written under a possibly different
+        shard count (by this package or the reference): a restore at the
+        saved count, then one migration to ``n_shards``.
+
+        The shard pool needs ``max(saved, target)`` shards: without a
+        ``runtime`` the pool is that size on ``device``; a ``runtime``
+        (which keeps its quarantined shards out) must hold as many live
+        ones.  ``step`` defaults to the latest committed one.
+        """
+        from ..checkpoint import latest_step, restore_sharded
+        if step is None:
+            step = latest_step(ckpt_dir)
+            if step is None:
+                raise FileNotFoundError(f"no checkpoint in {ckpt_dir}")
+        manifest = json.loads(
+            (Path(ckpt_dir) / f"step_{step}" / "manifest.json").read_text())
+        lay = manifest["meta"]["layout"]
+        if lay["kind"] != cls._kind:
+            raise ValueError(f"checkpoint holds a {lay['kind']}, "
+                             f"not a {cls._kind}")
+        pool_size = (max(lay["n_shards"], n_shards or 0) if runtime is None
+                     else None)
+        with span("checkpoint:restore", cat="checkpoint", kind=cls._kind,
+                  step=step):
+            inst = cls(lay["n_shards"], pool_size=pool_size,
+                       runtime=runtime, device=device,
+                       **cls._layout_kwargs(lay), **kw)
+            placed, _ = restore_sharded(ckpt_dir, step, inst._state_dict(),
+                                        inst.device)
+            inst.state = inst._from_state_dict(placed)
+        if n_shards is not None and n_shards != lay["n_shards"]:
+            inst.resize(n_shards)
+        return inst
+
     # ------------------------------------------------- subclass contract ---
     _pad_fill: tuple
 
@@ -353,6 +431,13 @@ class _ElasticBase:
         """The live positions as ``[(lo, hi), ...]`` host ints, one range
         per window."""
         raise NotImplementedError
+
+    def _state_dict(self) -> dict:
+        """The state as a dict under the reference's key names."""
+        return dict(self.state._asdict())
+
+    def _from_state_dict(self, d: dict):
+        return type(self.state)(**d)
 
     @property
     def size(self) -> int:
@@ -378,9 +463,10 @@ class ElasticDeviceQueue(_ElasticBase):
       runtime: a :class:`~repro_torch.runtime.LocalRuntime` owning the
         pool and device (exclusive with ``pool_size``/``device``).
       device: default CUDA; raises where there is none.
-      fused, metrics: only the reference's defaults are ported
-        (``fused=True``, ``metrics=False``); other values raise
-        ``NotImplementedError``.
+      fused: False runs the five-exchange seed wave (sequential bursts).
+      metrics, metrics_ring: a Wavescope row per wave (fused waves only),
+        drained into the flight recorder at every burst boundary.
+      flight_k: the flight recorder's depth.
     """
 
     _kind = "queue"
@@ -390,21 +476,21 @@ class ElasticDeviceQueue(_ElasticBase):
                  payload_width: int = 4, ops_per_shard: int = 64,
                  fused: bool = True, pool_size: Optional[int] = None,
                  runtime=None, device=None, pipelined: bool = True,
-                 metrics: bool = False, flight_k: int = 16):
-        if not fused:
-            raise NotImplementedError(
-                "fused=False: the five-exchange seed wave waits for a later "
-                "slice (ROADMAP queue 1, item 6)")
-        self.fused = True
+                 metrics: bool = False, metrics_ring: int = 64,
+                 flight_k: int = 16):
+        self.fused = fused
         super().__init__(n_shards, cap=cap, payload_width=payload_width,
                          ops_per_shard=ops_per_shard, pool_size=pool_size,
                          runtime=runtime, device=device,
                          pipelined=pipelined, metrics=metrics,
-                         flight_k=flight_k)
+                         metrics_ring=metrics_ring, flight_k=flight_k)
 
     def _make_inner(self, n: int):
         return DeviceQueue(n, cap=self.cap, payload_width=self.W,
-                           ops_per_shard=self.L, pipelined=self.pipelined,
+                           ops_per_shard=self.L, fused=self.fused,
+                           pipelined=self.pipelined,
+                           metrics=self.metrics and self.fused,
+                           metrics_ring=self.metrics_ring,
                            runtime=self.runtime)
 
     # ------------------------------------------------------------ waves ----
@@ -479,7 +565,8 @@ class ElasticDeviceStack(_ElasticBase):
 
     Args:
       n_shards, cap, payload_width, ops_per_shard, pool_size, runtime,
-      device, pipelined, metrics, flight_k: as :class:`ElasticDeviceQueue`.
+      device, pipelined, metrics, metrics_ring, flight_k: as
+      :class:`ElasticDeviceQueue`.
       slot_depth: D, the (ticket, payload) entries per store slot.
     """
 
@@ -492,18 +579,21 @@ class ElasticDeviceStack(_ElasticBase):
                  payload_width: int = 4, ops_per_shard: int = 64,
                  slot_depth: int = 4, pool_size: Optional[int] = None,
                  runtime=None, device=None, pipelined: bool = True,
-                 metrics: bool = False, flight_k: int = 16):
+                 metrics: bool = False, metrics_ring: int = 64,
+                 flight_k: int = 16):
         self.D = slot_depth
         super().__init__(n_shards, cap=cap, payload_width=payload_width,
                          ops_per_shard=ops_per_shard, pool_size=pool_size,
                          runtime=runtime, device=device,
                          pipelined=pipelined, metrics=metrics,
-                         flight_k=flight_k)
+                         metrics_ring=metrics_ring, flight_k=flight_k)
 
     def _make_inner(self, n: int):
         return DeviceStack(n, cap=self.cap, payload_width=self.W,
                            ops_per_shard=self.L, slot_depth=self.D,
-                           pipelined=self.pipelined, runtime=self.runtime)
+                           pipelined=self.pipelined, metrics=self.metrics,
+                           metrics_ring=self.metrics_ring,
+                           runtime=self.runtime)
 
     # ------------------------------------------------------------ waves ----
     def step(self, is_push, valid, payload):
@@ -546,6 +636,13 @@ class ElasticDeviceStack(_ElasticBase):
 
     def _live_ranges(self):
         return [(1, self.size)]
+
+    def _layout(self) -> dict:
+        return {**super()._layout(), "D": self.D}
+
+    @classmethod
+    def _layout_kwargs(cls, lay: dict) -> dict:
+        return {**super()._layout_kwargs(lay), "slot_depth": lay["D"]}
 
     def _live_span(self) -> int:
         return self.size

@@ -19,8 +19,8 @@ rewrite (:func:`~.wave_engine.ring_commit`):
   arithmetic at full width);
 * ``relaxation=k`` lets a dequeue take a locally owned head up to k tiers
   below the best one.  That resolution is sequential over the wave's
-  dequeues and runs on the host (a device kernel for it is ROADMAP work),
-  so it suits small waves only.
+  dequeues: one launch of the relaxed kernel a wave
+  (``kernels.relaxed``), with no host read.
 """
 from __future__ import annotations
 
@@ -136,6 +136,10 @@ class PriorityDiscipline(Discipline):
         """A zero relaxed-serve count (pipeline priming)."""
         return (torch.zeros((), dtype=torch.int32, device=device),)
 
+    def occupancy(self, carry):
+        """Per-window occupancy ``[n_windows]`` from the carry."""
+        return carry[1] - carry[0] + 1
+
 
 class DevicePriorityQueue:
     """Distributed constant-priority queue over ``n_shards`` shards on
@@ -149,17 +153,18 @@ class DevicePriorityQueue:
         locally owned head up to k tiers below the best non-empty tier.
       pipelined, runtime, device: as
         :class:`~repro_torch.dqueue.DeviceQueue`.
-      metrics: must be False (the device telemetry ring is not ported).
+      metrics, metrics_ring: a Wavescope row per wave into a device
+        ring, as :class:`~repro_torch.dqueue.DeviceQueue`.
     """
 
     def __init__(self, n_shards: int, n_prios: int = 2, cap: int = 1024,
                  payload_width: int = 4, ops_per_shard: int = 64,
                  relaxation: int = 0, pipelined: bool = True,
-                 metrics: bool = False, runtime=None, device=None):
+                 metrics: bool = False, metrics_ring: int = 64,
+                 runtime=None, device=None):
         if n_prios < 1:
             raise ValueError("need at least one priority tier")
-        self.runtime = _make_runtime(n_shards, runtime, device, metrics,
-                                     "DevicePriorityQueue")
+        self.runtime = _make_runtime(n_shards, runtime, device)
         self.device = self.runtime.device
         self.n_shards = n_shards
         self.n_prios = n_prios
@@ -168,11 +173,13 @@ class DevicePriorityQueue:
         self.L = ops_per_shard
         self.relaxation = relaxation
         self.pipelined = pipelined
-        self.metrics = False
+        self.metrics = bool(metrics)
         self.engine = WaveEngine(
             n_shards, PriorityDiscipline(n_shards, n_prios, cap,
                                          payload_width, relaxation),
-            self.runtime, pipelined=pipelined)
+            self.runtime, pipelined=pipelined, metrics=metrics,
+            metrics_ring=metrics_ring)
+        self.disc = self.engine.disc
 
     def init_state(self) -> PriorityQueueState:
         """An empty queue on this structure's device."""
@@ -199,9 +206,13 @@ class DevicePriorityQueue:
     def run_waves(self, state: PriorityQueueState, is_enq, valid, prio,
                   payload):
         """K pre-staged waves (``[K, n_shards * L]``; payload ``[K, ...,
-        W]``), no host sync between them in strict mode; the store of
+        W]``), no host sync between them; the store of
         ``state`` is updated in place.  Outputs are ``[K]``-stacked."""
         return self.engine.run_waves(state, is_enq, valid, prio, payload)
+
+    def drain_metrics(self, *, reset: bool = False) -> list:
+        """Burst-boundary Wavescope drain (empty when metrics are off)."""
+        return self.engine.drain_metrics(reset=reset)
 
 
 class ElasticDevicePriorityQueue(_MultiWindowElastic):
@@ -213,7 +224,7 @@ class ElasticDevicePriorityQueue(_MultiWindowElastic):
 
     Args:
       n_shards, cap (per tier), payload_width, ops_per_shard, pool_size,
-      runtime, device, pipelined, metrics, flight_k: as
+      runtime, device, pipelined, metrics, metrics_ring, flight_k: as
       :class:`~.elastic.ElasticDeviceQueue`.
       n_prios, relaxation: as :class:`DevicePriorityQueue`.
     """
@@ -229,14 +240,14 @@ class ElasticDevicePriorityQueue(_MultiWindowElastic):
                  payload_width: int = 4, ops_per_shard: int = 64,
                  pool_size: Optional[int] = None, runtime=None, device=None,
                  pipelined: bool = True, metrics: bool = False,
-                 flight_k: int = 16):
+                 metrics_ring: int = 64, flight_k: int = 16):
         self.n_prios = n_prios
         self.relaxation = relaxation
         super().__init__(n_shards, cap=cap, payload_width=payload_width,
                          ops_per_shard=ops_per_shard, pool_size=pool_size,
                          runtime=runtime, device=device,
                          pipelined=pipelined, metrics=metrics,
-                         flight_k=flight_k)
+                         metrics_ring=metrics_ring, flight_k=flight_k)
 
     def _make_inner(self, n: int):
         return DevicePriorityQueue(n, n_prios=self.n_prios, cap=self.cap,
@@ -244,6 +255,8 @@ class ElasticDevicePriorityQueue(_MultiWindowElastic):
                                    ops_per_shard=self.L,
                                    relaxation=self.relaxation,
                                    pipelined=self.pipelined,
+                                   metrics=self.metrics,
+                                   metrics_ring=self.metrics_ring,
                                    runtime=self.runtime)
 
     # ------------------------------------------------------------ waves ----
@@ -267,3 +280,12 @@ class ElasticDevicePriorityQueue(_MultiWindowElastic):
 
     def _pack(self, a, b, X, Y):
         return PriorityQueueState(a, b, X, Y)
+
+    def _layout(self) -> dict:
+        return {**super()._layout(), "P": self.n_prios,
+                "relaxation": self.relaxation}
+
+    @classmethod
+    def _layout_kwargs(cls, lay: dict) -> dict:
+        return {**super()._layout_kwargs(lay), "n_prios": lay["P"],
+                "relaxation": lay.get("relaxation", 0)}

@@ -134,6 +134,10 @@ class SeapDiscipline(Discipline):
         """A zero directory size (pipeline priming)."""
         return (torch.zeros((), dtype=torch.int32, device=device),)
 
+    def occupancy(self, carry):
+        """Per-window occupancy ``[n_windows]`` from the carry."""
+        return carry[1] - carry[0] + 1
+
 
 def default_split_occupancy(n_shards: int, cap: int) -> int:
     """Split a bucket when it passes 3/4 of its window (headroom for the
@@ -156,14 +160,15 @@ class DeviceSeapQueue:
         ints, see :func:`repro_torch.core.seap.check_seed_bounds`).
       pipelined, runtime, device: as
         :class:`~repro_torch.dqueue.DeviceQueue`.
-      metrics: must be False (the device telemetry ring is not ported).
+      metrics, metrics_ring: a Wavescope row per wave into a device
+        ring, as :class:`~repro_torch.dqueue.DeviceQueue`.
     """
 
     def __init__(self, n_shards: int, n_buckets: int = 8, cap: int = 1024,
                  payload_width: int = 4, ops_per_shard: int = 64,
                  split_occupancy: Optional[int] = None, seed_bounds=None,
                  pipelined: bool = True, metrics: bool = False,
-                 runtime=None, device=None):
+                 metrics_ring: int = 64, runtime=None, device=None):
         if n_buckets < 1:
             raise ValueError("need at least one bucket")
         if split_occupancy is None:
@@ -171,8 +176,7 @@ class DeviceSeapQueue:
         if split_occupancy < 1:
             raise ValueError("split_occupancy must be >= 1")
         self.seed_bounds = check_seed_bounds(seed_bounds, n_buckets)
-        self.runtime = _make_runtime(n_shards, runtime, device, metrics,
-                                     "DeviceSeapQueue")
+        self.runtime = _make_runtime(n_shards, runtime, device)
         self.device = self.runtime.device
         self.n_shards = n_shards
         self.n_buckets = n_buckets
@@ -181,11 +185,13 @@ class DeviceSeapQueue:
         self.L = ops_per_shard
         self.split_occupancy = split_occupancy
         self.pipelined = pipelined
-        self.metrics = False
+        self.metrics = bool(metrics)
         self.engine = WaveEngine(
             n_shards, SeapDiscipline(n_shards, n_buckets, cap,
                                      payload_width, split_occupancy),
-            self.runtime, pipelined=pipelined)
+            self.runtime, pipelined=pipelined, metrics=metrics,
+            metrics_ring=metrics_ring)
+        self.disc = self.engine.disc
 
     def init_state(self) -> SeapQueueState:
         """An empty queue on this structure's device, its directory the
@@ -226,6 +232,10 @@ class DeviceSeapQueue:
         updated in place.  Outputs are ``[K]``-stacked."""
         return self.engine.run_waves(state, is_enq, valid, key, payload)
 
+    def drain_metrics(self, *, reset: bool = False) -> list:
+        """Burst-boundary Wavescope drain (empty when metrics are off)."""
+        return self.engine.drain_metrics(reset=reset)
+
 
 class ElasticDeviceSeapQueue(_MultiWindowElastic):
     """Arbitrary-key queue whose shard count is a runtime variable.
@@ -237,7 +247,7 @@ class ElasticDeviceSeapQueue(_MultiWindowElastic):
 
     Args:
       n_shards, cap (per bucket), payload_width, ops_per_shard, pool_size,
-      runtime, device, pipelined, metrics, flight_k: as
+      runtime, device, pipelined, metrics, metrics_ring, flight_k: as
       :class:`~.elastic.ElasticDeviceQueue`.
       n_buckets, split_occupancy, seed_bounds: as
       :class:`DeviceSeapQueue` (the split threshold defaults from the
@@ -255,7 +265,8 @@ class ElasticDeviceSeapQueue(_MultiWindowElastic):
                  cap: int = 1024, payload_width: int = 4,
                  ops_per_shard: int = 64, pool_size: Optional[int] = None,
                  runtime=None, device=None, pipelined: bool = True,
-                 metrics: bool = False, flight_k: int = 16):
+                 metrics: bool = False, metrics_ring: int = 64,
+                 flight_k: int = 16):
         self.n_buckets = n_buckets
         if split_occupancy is None:
             split_occupancy = default_split_occupancy(n_shards, cap)
@@ -265,7 +276,7 @@ class ElasticDeviceSeapQueue(_MultiWindowElastic):
                          ops_per_shard=ops_per_shard, pool_size=pool_size,
                          runtime=runtime, device=device,
                          pipelined=pipelined, metrics=metrics,
-                         flight_k=flight_k)
+                         metrics_ring=metrics_ring, flight_k=flight_k)
 
     def _make_inner(self, n: int):
         return DeviceSeapQueue(n, n_buckets=self.n_buckets, cap=self.cap,
@@ -273,6 +284,8 @@ class ElasticDeviceSeapQueue(_MultiWindowElastic):
                                split_occupancy=self.split_occupancy,
                                seed_bounds=self.seed_bounds,
                                pipelined=self.pipelined,
+                               metrics=self.metrics,
+                               metrics_ring=self.metrics_ring,
                                runtime=self.runtime)
 
     # ------------------------------------------------------------ waves ----
@@ -314,3 +327,15 @@ class ElasticDeviceSeapQueue(_MultiWindowElastic):
     def _pack(self, a, b, X, Y):
         directory, self._mig_directory = self._mig_directory, None
         return SeapQueueState(a, b, *directory, X, Y)
+
+    def _layout(self) -> dict:
+        return {**super()._layout(), "B": self.n_buckets,
+                "split": self.split_occupancy, "seed": self.seed_bounds}
+
+    @classmethod
+    def _layout_kwargs(cls, lay: dict) -> dict:
+        # the live directory (lo/active) restores from the state dict;
+        # the seed only shapes a fresh init_state
+        return {**super()._layout_kwargs(lay), "n_buckets": lay["B"],
+                "split_occupancy": lay["split"],
+                "seed_bounds": lay.get("seed") or None}

@@ -30,6 +30,16 @@ State
 The store tensors are updated in place (the reference donates them); the
 ``first``/``last`` scalars are new 0-d device tensors after each wave.  No
 wave reads a device value on the host.
+
+Telemetry
+---------
+With ``metrics=True`` every wave also writes one Wavescope row (ops
+admitted per kind, ⊥ count, per-window occupancy, headroom, the
+discipline's aux signal; ``obs.device``) into a device ring the engine
+owns, at dispatch time and in wave order.  It is arithmetic on values the
+wave already holds: no extra exchange, no host read, identical queue
+outputs.  :meth:`WaveEngine.drain_metrics` is the one host read of it, at
+burst boundaries.
 """
 from __future__ import annotations
 
@@ -37,6 +47,9 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from ..obs.device import (MetricsState, drain as _drain_rows,
+                          init_metrics_state, record_row)
 
 TAG_INACTIVE = 0
 TAG_PUT = 1
@@ -175,6 +188,11 @@ class Discipline:
         """Dtype-correct zeros for ``Dispatch.aux`` (pipeline priming)."""
         return ()
 
+    def occupancy(self, carry) -> torch.Tensor:
+        """``[n_windows]`` int32 occupancy from a (post-dispatch) interval
+        carry: arithmetic on device tensors, for the metrics row."""
+        raise NotImplementedError
+
 
 # --------------------------------------------------------- the engine ------
 class WaveEngine:
@@ -183,15 +201,22 @@ class WaveEngine:
     ``step`` runs one sequential wave (two exchanges: packed request +
     packed reply).  ``run_waves`` executes K pre-staged waves, pipelined
     (K+1 exchanges) or sequential (2K).  Both update the state's store in
-    place and return the new state.
+    place and return the new state.  With ``metrics=True`` each wave also
+    writes a row into the engine's ``metrics_ring``-row telemetry ring
+    (see the module docstring); the exchanges stay the same.
     """
 
     def __init__(self, n_shards: int, discipline: Discipline, runtime, *,
-                 pipelined: bool = True):
+                 pipelined: bool = True, metrics: bool = False,
+                 metrics_ring: int = 64):
         self.n_shards = n_shards
         self.disc = discipline
         self.runtime = runtime
         self.pipelined = pipelined
+        self.metrics = bool(metrics)
+        self.metrics_ring = int(metrics_ring)
+        self._mstate = self.init_metrics_state() if self.metrics else None
+        self._seq0 = 0  # waves drained-and-reset before the current ring
         d = discipline
         # the inactive request row, made once: a host-to-device copy per
         # wave would wait for the stream
@@ -221,13 +246,43 @@ class WaveEngine:
         ok = wants_reply & (got[..., 0] > 0)
         return vals.reshape(n * L, -1), ok.reshape(n * L)
 
+    # ---------------------------------------------------------- metrics ----
+    def _metric_row(self, d: Dispatch, ops) -> torch.Tensor:
+        """One Wavescope row per shard, ``[n_shards, M]`` int32, from
+        values the wave holds at dispatch time: each shard's counters over
+        its ``[L]`` slice, and the replicated seq, aux, headroom, width
+        and occupancy.  No exchange, no host read."""
+        disc, n = self.disc, self.n_shards
+        i32 = torch.int32
+        valid = ops[1].reshape(n, -1)
+        puts = ((d.tag == TAG_PUT) & d.active).sum(1, dtype=i32)
+        gets = ((d.tag == TAG_GET) & d.active).sum(1, dtype=i32)
+        offered = valid.sum(1, dtype=i32)
+        bottom = (valid & ~d.active).sum(1, dtype=i32)
+        occ = disc.occupancy(d.carry).to(i32)
+        headroom = disc.n_windows * disc.window_capacity - occ.sum(dtype=i32)
+        aux = (d.aux[0].to(i32) if d.aux
+               else torch.zeros((), dtype=i32, device=valid.device))
+        width = torch.full((n,), valid.shape[1], dtype=i32,
+                           device=valid.device)
+        head = torch.stack([self._mstate.count.expand(n), puts, gets,
+                            offered, bottom, aux.expand(n),
+                            headroom.to(i32).expand(n), width], 1)
+        return torch.cat([head, occ.expand(n, -1)], 1)
+
+    def _record(self, d: Dispatch, ops) -> None:
+        if self.metrics:
+            self._mstate = record_row(self._mstate, self._metric_row(d, ops))
+
     # ------------------------------------------------------- wave bodies ---
     def _wave(self, state, ops):
         """One sequential wave: dispatch -> request exchange -> commit ->
-        reply exchange -> extract.  Exactly two exchanges."""
+        reply exchange -> extract.  Exactly two exchanges, with or
+        without the metrics row."""
         disc, rt = self.disc, self.runtime
         carry, store = disc.split(state)
         d = disc.dispatch(carry, ops)
+        self._record(d, ops)
         recv = rt.exchange(self._pack_request(d))
         store, reply, c_ovf = disc.commit(store, recv)
         back = rt.exchange(reply)
@@ -265,7 +320,9 @@ class WaveEngine:
                 "aux": disc.zero_aux(dev)}
         rows = []
         for k in range(K):
-            d = disc.dispatch(carry, tuple(x[k] for x in ops))     # wave k
+            xs = tuple(x[k] for x in ops)
+            d = disc.dispatch(carry, xs)                            # wave k
+            self._record(d, xs)
             store, reply, c_ovf = disc.commit(store, infl["recv"])  # k-1
             out = rt.exchange(torch.cat([self._pack_request(d), reply], -1))
             dv, dok = self._extract_reply(out[..., C_req:], infl["owner"],
@@ -302,6 +359,27 @@ class WaveEngine:
         body = (self._multi_pipelined if self.pipelined
                 else self._multi_sequential)
         return body(state, ops)
+
+    # ----------------------------------------------------- metrics drain ---
+    def init_metrics_state(self) -> MetricsState:
+        """A zeroed telemetry ring on this engine's device."""
+        return init_metrics_state(self.n_shards, self.metrics_ring,
+                                  self.disc.n_windows, self.runtime.device)
+
+    def drain_metrics(self, *, reset: bool = False) -> list:
+        """The ring's rows as host wave-summary dicts, oldest first: the
+        one host read of the telemetry, for burst boundaries.  With
+        ``reset=True`` the ring restarts empty and the sequence number
+        keeps running."""
+        if not self.metrics:
+            return []
+        rows = _drain_rows(self._mstate)
+        for r in rows:
+            r["seq"] += self._seq0
+        if reset:
+            self._seq0 += int(self._mstate.count)
+            self._mstate = self.init_metrics_state()
+        return rows
 
 
 # -------------------------------------------------- migration machinery ----

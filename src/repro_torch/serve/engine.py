@@ -41,8 +41,11 @@ idle ones included; a refilled slot's cache is not cleared (stale ring
 entries are masked by position; the recurrent SSM state is not, which
 the reference does too: ROADMAP.md §3).
 
-Not ported yet: ``telemetry=True`` (the device metrics ring) raises
-``NotImplementedError``.
+Observability: ``telemetry=True`` turns on Wavescope for the request
+queue: every queue wave writes a row into the queue's device metrics
+ring (no extra exchange), drained host-side at burst boundaries into its
+flight recorder; :meth:`ServeEngine.metrics` then carries the recent wave
+summaries under ``"waves"``.
 """
 from __future__ import annotations
 
@@ -111,7 +114,9 @@ class ServeEngine:
       deadline: True swaps in the Seap queue for EDF admission.
       n_buckets / deadline_horizon: the Seap directory's shape (EDF only).
       pipelined: software-pipelined multi-wave bursts (default).
-      telemetry: must be False (the device metrics ring is not ported).
+      telemetry: Wavescope device metrics on the request queue, and the
+        ``"waves"`` section of :meth:`metrics`.
+      flight_k: the flight recorder's depth (wave summaries kept).
       admission: None, a policy name ("shed" / "defer" / "degrade"), or
         an :class:`~repro_torch.serve.admission.AdmissionPolicy`,
         consulted by :meth:`submit` before staging.
@@ -124,7 +129,6 @@ class ServeEngine:
 
     Raises:
       ValueError: incompatible discipline flags or unknown policy name.
-      NotImplementedError: ``telemetry=True``.
     """
 
     def __init__(self, model, params, n_shards: int = 1, *,
@@ -133,13 +137,9 @@ class ServeEngine:
                  relaxation: int = 0, deadline: bool = False,
                  n_buckets: int = 8, deadline_horizon: int = 64,
                  pipelined: bool = True, telemetry: bool = False,
-                 admission=None, spill_cap: int = 64,
+                 flight_k: int = 16, admission=None, spill_cap: int = 64,
                  autoscale=None, pool_size: Optional[int] = None,
                  device=None):
-        if telemetry:
-            raise NotImplementedError(
-                "ServeEngine(telemetry=True) is not ported yet: it waits "
-                "for the device metrics ring (ROADMAP.md, queue 1 item 3)")
         if deadline and priorities > 1:
             raise ValueError("deadline=True (EDF via the Seap queue) and "
                              "priorities > 1 (SLA tiers) are exclusive "
@@ -151,8 +151,10 @@ class ServeEngine:
         self.max_seq = max_seq
         self.priorities = priorities
         self.deadline = deadline
+        self.telemetry = bool(telemetry)
         kw = dict(cap=queue_cap, payload_width=2,
                   ops_per_shard=max(8, 2 * max_slots), pipelined=pipelined,
+                  metrics=telemetry, flight_k=flight_k,
                   pool_size=pool_size, device=resolve_device(device))
         if deadline:
             # the directory is seeded on a step grid over the deadline
@@ -396,7 +398,7 @@ class ServeEngine:
             ops.insert(2, key)
         out = q.run_waves(*(torch.from_numpy(a).to(self.device)
                             for a in ops))
-        k = q.inner.engine.disc.n_disp_outs      # dequeued values follow
+        k = q.inner.disc.n_disp_outs             # dequeued values follow
         dv, dok = out[k], out[k + 1]
         dv = q.runtime.to_host(dv).reshape(n_waves * n, 2)
         dok = q.runtime.to_host(dok).reshape(n_waves * n)
@@ -499,7 +501,12 @@ class ServeEngine:
         use, staged count, the queue-depth mirror and the queue's shape
         and occupancy, admission-wait percentiles (engine steps), and,
         where configured, the admission policy's counters, the
-        autoscaler's state, per-tier waits and the deadline outcome."""
+        autoscaler's state, per-tier waits and the deadline outcome.
+        With ``telemetry=True`` it also drains the queue's metrics ring
+        into the flight recorder and attaches the recent wave summaries
+        under ``"waves"`` (a burst-boundary host read, no exchange).
+        Feed it to :func:`repro_torch.obs.to_json` or
+        :func:`~repro_torch.obs.to_prometheus`."""
         q = self.queue
         occ = q.occupancy()
         snap = {
@@ -542,6 +549,9 @@ class ServeEngine:
             snap["tiers"] = self.tier_wait_stats()
         if self.deadline:
             snap["deadline"] = self.deadline_stats()
+        if self.telemetry:
+            q._drain_telemetry()
+            snap["waves"] = q.trajectory()
         return snap
 
     # ------------------------------------------------------------ decode ---

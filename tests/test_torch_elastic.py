@@ -217,10 +217,6 @@ def test_membership_bookkeeping():
 
 def test_unported_options_raise():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ElasticDeviceQueue(2, fused=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ElasticDeviceQueue(2, metrics=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         ElasticDeviceQueue(2, runtime=object())
 
 

@@ -23,6 +23,8 @@ from repro_torch.kernels.flash_attention import (attention_chunked,
                                                  flash_attention)
 from repro_torch.kernels.flash_attention.kernel import tc_route
 from repro_torch.kernels.hash_route import hash_route, hash_route_ref
+from repro_torch.kernels.relaxed import (relaxed_deletemin,
+                                         relaxed_deletemin_ref)
 from repro_torch.kernels.segscan import (queue_scan, queue_scan_ref,
                                          stack_scan, stack_scan_ref,
                                          tiered_queue_scan,
@@ -653,30 +655,39 @@ def test_elastic_seap_on_gpu_matches_cpu_through_join_and_leave(cuda):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("kind", ["seap", "priority", "fifo", "stack"])
+@pytest.mark.parametrize("kind", ["seap", "priority", "fifo", "stack",
+                                  "relaxed", "metrics_seap",
+                                  "metrics_priority", "metrics_fifo",
+                                  "metrics_stack"])
 def test_pipelined_burst_makes_no_host_sync(cuda, kind):
     """A pipelined burst (dispatch, both exchanges and the commit) on
     inputs already on the card runs under
     ``set_sync_debug_mode("error")``: the Seap wave's directory lookup,
-    tiered sweep, DeleteMin and rebalance, and the strict priority, FIFO
-    and stack waves."""
+    tiered sweep, DeleteMin and rebalance, the strict and relaxed
+    priority waves (the relaxed kernel's launch), the FIFO and stack
+    waves, and each of them with the telemetry ring on."""
     E, V, P = _waves(64, 16, 2, 4, seed=11)
-    kw = dict(cap=64, payload_width=2, ops_per_shard=16, device=cuda)
+    metrics = kind.startswith("metrics_")
+    base = kind.split("_")[-1]
+    kw = dict(cap=64, payload_width=2, ops_per_shard=16, metrics=metrics,
+              device=cuda)
     extra = []
-    if kind == "seap":
+    if base == "seap":
         q = DeviceSeapQueue(64, n_buckets=8, split_occupancy=100, **kw)
         extra = [_seap_keys(E.shape, seed=11)]
-    elif kind == "priority":
-        q = DevicePriorityQueue(64, n_prios=4, **kw)
+    elif base in ("priority", "relaxed"):
+        q = DevicePriorityQueue(64, n_prios=4,
+                                relaxation=int(base == "relaxed"), **kw)
         extra = [torch.from_numpy(np.random.default_rng(11).integers(
             0, 4, E.shape).astype(np.int32))]
-    elif kind == "fifo":
+    elif base == "fifo":
         q = DeviceQueue(64, **kw)
     else:
         q = DeviceStack(64, slot_depth=4, **kw)
     args = [x.to(cuda) for x in (E, V, *extra, P)]
     st, *_ = q.run_waves(q.init_state(), *args)     # builds, allocates
     torch.cuda.synchronize()
+    before = relaxed_deletemin.launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         st, *out = q.run_waves(st, *args)
@@ -684,6 +695,9 @@ def test_pipelined_burst_makes_no_host_sync(cuda, kind):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert out[q.engine.disc.n_disp_outs + 1].any()  # dequeues found values
+    assert relaxed_deletemin.launches == before + 4 * (base == "relaxed")
+    if metrics:
+        assert len(q.drain_metrics()) == 8
 
 
 def test_edf_engine_on_gpu_admits_as_on_cpu(cuda):
@@ -721,3 +735,149 @@ def test_edf_engine_on_gpu_admits_as_on_cpu(cuda):
         runs.append(([(r.rid, r.start_step, r.finish_step, r.deadline)
                       for r in reqs], eng.deadline_stats(), m))
     assert runs[0] == runs[1]
+
+
+# ------------------------------------------------ relaxed tier resolution -
+@pytest.mark.parametrize("n,P,k,n_shards,kind", [
+    (65_536, 4, 1, 64, "mixed"), (65_536, 4, 2, 64, "mixed"),
+    (65_536, 300, 2, 64, "mixed"), (65_536, 4, 1, 64, "empty"),
+    (65_536, 4, 2, 64, "edge"), (70_000, 40, 40, 64, "mixed"),
+    (5_000, 64, 33, 8, "mixed"), (1, 1, 1, 1, "mixed"),
+    (4_097, 33, 1, 1, "edge"), (65_536, 1000, 3, 48, "mixed"),
+    (65_536, 4, 2, 48, "edge"), (65_536, 8, 3, 2, "mixed"),
+    (65_536, 16, 5, 3, "edge")])
+def test_relaxed_kernel_matches_plain(cuda, n, P, k, n_shards, kind):
+    """One launch against the plain host loop, bit for bit: full waves,
+    300 and 1,000 tiers (the register window moves), a relaxation wider
+    than the window (k > 31), all tiers empty (every reply ⊥), heads at
+    INT32_MAX that wrap (at 48 and 3 shards too, which do not divide
+    2^32), frequent relaxed serves (2 and 3 shards), one shard."""
+    rng = np.random.default_rng(n + P + k)
+    deq = rng.random(n) < 0.5
+    so = (np.arange(n) * n_shards // n).astype(np.int32)
+    avail = (np.zeros(P, np.int64) if kind == "empty"
+             else rng.integers(0, max(2, n // P), P))
+    avail[rng.random(P) < 0.2] = 0
+    firsts = rng.integers(-1000, 1000, P)
+    if kind == "edge":
+        firsts = 2 ** 31 - 1 - rng.integers(0, 8, P)
+    args = [torch.from_numpy(x) for x in (
+        deq, so, avail.astype(np.int32), firsts.astype(np.int32))]
+    want = relaxed_deletemin_ref(*args, P, k, n_shards)
+    before = relaxed_deletemin.launches
+    got = relaxed_deletemin(*(x.to(cuda) for x in args), P, k, n_shards)
+    assert relaxed_deletemin.launches == before + 1
+    for a, b in zip(got, want):
+        assert a.device.type == "cuda" and a.dtype == b.dtype
+        assert torch.equal(a.cpu(), b)
+    if kind == "empty":
+        assert not got[2].any()
+    if kind == "edge":
+        assert (got[1][got[2]] < 0).any()          # heads wrapped
+
+
+def test_elastic_relaxed_64_shards_on_gpu_matches_cpu(cuda):
+    """A 64-shard relaxed priority queue (relaxation 1) through a LEAVE of
+    16 and a JOIN of 16, on the card against the CPU: one relaxed launch
+    a wave, every output and the final state equal."""
+    runs = []
+    for dev in ("cpu", cuda):
+        eq = ElasticDevicePriorityQueue(64, n_prios=4, relaxation=1, cap=64,
+                                        payload_width=2, ops_per_shard=16,
+                                        device=dev)
+        res, r = [], np.random.default_rng(64)
+        for i, action in enumerate([None, ("shrink", list(range(0, 64, 4))),
+                                    None, ("grow", 16), None]):
+            if action is not None:
+                st = (eq.grow(action[1]) if action[0] == "grow"
+                      else eq.shrink(action[1]))
+                assert st["moved"] == eq.size
+                continue
+            E, V, P = _waves(eq.n_shards, 16, 2, 3, seed=20 + i)
+            PR = torch.from_numpy(r.choice(4, E.shape, p=[0.4, 0.3, 0.2,
+                                                          0.1]).astype(
+                np.int32))
+            before = relaxed_deletemin.launches
+            res += [x.cpu() for x in eq.run_waves(
+                E.to(dev), V.to(dev), PR.to(dev), P.to(dev))]
+            if dev != "cpu":
+                assert relaxed_deletemin.launches == before + 3
+        st = eq.state
+        runs.append(res + [st.firsts.cpu(), st.lasts.cpu(),
+                           st.store_full.cpu(),
+                           st.store_vals[:, :4 * 64].cpu()])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+    assert int(sum(x.sum() for x in runs[1][6::7])) > 0  # some relaxed
+
+
+@pytest.mark.parametrize("kind", ["fifo", "stack", "relaxed", "seap"])
+def test_metrics_burst_on_gpu_matches_cpu(cuda, kind):
+    """A metrics-on pipelined burst on 64 shards: the drained rows and
+    every output on the card equal the CPU's."""
+    E, V, P = _waves(64, 16, 2, 4, seed=12)
+    runs = []
+    for dev in ("cpu", cuda):
+        kw = dict(cap=64, payload_width=2, ops_per_shard=16, metrics=True,
+                  metrics_ring=6, device=dev)
+        extra = []
+        if kind == "seap":
+            q = DeviceSeapQueue(64, n_buckets=8, split_occupancy=100, **kw)
+            extra = [_seap_keys(E.shape, seed=12)]
+        elif kind == "relaxed":
+            q = DevicePriorityQueue(64, n_prios=4, relaxation=1, **kw)
+            extra = [torch.from_numpy(np.random.default_rng(12).integers(
+                0, 4, E.shape).astype(np.int32))]
+        elif kind == "fifo":
+            q = DeviceQueue(64, **kw)
+        else:
+            q = DeviceStack(64, slot_depth=4, **kw)
+        args = [x.to(dev) for x in (E, V, *extra, P)]
+        st, *o1 = q.run_waves(q.init_state(), *args)
+        st, *o2 = q.run_waves(st, *args)            # the ring wraps
+        runs.append(([x.cpu() for x in o1 + o2], q.drain_metrics()))
+    for a, b in zip(runs[0][0], runs[1][0]):
+        assert torch.equal(a, b)
+    assert runs[0][1] == runs[1][1]
+    assert [r["seq"] for r in runs[1][1]] == [2, 3, 4, 5, 6, 7]
+
+
+def test_checkpoint_round_trip_on_gpu(cuda, tmp_path):
+    """Save a card queue, restore it at another shard count on the card
+    and on the CPU: the same state and the same next burst."""
+    eq = ElasticDeviceQueue(8, cap=64, payload_width=2, ops_per_shard=16,
+                            device=cuda)
+    E, V, P = _waves(8, 16, 2, 4, seed=13)
+    eq.run_waves(E.to(cuda), V.to(cuda), P.to(cuda))
+    eq.save(tmp_path, 1)
+    runs = []
+    for dev in ("cpu", cuda):
+        r = ElasticDeviceQueue.restore(tmp_path, n_shards=6, device=dev)
+        assert r.device.type == torch.device(dev).type and r.n_shards == 6
+        E2, V2, P2 = _waves(6, 16, 2, 3, seed=14)
+        out = r.run_waves(E2.to(dev), V2.to(dev), P2.to(dev))
+        runs.append([x.cpu() for x in out]
+                    + [r.state.store_vals[:, :64].cpu(),
+                       r.state.store_full.cpu(), r.state.first.cpu(),
+                       r.state.last.cpu()])
+    for a, b in zip(*runs):
+        assert torch.equal(a, b)
+
+
+def test_seed_wave_on_gpu_matches_cpu_and_the_fused_wave(cuda):
+    """``DeviceQueue(fused=False)`` at 64 shards: five exchanges a wave,
+    the card's burst equal to the CPU's and to the fused wave's."""
+    E, V, P = _waves(64, 16, 2, 4, seed=15)
+    runs = []
+    for dev, fused in (("cpu", False), (cuda, False), (cuda, True)):
+        q = DeviceQueue(64, cap=64, payload_width=2, ops_per_shard=16,
+                        fused=fused, device=dev)
+        x0 = q.runtime.n_exchanges
+        st, *o = q.run_waves(q.init_state(), E.to(dev), V.to(dev),
+                             P.to(dev))
+        assert q.runtime.n_exchanges - x0 == (5 * 4 if not fused else 5)
+        runs.append([x.cpu() for x in o]
+                    + [st.store_vals[:, :64].cpu(), st.store_full.cpu()])
+    for other in runs[1:]:
+        for a, b in zip(runs[0], other):
+            assert torch.equal(a, b)

@@ -576,5 +576,3 @@ def test_seap_queue_defaults_to_cuda(monkeypatch):
         DeviceSeapQueue(4)
     with pytest.raises(RuntimeError, match="CUDA"):
         ElasticDeviceSeapQueue(4)
-    with pytest.raises(NotImplementedError, match="item 3"):
-        ElasticDeviceSeapQueue(4, metrics=True, device="cpu")

@@ -225,12 +225,6 @@ def test_resize_four_to_two_shards_like_jax(models):
     assert starts == sorted(starts), "FIFO admission across the resize"
 
 
-@pytest.mark.parametrize("kw", [{"telemetry": True}])
-def test_unported_modes_raise(models, kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(models[3], models[4], 1, device="cpu", **kw)
-
-
 def test_engine_defaults_to_cuda(models):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
