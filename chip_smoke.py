@@ -52,7 +52,18 @@ size:
   FIFO bursts through a shard failure (LEAVE, quarantine, regrow JOIN)
   and a whole-job failure (restart from the latest checkpoint);
 * the five-exchange seed wave (``DeviceQueue(fused=False)``) against the
-  fused wave on the same full-width waves.
+  fused wave on the same full-width waves;
+* ``WorkQueue`` over the FIFO configuration (64 workers, leases of 8
+  steps, bursts of 9 waves) filled above 1,000,000 and drained, its
+  grants, retries and stats against a host model of the lease protocol;
+  the elastic FIFO queue on a ``SimRuntime`` with a scheduled shard
+  failure under ``run_with_restarts`` (LEAVE, regrow JOIN), its modelled
+  wire time against the formula over the counted launches and bytes;
+  and the FIFO and LIFO configurations in two processes sharing the card
+  (``launch_localhost``, a ``DistributedRuntime`` of 32 shards each, gloo
+  on CUDA tensors) through a LEAVE and a JOIN that interleave the
+  processes' shards, each process checking every burst against the host
+  model (this script re-run with ``--dist-child``).
 
 Each is checked against a host model written here (order, ⊥ counts,
 overflow, migration counts, the exchange budget, the kernels' launch
@@ -2838,10 +2849,465 @@ def phase_seed_wave(torch, rng, results):
     emit("path:seed_wave", **rec)
 
 
+# ------------------------------------------------ WorkQueue and runtimes ---
+class LeaseModel:
+    """Host model of the lease protocol over a FIFO deque of ids: retries
+    ahead of submissions, the first ``sum(wants)`` dequeues of a wave
+    served in order (a dequeue finds the wave's own enqueues), a lease
+    expiring ``lease_steps`` steps after its grant unless acked, seen at
+    wave boundaries for leases held before the burst and at the next
+    burst for leases granted in it, first ack wins."""
+
+    def __init__(self, lease_steps: int):
+        self.lease_steps = lease_steps
+        self.queue = deque()         # arrays of ids, in FIFO order
+        self.size = 0
+        self.leases = {}             # id -> (issued step, worker), in order
+        self.completed = set()
+        self.reissued = self.duplicate_acks = 0
+
+    def expire(self, step: int) -> list:
+        out = [eid for eid, (issued, _) in self.leases.items()
+               if step - issued > self.lease_steps
+               and eid not in self.completed]
+        for eid in out:
+            del self.leases[eid]
+        self.reissued += len(out)
+        return out
+
+    def wave(self, retries, sub_ids, wants, step: int):
+        """Enqueue, serve; returns the (workers, ids) granted."""
+        for block in (np.asarray(retries, np.int64), sub_ids):
+            if block.size:
+                self.queue.append(block)
+                self.size += block.size
+        workers = np.repeat(np.arange(len(wants)), wants)
+        take = min(workers.size, self.size)
+        ids = _take(self.queue, take)
+        self.size -= take
+        for eid, w in zip(ids.tolist(), workers[:take].tolist()):
+            self.leases[eid] = (step, w)
+        return workers[:take], ids
+
+    def ack(self, eid: int) -> bool:
+        if eid in self.completed:
+            self.duplicate_acks += 1
+            return False
+        self.completed.add(eid)
+        self.leases.pop(eid, None)
+        return True
+
+
+def phase_workqueue(torch, rng, results):
+    """``WorkQueue`` over the FIFO configuration, 64 workers, leases of 8
+    steps, bursts of 9 waves: a fill to a backlog above 1,000,000, then a
+    drain.  Each wave's submissions fill the
+    wave beside its dequeues and the model's retries; grants are acked
+    0-3 steps later, 2% never, 5% twice.  Grants, retries and stats
+    against ``LeaseModel``; every id done exactly once.  The drain ends
+    when every lease left is on a completed id: the reference keeps a
+    re-grant's lease after its item's first ack (ROADMAP §3)."""
+    from repro_torch.dqueue import DeviceQueue, WorkQueue
+    from repro_torch.kernels.segscan import queue_scan
+    N, CAP, W, L, K, WORKERS, LEASE = 64, 65_536, 4, 1_024, 9, 64, 8
+    n = N * L
+    dq = DeviceQueue(N, cap=CAP, payload_width=W, ops_per_shard=L,
+                     device="cuda")
+    wq = WorkQueue(dq, lease_steps=LEASE)
+    model = LeaseModel(LEASE)
+    rt = dq.runtime
+    dispatch = dq.run_waves
+    ev = []
+
+    def timed_dispatch(*a):           # CUDA events around the dispatch
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = dispatch(*a)
+        e1.record()
+        ev.append((e0, e1))
+        return out
+    dq.run_waves = timed_dispatch
+    pending = []                      # (due step, id, item), in grant order
+    next_id, backlog_max, waves = 0, 0, 0
+    bursts, wall, dev_ms = [], 0.0, 0.0
+    queue_scan.launches = 0
+    x0 = rt.n_exchanges
+
+    def burst(fill: bool):
+        nonlocal next_id, backlog_max, waves
+        first = wq.step_no + 1
+        submits, wants, model_grants = [], [], []
+        for k in range(K):
+            retries = model.expire(first + k)
+            if fill:
+                want = rng.integers(0, 64, WORKERS)
+                n_sub = n - int(want.sum()) - len(retries)
+            else:
+                want = np.full(WORKERS, (n - len(retries)) // WORKERS)
+                n_sub = 0
+            ids = np.arange(next_id, next_id + n_sub, dtype=np.int64)
+            next_id += n_sub
+            submits.append(_payload(ids))
+            wants.append(want.tolist())
+            model_grants.append(model.wave(retries, ids, want, first + k))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grants = wq.run_waves(submits, wants)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        e0, e1 = ev[-1]
+        d_ms = e0.elapsed_time(e1)
+        for k, (g, (w_model, id_model)) in enumerate(zip(grants,
+                                                         model_grants)):
+            got_w = np.array([w for w, _ in g], np.int64)
+            got = (np.stack([item for _, item in g]) if g
+                   else np.zeros((0, W), np.int32))
+            check(np.array_equal(got_w, w_model)
+                  and np.array_equal(got, _payload(id_model)),
+                  f"wave {first + k}: grants are the lease model's, whole")
+            for (w, item), eid in zip(g, id_model.tolist()):
+                u = rng.random()
+                if u < 0.02:
+                    continue                     # never acked
+                due = first + k + int(rng.integers(0, 4))
+                pending.append((due, eid, item))
+                if u > 0.95:
+                    pending.append((due + 1, eid, item))   # acked twice
+        now = wq.step_no
+        keep = []
+        for due, eid, item in pending:
+            if due <= now:
+                check(wq.ack(item) == model.ack(eid), "ack result")
+            else:
+                keep.append((due, eid, item))
+        pending[:] = keep
+        check(wq.stats["reissued"] == model.reissued
+              and wq.stats["duplicate_acks"] == model.duplicate_acks
+              and wq.outstanding == len(model.leases),
+              "reissued, duplicate acks and leases equal the model's")
+        backlog_max = max(backlog_max, model.size)
+        waves += K
+        bursts.append({"fill": fill, "seconds": dt, "device_ms": d_ms,
+                       "backlog": model.size,
+                       "grants": sum(len(g) for g in grants),
+                       "outstanding": wq.outstanding})
+        return dt, d_ms
+
+    while model.size <= 1_000_000:
+        s, d = burst(True)
+        wall, dev_ms = wall + s, dev_ms + d
+    n_fill = len(bursts)
+    # drain until every lease left is on a completed id: the reference
+    # keeps such a lease (a re-grant of an item whose first holder acked
+    # late) for good, so ``outstanding`` need not reach 0 (ROADMAP §3)
+    while model.size > 0 or pending or any(
+            eid not in model.completed for eid in model.leases):
+        s, d = burst(False)
+        wall, dev_ms = wall + s, dev_ms + d
+        check(len(bursts) < 200, "the drain ends")
+    launches = queue_scan.launches
+    check(launches == waves, "one queue-scan launch a wave")
+    check(rt.n_exchanges - x0 == len(bursts) * (K + 1),
+          "K+1 exchanges a burst")
+    check(wq.completed == set(range(next_id))
+          and wq.stats["items_done"] == next_id,
+          "every id done exactly once")
+    check(list(wq.leases) == list(model.leases)
+          and set(wq.leases) <= wq.completed,
+          "the leases left are the model's, all on completed ids")
+    st = wq.state
+    check(int(st.last) - int(st.first) + 1 == 0, "the queue drained")
+    rec = {"n_shards": N, "cap": CAP, "payload_width": W,
+           "ops_per_shard": L, "K": K, "workers": WORKERS,
+           "lease_steps": LEASE, "ack_delay_steps": [0, 3],
+           "never_acked": 0.02, "acked_twice": 0.05,
+           "backlog_max": backlog_max, "items": next_id,
+           "bursts": len(bursts), "fill_bursts": n_fill, "waves": waves,
+           "waves_per_s": waves / wall,
+           "wall_ms_per_burst": 1e3 * wall / len(bursts),
+           "device_ms_per_burst": dev_ms / len(bursts),
+           "host_ms_per_burst": (1e3 * wall - dev_ms) / len(bursts),
+           "stats": dict(wq.stats), "queue_scan_launches": launches,
+           "outstanding_after_drain": wq.outstanding,
+           "exchanges_per_burst": K + 1, "lease_order": "ok",
+           "burst_log": bursts}
+    results["workqueue"] = rec
+    emit("path:workqueue", **rec)
+
+
+def phase_sim_runtime(torch, rng, results):
+    """``ElasticDeviceQueue`` at the FIFO size on a ``SimRuntime`` (25 µs a
+    launch, 80 µs a MiB) whose schedule fails shard 37 at step 4: 12 steps
+    of 4-wave bursts under ``run_with_restarts`` with
+    ``elastic_queue_policy(regrow_after=2)``, then a drain.  The simulated
+    wire time against the formula over the counted launches and bytes;
+    one LEAVE, one JOIN, the failed id never back; FIFO order."""
+    import shutil
+
+    from repro_torch.dqueue import ElasticDeviceQueue
+    from repro_torch.fault import elastic_queue_policy, run_with_restarts
+    from repro_torch.kernels.segscan import queue_scan
+    from repro_torch.runtime import LatencyModel, SimRuntime
+    N, CAP, W, L, K, STEPS, DEAD = 64, 65_536, 4, 1_024, 4, 12, 37
+    lat = LatencyModel(base_us=25.0, per_mib_us=80.0)
+    sim = SimRuntime(N + 4, lat, fail_at={4: DEAD}, device="cuda")
+    q = ElasticDeviceQueue(N, cap=CAP, payload_width=W, ops_per_shard=L,
+                           runtime=sim)
+    model = FifoChecker()
+    charged = []                        # the formula's terms, in order
+    n_mig = 0
+    wall = {"seconds": 0.0, "waves": 0}
+
+    def note_migrations():
+        nonlocal n_mig
+        for m in q.migrations[n_mig:]:
+            charged.append(lat.latency_s("all_to_all", m["bytes_moved"]))
+            charged.append(2 * lat.latency_s("all_reduce", 4))
+        n_mig = len(q.migrations)
+
+    def run_burst(p_enq):
+        note_migrations()
+        nL = q.n_shards * L
+        staged = model.stage(K, nL, p_enq, rng)
+        x0 = sim.n_exchanges
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = q.run_waves(*(torch.from_numpy(x).cuda() for x in staged))
+        torch.cuda.synchronize()
+        wall["seconds"] += time.perf_counter() - t0
+        wall["waves"] += K
+        check(sim.n_exchanges - x0 == K + 1, "K+1 exchanges a burst")
+        charged.append((K + 1) * lat.latency_s(
+            "all_to_all", SimRuntime.wave_envelope_bytes(q.n_shards, L, W)))
+        model.verify(*staged, *(o.cpu().numpy() for o in out))
+
+    def step_fn(state, step):
+        run_burst(0.6)
+        return state
+
+    queue_scan.launches = 0
+    ckpt = CKPT_DIR / "sim_runtime"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    _, metrics = run_with_restarts(
+        init_state=lambda: {}, step_fn=step_fn, n_steps=STEPS,
+        ckpt_dir=ckpt, ckpt_every=100, injector=sim,
+        elastic=elastic_queue_policy(q, regrow_after=2),
+        log=lambda *a: None)
+    shutil.rmtree(ckpt, ignore_errors=True)
+    backlog = q.size
+    while q.size > 0:
+        run_burst(0.0)
+    note_migrations()
+    launches = queue_scan.launches
+    check(metrics == {"restarts": 0, "steps_replayed": 0, "steps_run": STEPS,
+                      "leaves": 1, "joins": 1}, f"fault accounting {metrics}")
+    check(DEAD in sim.failed_ids and DEAD not in q.device_ids
+          and q.n_shards == N, "the failed shard never comes back")
+    check(model.pending == 0 and model.size == 0, "drained in FIFO order")
+    check(launches == wall["waves"], "one queue-scan launch a wave")
+    want = 0.0
+    for term in charged:                # the runtime's order of additions
+        want += term
+    check(abs(sim.sim_time_s - want) <= 1e-12 * want,
+          f"simulated wire time {sim.sim_time_s} == formula {want}")
+    bursts = wall["waves"] // K
+    check(sim.counts == {"all_to_all": bursts * (K + 1) + 2,
+                         "all_reduce": 4}, f"charged launches {sim.counts}")
+    rec = {"n_shards": N, "pool_size": N + 4, "cap": CAP, "K": K,
+           "steps": STEPS, "failed_shard": DEAD, "failed_at_step": 4,
+           "latency": {"base_us": 25.0, "per_mib_us": 80.0},
+           "metrics": metrics, "backlog_after_steps": backlog,
+           "bursts": bursts, "waves": wall["waves"],
+           "waves_per_s": wall["waves"] / wall["seconds"],
+           "sim_time_s": sim.sim_time_s, "formula_s": want,
+           "sim_over_wall": sim.sim_time_s / wall["seconds"],
+           "collectives": dict(sim.counts),
+           "bytes_by_kind": dict(sim.bytes_by_kind),
+           "migrations": [{k: m[k] for k in ("kind", "P_from", "P_to",
+                                              "moved", "bytes_moved",
+                                              "wave_s", "sim_s")}
+                          for m in q.migrations],
+           "device_ids_after": q.device_ids[-4:],
+           "queue_scan_launches": launches, "fifo_order": "ok"}
+    results["sim_runtime"] = rec
+    emit("path:sim_runtime", **rec)
+
+
+DIST_SHRINK = list(range(8, 24))     # leaves process 0 with 16, 1 with 32
+
+
+def dist_child(kind: str, seed: int) -> int:
+    """One process of ``path:distributed_<kind>`` (started by
+    ``phase_distributed`` through ``launch_localhost``): 32 of the 64
+    shards on the card, the same waves as its sibling from the same seed,
+    every burst's outputs gathered and checked against the host model.
+    Prints one ``DIST_RESULT`` JSON line."""
+    import hashlib
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.dqueue import ElasticDeviceQueue, ElasticDeviceStack
+    from repro_torch.kernels.segscan import queue_scan, stack_scan
+    from repro_torch.runtime import DistributedRuntime
+    rt = DistributedRuntime.from_env(device="cuda")
+    rng = np.random.default_rng(seed)
+    W, L, K = 4, 1_024, 8
+    if kind == "fifo":
+        N, CAP = 64, 65_536
+        q = ElasticDeviceQueue(N, cap=CAP, payload_width=W, ops_per_shard=L,
+                               runtime=rt)
+        model, counter = FifoChecker(), queue_scan
+        fill, size = 0.65, (lambda: model.size)
+    else:
+        N, CAP = 64, 32_768
+        q = ElasticDeviceStack(N, cap=CAP, slot_depth=4, payload_width=W,
+                               ops_per_shard=L, runtime=rt)
+        model, counter = LifoChecker(max_depth=4_000_000), stack_scan
+        fill, size = 0.65, (lambda: model.depth)
+    wire = {"calls": 0, "seconds": 0.0, "bytes": 0, "tensors": set()}
+    exchange = rt.exchange
+
+    def timed_exchange(buf, src=None, dst=None):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = exchange(buf, src, dst)
+        torch.cuda.synchronize()
+        wire["seconds"] += time.perf_counter() - t0
+        wire["calls"] += 1
+        wire["bytes"] += buf.numel() * buf.element_size()
+        wire["tensors"].add(buf.device.type)
+        return out
+    rt.exchange = timed_exchange
+    digest = hashlib.sha256()
+    timing = {"waves": 0, "seconds": 0.0, "wire": 0.0}
+    migrations, bursts = [], []
+    counter.launches = 0
+    lifo = kind == "lifo"
+
+    def burst(p):
+        nL = q.n_shards * L
+        staged = model.stage(K, nL, p, rng)
+        x0, g0, s0 = rt.n_exchanges, rt.n_gathers, counter.launches
+        w0 = wire["seconds"]
+        rt.sync()
+        t0 = time.perf_counter()
+        out = q.run_waves(*staged)
+        rt.sync()
+        dt = time.perf_counter() - t0
+        timing["wire"] += wire["seconds"] - w0
+        check(rt.n_exchanges - x0 == K + 1, "K+1 exchanges a burst")
+        check(rt.n_gathers - g0 == K + lifo,
+              "one op-bit gather a wave (and the stack's overflow flag)")
+        check(counter.launches - s0 == K, "one scan launch a wave")
+        host = [rt.to_host(o, q.shards, lead=1) for o in out[:4]]
+        host.append(rt.host_reduce(out[4], "any"))
+        rec = model.verify(*staged, *host)
+        for h in host:
+            digest.update(np.ascontiguousarray(h).tobytes())
+        timing["waves"] += K
+        timing["seconds"] += dt
+        bursts.append({"n_shards": q.n_shards, "seconds": dt, **rec})
+        check(q.size == size(), "size matches the host model")
+
+    def migrate(fn, arg):
+        x0, g0, before = rt.n_exchanges, rt.n_gathers, q.size
+        st = fn(arg)
+        check(st["moved"] == before == q.size, "moved == size")
+        check(rt.n_exchanges - x0 == 1 and rt.n_gathers - g0 == 1,
+              "one exchange and one count gather a migration")
+        migrations.append({k: st[k] for k in ("kind", "P_from", "P_to",
+                                              "moved", "bytes_moved",
+                                              "wave_s", "total_s")})
+
+    while q.size < 1_000_000:
+        burst(fill)
+    backlog = q.size
+    migrate(q.shrink, DIST_SHRINK)                        # LEAVE 16
+    burst(0.5)
+    migrate(q.grow, len(DIST_SHRINK))                     # JOIN 16
+    ids = [s.id for s in q.shards]
+    check(ids == [i for i in range(N) if i not in DIST_SHRINK] + DIST_SHRINK,
+          "the JOIN appends the regrown shards: the processes interleave")
+    n_bottom = 0
+    while q.size > 0 or (lifo and n_bottom == 0):
+        burst(0.0)
+        n_bottom += bursts[-1]["bottom"]
+    check(model.size == 0 if not lifo else model.depth == 0, "drained")
+    rec = {"rank": rt.rank, "kind": kind, "n_shards": N, "cap": CAP,
+           "payload_width": W, "ops_per_shard": L, "K": K,
+           "shards_per_process": rt.shards_per_process,
+           "local_shards_after_join": len(rt.local_shards(q.shards)),
+           "active_order_after_join": ids, "backlog_max": backlog,
+           "bursts": len(bursts), "waves": timing["waves"],
+           "waves_per_s": timing["waves"] / timing["seconds"],
+           "exchange_calls": wire["calls"],
+           "exchange_ms_total": 1e3 * wire["seconds"],
+           "exchange_ms_per_call": 1e3 * wire["seconds"] / wire["calls"],
+           "exchange_send_bytes_per_call": wire["bytes"] / wire["calls"],
+           "exchange_share_of_bursts": timing["wire"] / timing["seconds"],
+           "gathers": rt.n_gathers, "scan_launches": counter.launches,
+           "backend": dist.get_backend(),
+           "wire_tensors": sorted(wire["tensors"]),
+           "max_memory_allocated": torch.cuda.max_memory_allocated(),
+           "migrations": migrations, "digest": digest.hexdigest(),
+           "burst_log": bursts}
+    rt.close()
+    print("DIST_RESULT " + json.dumps(rec), flush=True)
+    return 0
+
+
+def phase_distributed(torch, kind: str, seed: int, results):
+    """Two processes on the card through ``launch_localhost``, 32 of 64
+    shards each, gloo on CUDA tensors: the FIFO (or LIFO) configuration
+    filled above 1,000,000, a 50/50 burst, a LEAVE of shard ids 8-23 and a
+    JOIN of 16 that interleaves the processes' shards, a drain; each
+    process checks every burst against the host model and both print the
+    same digest.  The kernels are built first, so no child runs nvcc."""
+    from repro_torch.kernels import backend
+    from repro_torch.runtime import launch_localhost
+    backend.build()
+    torch.cuda.empty_cache()          # the children share the card
+    t0 = time.perf_counter()
+    res = launch_localhost(script=str(ROOT / "chip_smoke.py"),
+                           args=["--dist-child", kind, "--seed", str(seed)],
+                           n_procs=2, shards_per_process=32, timeout=420)
+    wall = time.perf_counter() - t0
+    recs = [json.loads(next(x for x in r.stdout.splitlines()
+                            if x.startswith("DIST_RESULT "))[12:])
+            for r in res]
+    check(recs[0]["digest"] == recs[1]["digest"],
+          "both processes gathered the same outputs")
+    check(all(r["scan_launches"] == r["waves"] for r in recs),
+          "one scan launch a wave in each process")
+    name = "queue_scan" if kind == "fifo" else "stack_scan"
+    rec = {"processes": 2,
+           "shards_per_process": recs[0]["shards_per_process"],
+           "wall_s": wall,
+           f"{name}_launches_by_process": [r["scan_launches"]
+                                           for r in recs],
+           **{k: recs[0][k] for k in (
+               "n_shards", "cap", "payload_width", "ops_per_shard", "K",
+               "backlog_max", "bursts", "waves", "active_order_after_join",
+               "migrations", "backend", "wire_tensors", "digest")},
+           "per_process": [{k: r[k] for k in (
+               "rank", "local_shards_after_join", "waves_per_s",
+               "exchange_calls", "exchange_ms_total", "exchange_ms_per_call",
+               "exchange_send_bytes_per_call", "exchange_share_of_bursts",
+               "gathers",
+               "max_memory_allocated")} for r in recs],
+           "order": "ok", "burst_log": recs[0]["burst_log"]}
+    results[f"distributed_{kind}"] = rec
+    emit(f"path:distributed_{kind}", **rec)
+
+
 def main() -> int:
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dist-child", choices=("fifo", "lifo"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -2851,6 +3317,8 @@ def main() -> int:
         raise SystemExit(f"chip_smoke: {SRC / 'repro_torch'} not found; run "
                          f"from the root of a checkout of the repository")
     sys.path.insert(0, str(SRC))
+    if args.dist_child:
+        return dist_child(args.dist_child, args.seed)
     CARD = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -2880,6 +3348,10 @@ def main() -> int:
     phase_telemetry(torch, rng, results)
     phase_checkpoint_fault(torch, rng, results)
     phase_seed_wave(torch, rng, results)
+    phase_workqueue(torch, rng, results)
+    phase_sim_runtime(torch, rng, results)
+    phase_distributed(torch, "fifo", args.seed, results)
+    phase_distributed(torch, "lifo", args.seed, results)
     phase_profile(torch, rng, results)
     phase_scan_device_split(torch, rng, results)
     phase_hash_balance(torch, rng, results)
@@ -2913,10 +3385,23 @@ def main() -> int:
             "tiered_queue_scan"],
         "serve_tiers_zamba2": results["serve_tiers_zamba2"]["launches"][
             "tiered_queue_scan"]}
+    # the FIFO and stack kernels' launches on each path that runs them (the
+    # two-process paths: both processes' launches)
+    fifo_paths = {
+        "elastic_fifo": results["elastic_fifo"]["queue_scan_launches"],
+        "workqueue": results["workqueue"]["queue_scan_launches"],
+        "sim_runtime": results["sim_runtime"]["queue_scan_launches"],
+        "distributed_fifo": sum(results["distributed_fifo"][
+            "queue_scan_launches_by_process"])}
+    lifo_paths = {
+        "elastic_lifo": results["elastic_lifo"]["stack_scan_launches"],
+        "distributed_lifo": sum(results["distributed_lifo"][
+            "stack_scan_launches_by_process"])}
     kernels = [
-        scan_row("queue_scan", 65_536, "elastic_fifo",
-                 results["elastic_fifo"]["queue_scan_launches"],
+        scan_row("queue_scan", 65_536, ", ".join(fifo_paths),
+                 sum(fifo_paths.values()),
                  "src/repro/kernels/segscan/kernel.py:244",
+                 launches_by_path=fifo_paths,
                  kernel="queue_scan_lookback, one launch a call",
                  ms_2e24=q24["ms"], device_ms_2e24=q24["device_ms"],
                  bound_ms_2e24=q24["bound_ms"]),
@@ -2930,9 +3415,10 @@ def main() -> int:
          "device_ms": hb["device_ms"], "device_kernels": hb["device_kernels"],
          "plain_ms": hb["plain_ms"], "bound_ms": hb["bound_ms"],
          "bound_by": hb["bound_by"], "library_ms": None},
-        scan_row("stack_scan", 65_536, "elastic_lifo",
-                 results["elastic_lifo"]["stack_scan_launches"],
-                 "src/repro/kernels/segscan/kernel.py:303"),
+        scan_row("stack_scan", 65_536, ", ".join(lifo_paths),
+                 sum(lifo_paths.values()),
+                 "src/repro/kernels/segscan/kernel.py:303",
+                 launches_by_path=lifo_paths),
         scan_row("tiered_queue_scan", 65_536,
                  "elastic_priority, elastic_seap, serve_edf_zamba2, "
                  "serve_tiers_zamba2", sum(tiered.values()),

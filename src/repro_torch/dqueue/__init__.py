@@ -6,7 +6,8 @@ arbitrary keys over one device's shards.
 :class:`SeapDiscipline`) at two exchanges per
 wave (one per wave in pipelined bursts); the elastic wrappers add runtime
 JOIN/LEAVE membership, :class:`QueueOverflowError` on capacity violation,
-and the pressure API.
+and the pressure API.  :class:`WorkQueue` is the paper's lease-based work
+stealing over a :class:`DeviceQueue`.
 """
 from .device_queue import (DeviceQueue, DeviceQueueState, DeviceStack,
                            DeviceStackState, FifoDiscipline, LifoDiscipline)
@@ -18,6 +19,7 @@ from .seap_queue import (DeviceSeapQueue, ElasticDeviceSeapQueue,
                          SeapDiscipline, SeapQueueState,
                          default_split_occupancy)
 from .wave_engine import Discipline, WaveEngine, post_enqueue_peak_overflow
+from .work_queue import WorkQueue
 
 __all__ = ["DevicePriorityQueue", "DeviceQueue", "DeviceQueueState",
            "DeviceSeapQueue", "DeviceStack", "DeviceStackState",
@@ -25,5 +27,5 @@ __all__ = ["DevicePriorityQueue", "DeviceQueue", "DeviceQueueState",
            "ElasticDeviceSeapQueue", "ElasticDeviceStack", "FifoDiscipline",
            "LifoDiscipline", "PriorityDiscipline", "PriorityQueueState",
            "QueueOverflowError", "SeapDiscipline", "SeapQueueState",
-           "ServeInvariantError", "WaveEngine", "default_split_occupancy",
-           "post_enqueue_peak_overflow"]
+           "ServeInvariantError", "WaveEngine", "WorkQueue",
+           "default_split_occupancy", "post_enqueue_peak_overflow"]

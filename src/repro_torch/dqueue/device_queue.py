@@ -14,6 +14,19 @@ keeps a set of ``D`` (ticket, payload) entries, ticket -1 meaning empty:
 positions and tickets come from the max-plus stack-scan kernel, and a pop
 takes the largest ticket at its slot that is not above its bound, which
 makes concurrent pops conflict-free.
+
+On a multi-process runtime (:class:`~repro_torch.runtime.
+DistributedRuntime`) a process holds its own shards' store rows and
+passes its own shards' ops; each wave first gathers every shard's op
+bits (one ``runtime.gather`` of ``n_shards·L`` bytes), then every process
+runs the one scan launch over the whole wave and keeps its shards' slice
+of the positions.  The new interval carry is replicated, since every
+process computes it.  For the stack this is the reference's own pattern
+(``repro/dqueue/device_queue.py:358-369``); for the queue it gives the
+positions of the reference's hypercube ``sharded_queue_scan``
+(``core/scan_queue.py:459``) by construction.  A per-process carry could
+not serve: once a LEAVE and a JOIN interleave the active order, a
+process's shards are not contiguous in the wave's global op order.
 """
 from __future__ import annotations
 
@@ -22,7 +35,7 @@ from typing import NamedTuple
 import torch
 
 from ..kernels.segscan import queue_scan, stack_scan
-from ..runtime import LocalRuntime
+from ..runtime import LocalRuntime, Runtime
 from .wave_engine import (TAG_GET, TAG_INACTIVE, TAG_PUT, Discipline,
                           Dispatch, WaveEngine, post_enqueue_peak_overflow,
                           ring_commit)
@@ -68,14 +81,16 @@ class FifoDiscipline(Discipline):
         return DeviceQueueState(carry[0], carry[1], store[0], store[1])
 
     def dispatch(self, carry, ops) -> Dispatch:
-        """Stages 1-3: one segscan over the flat wave, then owners and
-        slots as ``[n_shards, L]`` rows."""
-        is_enq, valid, payload = ops
+        """Stages 1-3: one segscan over the whole flat wave (its op bits
+        gathered on a multi-process runtime), then owners and slots as
+        this process's ``[n_local, L]`` rows."""
+        is_enq_l, valid_l, payload = ops
         n = self.n_shards
+        is_enq, valid = self.gather_ops(is_enq_l, valid_l)
         pos, matched, new_first, new_last = queue_scan(
             is_enq, valid, carry[0], carry[1])
-        p2, m2 = pos.reshape(n, -1), matched.reshape(n, -1)
-        e2 = is_enq.reshape(n, -1)
+        p2, m2 = self.local(pos), self.local(matched)
+        e2 = is_enq_l.view(p2.shape)
         owner = torch.where(m2, torch.remainder(p2, n), -1).to(torch.int32)
         slot = torch.where(
             m2, torch.remainder(torch.div(p2, n, rounding_mode="floor"),
@@ -85,8 +100,9 @@ class FifoDiscipline(Discipline):
         ovf = post_enqueue_peak_overflow(carry[0], new_last,
                                          n * self.cap)
         return Dispatch(owner, slot, tag.to(torch.int32), (),
-                        payload.reshape(n, -1, self.W), m2, m2 & ~e2,
-                        (pos, matched), (new_first, new_last), ovf, ())
+                        payload.reshape(*p2.shape, self.W), m2, m2 & ~e2,
+                        (p2.reshape(-1), m2.reshape(-1)),
+                        (new_first, new_last), ovf, ())
 
     def commit(self, store, recv):
         """Stage 4: apply each shard's routed requests to its store."""
@@ -102,16 +118,31 @@ class FifoDiscipline(Discipline):
         return (carry[1] - carry[0] + 1).reshape(1)
 
 
-def _make_runtime(n_shards: int, runtime, device):
-    """The runtime of a fixed-size structure; raises for the runtimes the
-    port does not have yet."""
+ROADMAP_MULTI_PROCESS = "ROADMAP queue 1, item 8"
+
+
+def check_runtime(runtime, what: str, multi_process: bool = False):
+    """``runtime`` if ``what`` runs on it: any of the port's runtimes, a
+    multi-process one only where ``multi_process`` says so."""
+    if not isinstance(runtime, Runtime):
+        raise NotImplementedError(
+            f"{type(runtime).__name__} is not one of the port's runtimes "
+            "(LocalRuntime, SimRuntime, DistributedRuntime); others wait "
+            f"({ROADMAP_MULTI_PROCESS})")
+    if runtime.multi_process and not multi_process:
+        raise NotImplementedError(
+            f"{what} on a multi-process runtime is not ported yet "
+            f"({ROADMAP_MULTI_PROCESS})")
+    return runtime
+
+
+def _make_runtime(n_shards: int, runtime, device, what: str,
+                  multi_process: bool = False):
+    """The runtime of a fixed-size structure: a LocalRuntime over
+    ``n_shards`` on ``device`` by default."""
     if runtime is None:
         return LocalRuntime(n_shards, device=device)
-    if not isinstance(runtime, LocalRuntime):
-        raise NotImplementedError(
-            "only LocalRuntime is ported; the distributed and simulated "
-            "runtimes wait (ROADMAP queue 1, item 8)")
-    return runtime
+    return check_runtime(runtime, what, multi_process)
 
 
 class DeviceQueue:
@@ -130,8 +161,15 @@ class DeviceQueue:
         ``fused=True``: ``self.pipelined`` reports False for the seed path.
       metrics: write a Wavescope row per wave into a ``metrics_ring``-row
         device ring (``drain_metrics``); needs ``fused=True``.
-      runtime: a :class:`~repro_torch.runtime.LocalRuntime`; default one
-        over ``n_shards`` shards on ``device``.
+      runtime: a :class:`~repro_torch.runtime.LocalRuntime`,
+        :class:`~repro_torch.runtime.SimRuntime` or
+        :class:`~repro_torch.runtime.DistributedRuntime`; default a
+        LocalRuntime over ``n_shards`` shards on ``device``.
+      shards: the active shard list (default the runtime's first
+        ``n_shards``).  On a multi-process runtime the state holds this
+        process's shards' rows, and ops and per-op outputs are their
+        ``[n_local * L]`` rows of the wave (``runtime.place`` and
+        ``runtime.to_host`` with the same list convert).
       device: where state and waves live; default CUDA (raises if absent).
     """
 
@@ -139,11 +177,12 @@ class DeviceQueue:
                  payload_width: int = 4, ops_per_shard: int = 64,
                  fused: bool = True, pipelined: bool = True,
                  metrics: bool = False, metrics_ring: int = 64,
-                 runtime=None, device=None):
+                 runtime=None, shards=None, device=None):
         if metrics and not fused:
             raise ValueError("Wavescope metrics need the fused engine path "
                              "(fused=True)")
-        runtime = _make_runtime(n_shards, runtime, device)
+        runtime = _make_runtime(n_shards, runtime, device, "DeviceQueue",
+                                multi_process=True)
         self.runtime = runtime
         self.device = runtime.device
         self.n_shards = n_shards
@@ -154,14 +193,17 @@ class DeviceQueue:
         self.pipelined = pipelined and fused  # the seed path is sequential
         self.metrics = bool(metrics)
         self.disc = FifoDiscipline(n_shards, cap, payload_width)
-        self.engine = (WaveEngine(n_shards, self.disc, runtime,
-                                  pipelined=pipelined, metrics=metrics,
-                                  metrics_ring=metrics_ring)
-                       if fused else None)
+        self.engine = WaveEngine(n_shards, self.disc, runtime, shards=shards,
+                                 pipelined=pipelined, metrics=metrics,
+                                 metrics_ring=metrics_ring)
+        self.shards, self.n_local = self.engine.shards, self.engine.n_local
+        if not fused:      # the seed wave keeps the discipline, not the engine
+            self.engine = None
 
     def init_state(self) -> DeviceQueueState:
-        """An empty queue on this structure's device."""
-        n, cap, W, dev = self.n_shards, self.cap, self.W, self.device
+        """An empty queue on this structure's device (this process's
+        shards' store rows)."""
+        n, cap, W, dev = self.n_local, self.cap, self.W, self.device
         return DeviceQueueState(
             first=torch.tensor(0, dtype=torch.int32, device=dev),
             last=torch.tensor(-1, dtype=torch.int32, device=dev),
@@ -175,8 +217,9 @@ class DeviceQueue:
         """Process one global batch; the store of ``state`` is updated in
         place.
 
-        is_enq/valid: [n_shards * L] bool; payload: [n_shards * L, W] int32.
-        Returns (new_state, positions, matched, deq_vals, deq_ok, overflow).
+        is_enq/valid: [n_local * L] bool; payload: [n_local * L, W] int32
+        (``n_local == n_shards`` on one process).  Returns (new_state,
+        positions, matched, deq_vals, deq_ok, overflow).
         """
         if self.engine is None:
             st, outs = self._legacy_wave(state, (is_enq, valid, payload))
@@ -216,19 +259,20 @@ class DeviceQueue:
         slots and PUT payloads, commit the PUTs; GET slots, read and
         remove; reply values and reply flags.  Returns (state, outs)."""
         rt, n, cap, W = self.runtime, self.n_shards, self.cap, self.W
+        n_loc, sh = self.n_local, self.shards
         carry, (sv, sf) = self.disc.split(state)
         d = self.disc.dispatch(carry, ops)
         dev = sv.device
         svf, sff = sv.view(-1, W), sf.view(-1)
-        base = (torch.arange(n, device=dev) * (cap + 1)).view(n, 1, 1)
+        base = (torch.arange(n_loc, device=dev) * (cap + 1)).view(n_loc, 1, 1)
         dst = torch.arange(n, dtype=torch.int32, device=dev)
         to_dst = d.owner[:, None, :] == dst[None, :, None]   # [src, dst, L]
 
         # ---- stage 4a: PUT dispatch (enqueues) ----
         put = to_dst & (d.tag == TAG_PUT)[:, None, :]
-        r_slot = rt.exchange(torch.where(put, d.slot[:, None, :], cap))
+        r_slot = rt.exchange(torch.where(put, d.slot[:, None, :], cap), sh)
         r_vals = rt.exchange(torch.where(put[..., None],
-                                         d.payload[:, None], 0))
+                                         d.payload[:, None], 0), sh)
         flat = (base + r_slot).reshape(-1)
         svf[flat] = r_vals.reshape(-1, W)            # the junk row eats
         sff.index_fill_(0, flat, True)
@@ -236,15 +280,15 @@ class DeviceQueue:
 
         # ---- stage 4b: GET dispatch (dequeues) ----
         get = to_dst & d.wants_reply[:, None, :]
-        g_slot = rt.exchange(torch.where(get, d.slot[:, None, :], cap))
+        g_slot = rt.exchange(torch.where(get, d.slot[:, None, :], cap), sh)
         g_flat = base + g_slot                       # [dst, src, L]
         res_vals = svf[g_flat]
         res_ok = sff[g_flat] & (g_slot < cap)
         sff.index_fill_(0, g_flat.reshape(-1), False)  # remove on read
         sf[:, cap] = False
-        back_vals = rt.exchange(res_vals)            # [src, dst, L, W]
-        back_ok = rt.exchange(res_ok)
-        s = torch.arange(n, device=dev)[:, None]
+        back_vals = rt.exchange(res_vals, sh)        # [src, dst, L, W]
+        back_ok = rt.exchange(res_ok, sh)
+        s = torch.arange(n_loc, device=dev)[:, None]
         j = torch.arange(d.owner.shape[1], device=dev)[None, :]
         own = d.owner.clamp(0, n - 1).long()
         deq_vals = torch.where(d.wants_reply[..., None], back_vals[s, own, j],
@@ -276,6 +320,7 @@ class LifoDiscipline(Discipline):
     n_ops = 3           # (is_push, valid, payload)
     n_disp_outs = 2     # (pos, matched)
     extra_fill = (-1,)  # the ticket/bound request column
+    local_overflow = True  # a slot's depth runs out at commit, per shard
 
     TAG_PUSH = TAG_PUT
     TAG_POP = TAG_GET
@@ -297,14 +342,16 @@ class LifoDiscipline(Discipline):
         return DeviceStackState(carry[0], carry[1], store[0], store[1])
 
     def dispatch(self, carry, ops) -> Dispatch:
-        """Stages 1-3: one stack-scan launch over the flat wave, then
-        owners, slots and the ticket/bound column as ``[n_shards, L]``."""
-        is_push, valid, payload = ops
+        """Stages 1-3: one stack-scan launch over the whole flat wave (its
+        op bits gathered on a multi-process runtime), then owners, slots
+        and the ticket/bound column as this process's ``[n_local, L]``."""
+        is_push_l, valid_l, payload = ops
         n, cap = self.n_shards, self.cap
+        is_push, valid = self.gather_ops(is_push_l, valid_l)
         pos, tick, matched, new_last, new_ticket = stack_scan(
             is_push, valid, carry[0], carry[1])
-        p2, m2 = pos.reshape(n, -1), matched.reshape(n, -1)
-        e2 = is_push.reshape(n, -1)
+        p2, m2 = self.local(pos), self.local(matched)
+        e2 = is_push_l.view(p2.shape)
         owner = torch.where(m2, torch.remainder(p2, n), -1).to(torch.int32)
         slot = torch.where(
             m2, torch.remainder(torch.div(p2, n, rounding_mode="floor"),
@@ -312,10 +359,10 @@ class LifoDiscipline(Discipline):
         tag = torch.where(m2 & e2, self.TAG_PUSH,
                           torch.where(m2 & ~e2, self.TAG_POP, TAG_INACTIVE))
         # capacity is a commit-time check (a slot's D entries run out)
-        return Dispatch(owner, slot, tag.to(torch.int32),
-                        (tick.reshape(n, -1),),
-                        payload.reshape(n, -1, self.W), m2, m2 & ~e2,
-                        (pos, matched), (new_last, new_ticket),
+        return Dispatch(owner, slot, tag.to(torch.int32), (self.local(tick),),
+                        payload.reshape(*p2.shape, self.W), m2, m2 & ~e2,
+                        (p2.reshape(-1), m2.reshape(-1)),
+                        (new_last, new_ticket),
                         torch.zeros((), dtype=torch.bool, device=pos.device),
                         ())
 
@@ -330,7 +377,7 @@ class LifoDiscipline(Discipline):
         (ticket -1, payload 0), so duplicate indices, which only the junk
         slot receives, all write the same thing.  Returns (store, reply
         ``[n_dst, n_src, L, 1+W]`` ``ok ‖ value``, slot overflow: 0-d bool,
-        one ``.any()`` over all shards, no host read).
+        one ``.any()`` over this process's shards, no host read).
         """
         cap, W, D = self.cap, self.W, self.D
         sv, stk = store
@@ -416,8 +463,10 @@ class DeviceStack:
     Args:
       n_shards, cap, payload_width, ops_per_shard: as :class:`DeviceQueue`.
       slot_depth: D, the (ticket, payload) entries per store slot.
-      pipelined, metrics, metrics_ring, runtime, device: as
-        :class:`DeviceQueue`.
+      pipelined, metrics, metrics_ring, runtime, shards, device: as
+        :class:`DeviceQueue`.  On a multi-process runtime the overflow
+        output is this process's shards' (``runtime.host_reduce`` or-s
+        it over the processes).
     """
 
     TAG_PUSH = LifoDiscipline.TAG_PUSH
@@ -427,8 +476,9 @@ class DeviceStack:
                  payload_width: int = 4, ops_per_shard: int = 64,
                  slot_depth: int = 4, pipelined: bool = True,
                  metrics: bool = False, metrics_ring: int = 64,
-                 runtime=None, device=None):
-        self.runtime = _make_runtime(n_shards, runtime, device)
+                 runtime=None, shards=None, device=None):
+        self.runtime = _make_runtime(n_shards, runtime, device, "DeviceStack",
+                                     multi_process=True)
         self.device = self.runtime.device
         self.n_shards = n_shards
         self.cap = cap
@@ -440,13 +490,15 @@ class DeviceStack:
         self.engine = WaveEngine(
             n_shards, LifoDiscipline(n_shards, cap, payload_width,
                                      slot_depth),
-            self.runtime, pipelined=pipelined, metrics=metrics,
+            self.runtime, shards=shards, pipelined=pipelined, metrics=metrics,
             metrics_ring=metrics_ring)
         self.disc = self.engine.disc
+        self.shards, self.n_local = self.engine.shards, self.engine.n_local
 
     def init_state(self) -> DeviceStackState:
-        """An empty stack on this structure's device."""
-        n, cap, W, D, dev = self.n_shards, self.cap, self.W, self.D, \
+        """An empty stack on this structure's device (this process's
+        shards' store rows)."""
+        n, cap, W, D, dev = self.n_local, self.cap, self.W, self.D, \
             self.device
         return DeviceStackState(
             last=torch.tensor(0, dtype=torch.int32, device=dev),

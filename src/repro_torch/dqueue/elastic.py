@@ -31,6 +31,16 @@ exchange.
 ``save``/``restore`` write and read the reference's checkpoint format
 (the layout in the manifest); a restore at another shard count is a
 restore at the saved count plus one migration wave.
+
+On a multi-process runtime (the queue and the stack) every process holds
+its own shards' store rows and passes the same global host ops, of which
+it places its own shards' rows.  The migration goes from the old shard
+list to the new one: each process packs its old shards' live elements,
+the one exchange delivers them to the processes that hold the new
+shards, and the moved count and lost flag are summed over the processes
+at the host read.  ``first``/``last`` are replicated.  The priority and
+Seap wrappers and ``save``/``restore`` stay on one process (ROADMAP
+queue 1, item 8).
 """
 from __future__ import annotations
 
@@ -45,9 +55,9 @@ import torch
 from ..kernels.hash_route import hash_route
 from ..obs.recorder import FlightRecorder
 from ..obs.trace import span
-from ..runtime import LocalRuntime
+from ..runtime import LocalRuntime, select_devices
 from .device_queue import (DeviceQueue, DeviceQueueState, DeviceStack,
-                           DeviceStackState)
+                           DeviceStackState, check_runtime)
 from .errors import QueueOverflowError
 from .wave_engine import (bucket_ladder, fanout_bound, migrate_packed,
                           pick_bucket_width, recover_positions,
@@ -62,6 +72,7 @@ class _ElasticBase:
     and checkpoint save/restore."""
 
     _kind: str = "queue"
+    _multi_process: bool = False   # runs on a multi-process runtime
 
     def __init__(self, n_shards: int, *, cap: int = 1024,
                  payload_width: int = 4, ops_per_shard: int = 64,
@@ -71,17 +82,13 @@ class _ElasticBase:
                  flight_k: int = 16):
         if runtime is None:
             runtime = LocalRuntime(pool_size or n_shards, device=device)
-        elif not isinstance(runtime, LocalRuntime):
-            raise NotImplementedError(
-                "only LocalRuntime is ported; the distributed and "
-                "simulated runtimes wait (ROADMAP queue 1, item 8)")
-        elif pool_size is not None or device is not None:
-            raise ValueError("pass pool_size=/device= OR runtime=, not both "
-                             "(the runtime owns the shard pool)")
+        else:
+            check_runtime(runtime, type(self).__name__, self._multi_process)
+            if pool_size is not None or device is not None:
+                raise ValueError("pass pool_size=/device= OR runtime=, not "
+                                 "both (the runtime owns the shard pool)")
         self.runtime = runtime
-        if not 1 <= n_shards <= runtime.pool_size:
-            raise ValueError(f"n_shards={n_shards} outside the shard pool "
-                             f"of {runtime.pool_size}")
+        self._active = select_devices(runtime.pool(), n_shards)
         self.device = runtime.device
         self.cap = cap
         self.W = payload_width
@@ -90,7 +97,6 @@ class _ElasticBase:
         self.metrics = bool(metrics)
         self.metrics_ring = int(metrics_ring)
         self.recorder = FlightRecorder(flight_k)
-        self._active = list(runtime.pool()[:n_shards])
         self._inner_cache: dict = {}
         self.inner = self._get_inner(self._active)
         self.state = self.inner.init_state()
@@ -102,7 +108,7 @@ class _ElasticBase:
         numbers restart on a new set, as there)."""
         key = tuple(d.id for d in shards)
         if key not in self._inner_cache:
-            self._inner_cache[key] = self._make_inner(len(shards))
+            self._inner_cache[key] = self._make_inner(list(shards))
         return self._inner_cache[key]
 
     # ---------------------------------------------------------- overflow ---
@@ -136,9 +142,11 @@ class _ElasticBase:
         """Drain telemetry, then host-raise the wave's overflow flag (a 0-d
         or [K] bool tensor) as a :class:`~.errors.QueueOverflowError`
         carrying the flight recorder's trajectory.  Runs once per step or
-        burst, so the recorder sees every wave."""
+        burst, so the recorder sees every wave.  A flag each process sets
+        for its own shards (the stack's) is or-ed over the processes."""
         self._drain_telemetry()
-        o = self.runtime.to_host(ovf)
+        o = (self.runtime.host_reduce(ovf, "any")
+             if self.inner.disc.local_overflow else self.runtime.to_host(ovf))
         if not bool(o.any()):
             return
         wave = int(np.flatnonzero(o)[0]) if o.ndim >= 1 else None
@@ -194,15 +202,16 @@ class _ElasticBase:
         return span(f"{self._kind}:burst", cat="wave", K=int(K),
                     n_shards=self.n_shards)
 
-    def _place(self, x):
-        return self.runtime.place(x)
+    def _place(self, x, lead: int = 0):
+        return self.runtime.place(x, self._active, lead)
 
     def _drive(self, fn, multi: bool, ops) -> tuple:
         """Run the inner structure's ``step`` or ``run_waves`` (``fn``) on
-        the placed ``ops``, keep the new state, and raise the wave's
+        the placed ``ops`` (this process's shards' rows on a
+        multi-process runtime), keep the new state, and raise the wave's
         overflow flag as :class:`~.errors.QueueOverflowError`.  Returns
         the outputs after the state."""
-        ops = [self._place(x) for x in ops]
+        ops = [self._place(x, int(multi)) for x in ops]
         with self._burst_span(ops[0].shape[0] if multi else 1):
             self.state, *out = fn(self.state, *ops)
         self._check_overflow(out[self.inner.disc.n_disp_outs + 2])
@@ -218,6 +227,12 @@ class _ElasticBase:
     def pool_size(self) -> int:
         """Live shards available to this queue (active + spare)."""
         return self.runtime.pool_size
+
+    @property
+    def shards(self) -> list:
+        """The active shard list, in shard-index order (what
+        ``runtime.place`` and ``runtime.to_host`` take)."""
+        return list(self._active)
 
     @property
     def device_ids(self) -> list:
@@ -293,30 +308,21 @@ class _ElasticBase:
         t_total = time.perf_counter()
         a, b, X, Y = self._unpack(self.state)
         self.state = None                 # let the old store go early
-        if P_new > P_old:
-            # grow: pad empty shards, route over the NEW shard set
-            fx, fy = self._pad_fill
-            pad = P_new - P_old
-            X = torch.cat([X, torch.full((pad,) + X.shape[1:], fx,
-                                         dtype=X.dtype, device=X.device)])
-            Y = torch.cat([Y, torch.full((pad,) + Y.shape[1:], fy,
-                                         dtype=Y.dtype, device=Y.device)])
+        old, new = self._active, list(new_active)
         n_ex = rt.n_exchanges
         rt.sync()
         t_wave = time.perf_counter()
-        X, Y, moved, lost = self._migrate(a, b, X, Y, P_old, P_new)
+        X, Y, moved, lost = self._migrate(a, b, X, Y, old, new)
         rt.sync()
         t_wave = time.perf_counter() - t_wave
-        if bool(rt.to_host(lost)):
+        n_moved, n_lost = (int(v) for v in rt.host_reduce(
+            torch.stack([moved.to(torch.int64), lost.to(torch.int64)])))
+        if n_lost:
             raise RuntimeError("migration fanout overflow — internal bound "
                                "violated, elements would have been dropped")
-        if P_new < P_old:
-            # drop the emptied rows
-            X, Y = X[:P_new].contiguous(), Y[:P_new].contiguous()
         self.state = self._pack(a, b, X, Y)
-        self._active = list(new_active)
+        self._active = new
         self.inner = self._get_inner(self._active)
-        n_moved = int(rt.to_host(moved))
         stats = {
             "kind": kind, "P_from": P_old, "P_to": P_new,
             "moved": n_moved,
@@ -366,6 +372,7 @@ class _ElasticBase:
         """Checkpoint the state in the reference's format (the layout in
         the manifest's ``meta``).  Returns the committed directory."""
         from ..checkpoint import save_checkpoint
+        check_runtime(self.runtime, f"{type(self).__name__}.save")
         with span("checkpoint:save", cat="checkpoint", kind=self._kind,
                   step=step):
             return save_checkpoint(ckpt_dir, step, self._state_dict(),
@@ -385,6 +392,8 @@ class _ElasticBase:
         ones.  ``step`` defaults to the latest committed one.
         """
         from ..checkpoint import latest_step, restore_sharded
+        if runtime is not None:
+            check_runtime(runtime, f"{cls.__name__}.restore")
         if step is None:
             step = latest_step(ckpt_dir)
             if step is None:
@@ -410,13 +419,22 @@ class _ElasticBase:
         return inst
 
     # ------------------------------------------------- subclass contract ---
-    _pad_fill: tuple
-
-    def _make_inner(self, n: int):
+    def _make_inner(self, shards: list):
         raise NotImplementedError
 
-    def _migrate(self, a, b, X, Y, P_old: int, P_new: int):
+    def _migrate(self, a, b, X, Y, old: list, new: list):
+        """Move the store from the shard list ``old`` to ``new`` with ONE
+        exchange; X/Y hold this process's old shards' rows.  Returns (X,
+        Y, moved, lost) for this process's new shards."""
         raise NotImplementedError
+
+    def _old_rows(self, old: list) -> torch.Tensor:
+        """``[n_old_local, 1]`` int32: each local store row's index in
+        ``old`` (the shard a recovered position lives on)."""
+        rt = self.runtime
+        idx = (rt.local_rows(old) if rt.multi_process
+               else torch.arange(len(old), device=self.device))
+        return idx.to(torch.int32)[:, None]
 
     def _unpack(self, state):
         raise NotImplementedError
@@ -460,8 +478,13 @@ class ElasticDeviceQueue(_ElasticBase):
       n_shards: initial active shards.
       cap, payload_width, ops_per_shard: as :class:`DeviceQueue`.
       pool_size: shards available for JOIN (default ``n_shards``).
-      runtime: a :class:`~repro_torch.runtime.LocalRuntime` owning the
-        pool and device (exclusive with ``pool_size``/``device``).
+      runtime: a :class:`~repro_torch.runtime.LocalRuntime`,
+        :class:`~repro_torch.runtime.SimRuntime` or
+        :class:`~repro_torch.runtime.DistributedRuntime` owning the pool
+        and device (exclusive with ``pool_size``/``device``).  On a
+        multi-process runtime every process passes the same global ops,
+        and per-op outputs are its own shards' rows
+        (``runtime.to_host(x, eq.shards, lead)`` gathers them).
       device: default CUDA; raises where there is none.
       fused: False runs the five-exchange seed wave (sequential bursts).
       metrics, metrics_ring: a Wavescope row per wave (fused waves only),
@@ -470,7 +493,7 @@ class ElasticDeviceQueue(_ElasticBase):
     """
 
     _kind = "queue"
-    _pad_fill = (0, False)
+    _multi_process = True
 
     def __init__(self, n_shards: int, *, cap: int = 1024,
                  payload_width: int = 4, ops_per_shard: int = 64,
@@ -485,13 +508,13 @@ class ElasticDeviceQueue(_ElasticBase):
                          pipelined=pipelined, metrics=metrics,
                          metrics_ring=metrics_ring, flight_k=flight_k)
 
-    def _make_inner(self, n: int):
-        return DeviceQueue(n, cap=self.cap, payload_width=self.W,
+    def _make_inner(self, shards: list):
+        return DeviceQueue(len(shards), cap=self.cap, payload_width=self.W,
                            ops_per_shard=self.L, fused=self.fused,
                            pipelined=self.pipelined,
                            metrics=self.metrics and self.fused,
                            metrics_ring=self.metrics_ring,
-                           runtime=self.runtime)
+                           runtime=self.runtime, shards=shards)
 
     # ------------------------------------------------------------ waves ----
     def step(self, is_enq, valid, payload):
@@ -528,15 +551,15 @@ class ElasticDeviceQueue(_ElasticBase):
     def _entry_bytes(self) -> int:
         return 4 * (1 + self.W)  # slot ‖ payload columns
 
-    def _migrate(self, first, last, sv, sf, P_old: int, P_new: int):
-        """The migration body over ``n_mesh = max(P_old, P_new)`` rows:
-        recover positions, new owner and slot, pack, ONE exchange,
-        rewrite.  Returns (store_vals, store_full, moved, lost)."""
+    def _migrate(self, first, last, sv, sf, old: list, new: list):
+        """The migration body: recover positions, new owner and slot,
+        pack, ONE exchange, rewrite.  Returns (store_vals, store_full,
+        moved, lost)."""
         cap, W = self.cap, self.W
-        n_mesh = sv.shape[0]
+        P_old, P_new = len(old), len(new)
         dev = sv.device
         M = fanout_bound(P_old, P_new, cap)
-        s = torch.arange(n_mesh, dtype=torch.int32, device=dev)[:, None]
+        s = self._old_rows(old)
         t = torch.arange(cap, dtype=torch.int32, device=dev)[None, :]
         p = recover_positions(s, t, first, P_old, cap)
         live = sf[:, :cap] & (p >= first) & (p <= last)
@@ -547,7 +570,7 @@ class ElasticDeviceQueue(_ElasticBase):
         del sv
         fill = torch.zeros(1 + W, dtype=torch.int32, device=dev)
         fill[0] = cap
-        rows, moved, lost = migrate_packed(self.runtime, n_mesh, M, live,
+        rows, moved, lost = migrate_packed(self.runtime, old, new, M, live,
                                            owner, cols, fill)
         del cols
         nsv, nsf = rewrite_ring_store(rows, cap, W)
@@ -571,7 +594,7 @@ class ElasticDeviceStack(_ElasticBase):
     """
 
     _kind = "stack"
-    _pad_fill = (0, -1)  # vals pad 0, tickets pad -1 (= empty)
+    _multi_process = True
     _overflow_detail = ("a store slot's depth-D ticket set was exhausted "
                         "at commit time")
 
@@ -588,12 +611,12 @@ class ElasticDeviceStack(_ElasticBase):
                          pipelined=pipelined, metrics=metrics,
                          metrics_ring=metrics_ring, flight_k=flight_k)
 
-    def _make_inner(self, n: int):
-        return DeviceStack(n, cap=self.cap, payload_width=self.W,
+    def _make_inner(self, shards: list):
+        return DeviceStack(len(shards), cap=self.cap, payload_width=self.W,
                            ops_per_shard=self.L, slot_depth=self.D,
                            pipelined=self.pipelined, metrics=self.metrics,
                            metrics_ring=self.metrics_ring,
-                           runtime=self.runtime)
+                           runtime=self.runtime, shards=shards)
 
     # ------------------------------------------------------------ waves ----
     def step(self, is_push, valid, payload):
@@ -651,15 +674,16 @@ class ElasticDeviceStack(_ElasticBase):
     def _entry_bytes(self) -> int:
         return 4 * (3 + self.W)  # slot ‖ depth ‖ ticket ‖ payload
 
-    def _migrate(self, last, ticket, sv, stk, P_old: int, P_new: int):
+    def _migrate(self, last, ticket, sv, stk, old: list, new: list):
         """Move every live (slot, depth) entry: ``slot ‖ depth ‖ ticket ‖
         payload`` rows, ONE exchange, then a fresh store.  Returns (vals,
         ticks, moved, lost)."""
         cap, W, D = self.cap, self.W, self.D
-        n_mesh = sv.shape[0]
+        P_old, P_new = len(old), len(new)
+        n_mesh = sv.shape[0]              # this process's old shards
         dev = sv.device
         M = min(cap * D, fanout_bound(P_old, P_new, cap) * D)
-        s = torch.arange(n_mesh, dtype=torch.int32, device=dev)[:, None]
+        s = self._old_rows(old)
         t = torch.arange(cap, dtype=torch.int32, device=dev)[None, :]
         p = recover_positions(s, t, 1, P_old, cap)  # positions start at 1
         in_range = (p >= 1) & (p <= last)
@@ -678,17 +702,18 @@ class ElasticDeviceStack(_ElasticBase):
         fill = torch.zeros(3 + W, dtype=torch.int32, device=dev)
         fill[0], fill[2] = cap, -1
         rows, moved, lost = migrate_packed(
-            self.runtime, n_mesh, M, live, owner.repeat_interleave(D, 1),
+            self.runtime, old, new, M, live, owner.repeat_interleave(D, 1),
             cols, fill)
         del cols
         # sentinel rows land on the junk slot, which is then reset
-        shard = torch.arange(n_mesh, device=dev)[:, None]
+        n_new = rows.shape[0]             # this process's new shards
+        shard = torch.arange(n_new, device=dev)[:, None]
         rs, rd = rows[..., 0].long(), rows[..., 1].long()
-        nstk = torch.full((n_mesh, cap + 1, D), -1, dtype=torch.int32,
+        nstk = torch.full((n_new, cap + 1, D), -1, dtype=torch.int32,
                           device=dev)
         nstk[shard, rs, rd] = rows[..., 2]
         nstk[:, cap] = -1
-        nsv = torch.zeros((n_mesh, cap + 1, D, W), dtype=torch.int32,
+        nsv = torch.zeros((n_new, cap + 1, D, W), dtype=torch.int32,
                           device=dev)
         nsv[shard, rs, rd] = rows[..., 3:]
         nsv[:, cap] = 0
@@ -701,8 +726,6 @@ class _MultiWindowElastic(_ElasticBase):
     interval each (priority tiers).  The state exposes ``firsts``/
     ``lasts`` ``[n_windows]`` vectors; one migration recovers every
     window's positions and moves all windows with ONE packed exchange."""
-
-    _pad_fill = (0, False)
 
     @property
     def _n_windows(self) -> int:
@@ -736,18 +759,18 @@ class _MultiWindowElastic(_ElasticBase):
     def _entry_bytes(self) -> int:
         return 4 * (1 + self.W)  # slot ‖ payload columns
 
-    def _migrate(self, firsts, lasts, sv, sf, P_old: int, P_new: int):
+    def _migrate(self, firsts, lasts, sv, sf, old: list, new: list):
         """Recover every window's window-local positions, route them,
         ONE exchange (``M = min(W * cap, W * fanout_bound)`` rows per
         destination, ``W`` windows), rewrite.  Returns (store_vals,
         store_full, moved, lost)."""
         cap, W = self.cap, self.W
         n_win = self._n_windows
-        n_mesh = sv.shape[0]
+        P_old, P_new = len(old), len(new)
         dev = sv.device
         M = min(n_win * cap, n_win * fanout_bound(P_old, P_new, cap))
         junk = n_win * cap
-        s = torch.arange(n_mesh, dtype=torch.int32, device=dev)[:, None]
+        s = self._old_rows(old)
         u = torch.arange(junk, dtype=torch.int32, device=dev)[None, :]
         win = torch.div(u, cap, rounding_mode="floor").long()
         f_w, l_w = firsts[win], lasts[win]                    # [1, junk]
@@ -760,7 +783,7 @@ class _MultiWindowElastic(_ElasticBase):
         del sv
         fill = torch.zeros(1 + W, dtype=torch.int32, device=dev)
         fill[0] = junk
-        rows, moved, lost = migrate_packed(self.runtime, n_mesh, M, live,
+        rows, moved, lost = migrate_packed(self.runtime, old, new, M, live,
                                            owner, cols, fill)
         del cols
         nsv, nsf = rewrite_ring_store(rows, junk, W)

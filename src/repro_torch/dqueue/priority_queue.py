@@ -164,7 +164,8 @@ class DevicePriorityQueue:
                  runtime=None, device=None):
         if n_prios < 1:
             raise ValueError("need at least one priority tier")
-        self.runtime = _make_runtime(n_shards, runtime, device)
+        self.runtime = _make_runtime(n_shards, runtime, device,
+                                     "DevicePriorityQueue")
         self.device = self.runtime.device
         self.n_shards = n_shards
         self.n_prios = n_prios
@@ -249,8 +250,9 @@ class ElasticDevicePriorityQueue(_MultiWindowElastic):
                          pipelined=pipelined, metrics=metrics,
                          metrics_ring=metrics_ring, flight_k=flight_k)
 
-    def _make_inner(self, n: int):
-        return DevicePriorityQueue(n, n_prios=self.n_prios, cap=self.cap,
+    def _make_inner(self, shards: list):
+        return DevicePriorityQueue(len(shards), n_prios=self.n_prios,
+                                   cap=self.cap,
                                    payload_width=self.W,
                                    ops_per_shard=self.L,
                                    relaxation=self.relaxation,

@@ -176,7 +176,8 @@ class DeviceSeapQueue:
         if split_occupancy < 1:
             raise ValueError("split_occupancy must be >= 1")
         self.seed_bounds = check_seed_bounds(seed_bounds, n_buckets)
-        self.runtime = _make_runtime(n_shards, runtime, device)
+        self.runtime = _make_runtime(n_shards, runtime, device,
+                                     "DeviceSeapQueue")
         self.device = self.runtime.device
         self.n_shards = n_shards
         self.n_buckets = n_buckets
@@ -278,8 +279,9 @@ class ElasticDeviceSeapQueue(_MultiWindowElastic):
                          pipelined=pipelined, metrics=metrics,
                          metrics_ring=metrics_ring, flight_k=flight_k)
 
-    def _make_inner(self, n: int):
-        return DeviceSeapQueue(n, n_buckets=self.n_buckets, cap=self.cap,
+    def _make_inner(self, shards: list):
+        return DeviceSeapQueue(len(shards), n_buckets=self.n_buckets,
+                               cap=self.cap,
                                payload_width=self.W, ops_per_shard=self.L,
                                split_occupancy=self.split_occupancy,
                                seed_bounds=self.seed_bounds,

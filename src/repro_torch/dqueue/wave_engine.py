@@ -1,10 +1,14 @@
 """The fused wave engine: Stages 1-4 once, disciplines plug in.
 
 Counterpart of ``repro/dqueue/wave_engine.py``.  The reference runs one
-wave inside ``shard_map`` on per-shard views; here every shard is one row
-of the leading dimension of tensors on one device, and each of the
-reference's ``all_to_all`` collectives is one call of the runtime's
-exchange seam on a ``[src, dst, L, C]`` send buffer.  A discipline
+wave inside ``shard_map`` on per-shard views; here every shard this
+process holds is one row of the leading dimension of tensors on its
+device (all of them on one process), and each of the reference's
+``all_to_all`` collectives is one call of the runtime's exchange seam on
+a ``[src_local, dst, L, C]`` send buffer.  On a multi-process runtime a
+discipline's scan also needs the whole wave's op bits: one
+``runtime.gather`` of them a wave, the reference's descriptor
+``all_gather`` (``repro/dqueue/device_queue.py:361``).  A discipline
 (FIFO, LIFO, priority tiers) supplies
 
 * **dispatch** (Stages 1-3): each op's position, owner shard and store
@@ -130,7 +134,8 @@ def ring_commit(store, recv, junk: int, W: int):
 # ------------------------------------------------- discipline contract -----
 class Dispatch(NamedTuple):
     """What a discipline's Stages 1-3 hand to the engine for one wave.
-    Per-op fields are ``[n_shards, L]`` (one row per shard)."""
+    Per-op fields are ``[n_local, L]`` (one row per shard this process
+    holds; ``owner`` is an index into the whole shard list)."""
     owner: torch.Tensor        # destination shard, -1 for unrouted ops
     slot: torch.Tensor         # destination slot (junk when unrouted)
     tag: torch.Tensor          # TAG_PUT / TAG_GET / TAG_INACTIVE
@@ -138,7 +143,7 @@ class Dispatch(NamedTuple):
     payload: torch.Tensor      # [n, L, W] int32
     active: torch.Tensor       # rows that travel (matched ops)
     wants_reply: torch.Tensor  # ops whose reply is extracted (dequeues)
-    outs: tuple                # dispatch-time per-op outputs, flat [n*L]
+    outs: tuple                # dispatch-time per-op outputs, [n_local*L]
     carry: tuple               # updated interval carry (0-d tensors)
     overflow: torch.Tensor     # 0-d bool, dispatch-time capacity check
     aux: tuple                 # per-wave extras (0-d tensors)
@@ -153,8 +158,10 @@ class Discipline:
     the extra request columns), the instance attributes ``W`` / ``junk``
     / ``n_windows`` / ``window_capacity`` (interval windows and the
     elements one of them holds, which the pressure API reads), and the
-    methods below, which work on all shards at once (shards are the
-    leading dimension).
+    methods below, which work on all of this process's shards at once
+    (shards are the leading dimension).  ``local_overflow`` marks a
+    commit-time overflow flag that each process computes over its own
+    shards (the stack's), which a reader or-s over the processes.
     """
 
     n_ops: int = 3
@@ -163,6 +170,38 @@ class Discipline:
     extra_fill: tuple = ()
     n_windows: int = 1
     window_capacity: int = 0
+    local_overflow: bool = False
+    # set by bind(): the runtime and the shard list the waves run over;
+    # ``local_rows`` holds this process's shards' indices in that list on
+    # a multi-process runtime, None on one process
+    runtime = None
+    shards: tuple = ()
+    local_rows = None
+
+    def bind(self, runtime, shards) -> None:
+        """Attach the runtime and the active shard list (the engine does)."""
+        self.runtime, self.shards = runtime, list(shards)
+        self.local_rows = (runtime.local_rows(shards)
+                           if runtime.multi_process else None)
+
+    def gather_ops(self, is_x, valid):
+        """The wave's op bits, every shard's in active order: on a
+        multi-process runtime ONE ``runtime.gather`` of ``[n_local, L]``
+        uint8 codes (``2·is_x + valid``, ``n_shards·L`` bytes); on one
+        process the ops as they are."""
+        if self.local_rows is None:
+            return is_x, valid
+        code = (is_x.to(torch.uint8) * 2 + valid.to(torch.uint8)).view(
+            self.local_rows.numel(), -1)
+        g = self.runtime.gather(code, self.shards).reshape(-1)
+        return (g & 2) > 0, (g & 1) > 0
+
+    def local(self, x):
+        """A whole wave's per-op values ``[n_shards·L, ...]`` -> this
+        process's shards' rows ``[n_local, L, ...]``."""
+        x2 = x.view(self.n_shards, -1, *x.shape[1:])
+        return x2 if self.local_rows is None else x2.index_select(
+            0, self.local_rows)
 
     def split(self, state):
         """state -> (interval carry tuple, store tuple)."""
@@ -173,11 +212,13 @@ class Discipline:
         raise NotImplementedError
 
     def dispatch(self, carry, ops) -> Dispatch:
-        """Stages 1-3 for one wave; ``ops`` are flat ``[n*L]`` arrays."""
+        """Stages 1-3 for one wave; ``ops`` are this process's flat
+        ``[n_local*L]`` arrays."""
         raise NotImplementedError
 
     def commit(self, store, recv):
-        """Stage-4 rewrite: -> (store, reply [n, n, L, 1+W], commit_ovf)."""
+        """Stage-4 rewrite: -> (store, reply [n_local, n, L, 1+W],
+        commit_ovf)."""
         raise NotImplementedError
 
     def zero_outs(self, nL: int, device) -> tuple:
@@ -203,13 +244,22 @@ class WaveEngine:
     (K+1 exchanges) or sequential (2K).  Both update the state's store in
     place and return the new state.  With ``metrics=True`` each wave also
     writes a row into the engine's ``metrics_ring``-row telemetry ring
-    (see the module docstring); the exchanges stay the same.
+    (see the module docstring); the exchanges stay the same.  ``shards``
+    is the active shard list (default the runtime's first ``n_shards``);
+    ops and per-op outputs are this process's shards' rows of the wave.
     """
 
     def __init__(self, n_shards: int, discipline: Discipline, runtime, *,
-                 pipelined: bool = True, metrics: bool = False,
+                 shards=None, pipelined: bool = True, metrics: bool = False,
                  metrics_ring: int = 64):
         self.n_shards = n_shards
+        self.shards = (list(runtime.pool()[:n_shards]) if shards is None
+                       else list(shards))
+        if len(self.shards) != n_shards:
+            raise ValueError(f"{len(self.shards)} shards for n_shards="
+                             f"{n_shards}")
+        self.n_local = len(runtime.local_shards(self.shards))
+        discipline.bind(runtime, self.shards)
         self.disc = discipline
         self.runtime = runtime
         self.pipelined = pipelined
@@ -233,12 +283,15 @@ class WaveEngine:
         return build_send_packed(d.owner, cols, d.active, self.n_shards,
                                  self._fill)
 
+    def _exchange(self, buf):
+        return self.runtime.exchange(buf, self.shards)
+
     def _extract_reply(self, back, owner, wants_reply):
-        """Shard s's op j finds its reply at ``back[s, owner[s, j], j]``.
-        Returns flat (vals [n*L, W], ok [n*L])."""
+        """Local shard s's op j finds its reply at ``back[s, owner[s, j],
+        j]``.  Returns flat (vals [n_local*L, W], ok [n_local*L])."""
         n, L = owner.shape
         dev = owner.device
-        own_row = owner.clamp(0, n - 1).long()
+        own_row = owner.clamp(0, back.shape[1] - 1).long()
         s = torch.arange(n, device=dev)[:, None]
         j = torch.arange(L, device=dev)[None, :]
         got = back[s, own_row, j]                       # [n, L, 1+W]
@@ -251,8 +304,9 @@ class WaveEngine:
         """One Wavescope row per shard, ``[n_shards, M]`` int32, from
         values the wave holds at dispatch time: each shard's counters over
         its ``[L]`` slice, and the replicated seq, aux, headroom, width
-        and occupancy.  No exchange, no host read."""
-        disc, n = self.disc, self.n_shards
+        and occupancy (``[n_local, M]`` on a multi-process runtime).  No
+        exchange, no host read."""
+        disc, n = self.disc, self.n_local
         i32 = torch.int32
         valid = ops[1].reshape(n, -1)
         puts = ((d.tag == TAG_PUT) & d.active).sum(1, dtype=i32)
@@ -279,13 +333,13 @@ class WaveEngine:
         """One sequential wave: dispatch -> request exchange -> commit ->
         reply exchange -> extract.  Exactly two exchanges, with or
         without the metrics row."""
-        disc, rt = self.disc, self.runtime
+        disc = self.disc
         carry, store = disc.split(state)
         d = disc.dispatch(carry, ops)
         self._record(d, ops)
-        recv = rt.exchange(self._pack_request(d))
+        recv = self._exchange(self._pack_request(d))
         store, reply, c_ovf = disc.commit(store, recv)
-        back = rt.exchange(reply)
+        back = self._exchange(reply)
         dv, dok = self._extract_reply(back, d.owner, d.wants_reply)
         outs = d.outs + (dv, dok, d.overflow | c_ovf) + d.aux
         return disc.merge(d.carry, store), outs
@@ -303,18 +357,19 @@ class WaveEngine:
         beside wave k-1's reply columns.  Outputs are emitted at commit
         time, so they shift by one wave and the last wave drains through a
         reply-only epilogue exchange."""
-        disc, rt = self.disc, self.runtime
-        n = self.n_shards
+        disc = self.disc
+        n, n_loc = self.n_shards, self.n_local
         K, nL = ops[0].shape[0], ops[0].shape[1]
-        L = nL // n
+        L = nL // n_loc
         dev = ops[0].device
         C_req = 2 + len(disc.extra_fill) + disc.W
         carry, store = disc.split(state)
         # an all-sentinel in-flight buffer commits as a no-op
-        infl = {"recv": self._fill.expand(n, n, L, C_req),
-                "owner": torch.full((n, L), -1, dtype=torch.int32,
+        infl = {"recv": self._fill.expand(n_loc, n, L, C_req),
+                "owner": torch.full((n_loc, L), -1, dtype=torch.int32,
                                     device=dev),
-                "wants": torch.zeros((n, L), dtype=torch.bool, device=dev),
+                "wants": torch.zeros((n_loc, L), dtype=torch.bool,
+                                     device=dev),
                 "outs": disc.zero_outs(nL, dev),
                 "ovf": torch.zeros((), dtype=torch.bool, device=dev),
                 "aux": disc.zero_aux(dev)}
@@ -324,7 +379,8 @@ class WaveEngine:
             d = disc.dispatch(carry, xs)                            # wave k
             self._record(d, xs)
             store, reply, c_ovf = disc.commit(store, infl["recv"])  # k-1
-            out = rt.exchange(torch.cat([self._pack_request(d), reply], -1))
+            out = self._exchange(torch.cat([self._pack_request(d), reply],
+                                           -1))
             dv, dok = self._extract_reply(out[..., C_req:], infl["owner"],
                                           infl["wants"])
             if k > 0:      # iteration 0 emits the priming wave: dropped
@@ -336,7 +392,7 @@ class WaveEngine:
             carry = d.carry
         # epilogue: commit the last in-flight wave, reply-only exchange
         store, reply, c_ovf = disc.commit(store, infl["recv"])
-        back = rt.exchange(reply)
+        back = self._exchange(reply)
         dv, dok = self._extract_reply(back, infl["owner"], infl["wants"])
         rows.append(infl["outs"] + (dv, dok, infl["ovf"] | c_ovf)
                     + infl["aux"])
@@ -345,14 +401,16 @@ class WaveEngine:
 
     # ------------------------------------------------------ entry points ---
     def step(self, state, *ops):
-        """One wave; ops are flat ``[n_shards * L]``.  The store of
+        """One wave; ops are flat ``[n_local * L]`` (this process's
+        shards' rows; ``[n_shards * L]`` on one process).  The store of
         ``state`` is updated in place.  Returns (new_state, *outs)."""
         st, outs = self._wave(state, ops)
         return (st,) + outs
 
     def run_waves(self, state, *ops):
         """K pre-staged waves (ops ``[K, n_shards * L]``), no host sync
-        between them.  The store of ``state`` is updated in place.  Every
+        between them (ops ``[K, n_local * L]`` on a multi-process
+        runtime).  The store of ``state`` is updated in place.  Every
         output comes back ``[K]``-stacked, the discipline's aux too."""
         if ops[0].shape[0] == 0:
             raise ValueError("run_waves needs at least one wave")
@@ -363,17 +421,22 @@ class WaveEngine:
     # ----------------------------------------------------- metrics drain ---
     def init_metrics_state(self) -> MetricsState:
         """A zeroed telemetry ring on this engine's device."""
-        return init_metrics_state(self.n_shards, self.metrics_ring,
+        return init_metrics_state(self.n_local, self.metrics_ring,
                                   self.disc.n_windows, self.runtime.device)
 
     def drain_metrics(self, *, reset: bool = False) -> list:
         """The ring's rows as host wave-summary dicts, oldest first: the
         one host read of the telemetry, for burst boundaries.  With
         ``reset=True`` the ring restarts empty and the sequence number
-        keeps running."""
+        keeps running.  On a multi-process runtime the ring's shard rows
+        are gathered first (one ``runtime.gather``)."""
         if not self.metrics:
             return []
-        rows = _drain_rows(self._mstate)
+        m = self._mstate
+        if self.runtime.multi_process:
+            m = MetricsState(m.count, self.runtime.gather(m.rows,
+                                                          self.shards))
+        rows = _drain_rows(m)
         for r in rows:
             r["seq"] += self._seq0
         if reset:
@@ -421,27 +484,30 @@ def recover_positions(s, t, first, P_old: int, cap: int):
     return s + P_old * j
 
 
-def migrate_packed(runtime, n_mesh: int, M: int, live, owner, cols, fill):
-    """The ONE packed migration exchange: scatter each source row's
-    ``cols`` (column 0 = destination slot / junk sentinel) into
-    rank-within-destination rows, exchange, and return the received rows
-    ``[n_mesh, n_mesh * M, C]`` per destination, the moved count (0-d) and
-    the fanout-overflow flag (0-d bool).
+def migrate_packed(runtime, old, new, M: int, live, owner, cols, fill):
+    """The ONE packed migration exchange, from the shard list ``old`` to
+    ``new``: scatter each local source row's ``cols`` (column 0 =
+    destination slot / junk sentinel) into rank-within-destination rows,
+    exchange, and return the received rows ``[n_new_local, len(old) * M,
+    C]`` per local destination, this process's moved count (0-d) and
+    fanout-overflow flag (0-d bool).
 
-    live/owner: ``[n_mesh, T]``; cols: ``[n_mesh, T, C]``; fill: ``[C]``.
+    live/owner: ``[n_old_local, T]`` (owner indexes ``new``); cols:
+    ``[n_old_local, T, C]``; fill: ``[C]``.
     """
-    C = cols.shape[-1]
+    n_src, _, C = cols.shape
+    n_dst = len(new)
     dev = cols.device
-    rank = dest_rank(owner, live, n_mesh)
+    rank = dest_rank(owner, live, n_dst)
     lost = (live & (rank >= M)).any()
-    buf = fill.expand(n_mesh, n_mesh, M + 1, C).clone()
-    src = torch.arange(n_mesh, device=dev)[:, None].expand_as(owner)
+    buf = fill.expand(n_src, n_dst, M + 1, C).clone()
+    src = torch.arange(n_src, device=dev)[:, None].expand_as(owner)
     d_i = torch.where(live, owner, 0).long()
     r_i = torch.where(live, rank.clamp_max(M), M).long()
     buf[src, d_i, r_i] = torch.where(live[..., None], cols, fill)
-    recv = runtime.exchange(buf[:, :, :M])
+    recv = runtime.exchange(buf[:, :, :M], old, new)
     moved = live.sum()
-    return recv.reshape(n_mesh, n_mesh * M, C), moved, lost
+    return recv.reshape(recv.shape[0], -1, C), moved, lost
 
 
 def rewrite_ring_store(rows, junk: int, W: int):

@@ -1,10 +1,11 @@
 """LocalRuntime: every shard a row of tensors on one device.
 
 Counterpart of ``repro/runtime/local.py``.  The pool is ``pool_size``
-virtual shards with stable ids 0..pool_size-1.  The exchange is a
-transpose of the ``[src, dst, ...]`` send buffer, counted, so a run can
-show the reference's collective budget: 2 per ``step``, K+1 per
-pipelined K-wave burst, 2K per sequential burst, 1 per migration.
+virtual shards with stable ids 0..pool_size-1, all held by this process.
+The exchange is a transpose of the ``[src, dst, ...]`` send buffer and the
+gather the identity, both counted, so a run can show the reference's
+collective budget: 2 exchanges per ``step``, K+1 per pipelined K-wave
+burst, 2K per sequential burst, 1 per migration.
 """
 from __future__ import annotations
 
@@ -27,9 +28,14 @@ class LocalRuntime(Runtime):
     def all_devices(self) -> list:
         return list(self._devices)
 
-    def exchange(self, buf: torch.Tensor) -> torch.Tensor:
+    def exchange(self, buf: torch.Tensor, src=None, dst=None) -> torch.Tensor:
         """``buf[src, dst, ...]`` -> ``out[dst, src, ...]``: shard ``d``
         receives row ``d`` of every sender, in sender order, as the
         reference's tiled ``all_to_all`` delivers it."""
         self.n_exchanges += 1
         return buf.transpose(0, 1).contiguous()
+
+    def gather(self, x: torch.Tensor, shards=None) -> torch.Tensor:
+        """Every shard is local: the rows as they are, counted."""
+        self.n_gathers += 1
+        return x

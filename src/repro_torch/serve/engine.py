@@ -60,6 +60,7 @@ import torch
 
 from ..dqueue import (ElasticDevicePriorityQueue, ElasticDeviceQueue,
                       ElasticDeviceSeapQueue, ServeInvariantError)
+from ..dqueue.device_queue import check_runtime
 from ..kernels.backend import resolve_device
 from ..obs.trace import span
 from .admission import AdmissionRejected, PressureSignal, resolve_policy
@@ -126,6 +127,10 @@ class ServeEngine:
         ``max_shards`` defaults to the queue's shard pool.
       pool_size: shards available to ``resize`` (default ``n_shards``).
       device: default CUDA; raises where there is none.
+      runtime: a :class:`~repro_torch.runtime.LocalRuntime` or
+        :class:`~repro_torch.runtime.SimRuntime` owning the queue's shard
+        pool and device (exclusive with ``pool_size``/``device``); a
+        multi-process runtime raises ``NotImplementedError``.
 
     Raises:
       ValueError: incompatible discipline flags or unknown policy name.
@@ -139,7 +144,9 @@ class ServeEngine:
                  pipelined: bool = True, telemetry: bool = False,
                  flight_k: int = 16, admission=None, spill_cap: int = 64,
                  autoscale=None, pool_size: Optional[int] = None,
-                 device=None):
+                 device=None, runtime=None):
+        if runtime is not None:
+            check_runtime(runtime, "ServeEngine")
         if deadline and priorities > 1:
             raise ValueError("deadline=True (EDF via the Seap queue) and "
                              "priorities > 1 (SLA tiers) are exclusive "
@@ -154,8 +161,10 @@ class ServeEngine:
         self.telemetry = bool(telemetry)
         kw = dict(cap=queue_cap, payload_width=2,
                   ops_per_shard=max(8, 2 * max_slots), pipelined=pipelined,
-                  metrics=telemetry, flight_k=flight_k,
-                  pool_size=pool_size, device=resolve_device(device))
+                  metrics=telemetry, flight_k=flight_k, pool_size=pool_size,
+                  device=resolve_device(device) if runtime is None else device)
+        if runtime is not None:
+            kw["runtime"] = runtime
         if deadline:
             # the directory is seeded on a step grid over the deadline
             # horizon, and splits trigger at about one refill's worth of

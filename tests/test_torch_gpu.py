@@ -881,3 +881,58 @@ def test_seed_wave_on_gpu_matches_cpu_and_the_fused_wave(cuda):
     for other in runs[1:]:
         for a, b in zip(runs[0], other):
             assert torch.equal(a, b)
+
+
+# the two-process schedule of tests/test_torch_distributed.py, each
+# process on the card
+GPU_CHILD = r"""
+import sys
+import numpy as np
+from repro_torch.runtime import DistributedRuntime
+rt = DistributedRuntime.from_env(device="cuda")
+for kind in ("fifo", "lifo"):
+    out, counts, digest = run(kind, rt)
+    if rt.process_role.coordinator:
+        np.savez(f"{sys.argv[1]}/{kind}.npz", **out)
+rt.close()
+"""
+
+
+def test_two_processes_on_gpu_match_one_process_on_cpu(cuda, tmp_path):
+    """Two processes share the card (gloo on CUDA tensors, 4 of 8 shards
+    each) through the interleaving LEAVE and JOINs; their gathered outputs
+    and final stores equal one process's on the CPU."""
+    from test_torch_distributed import SCHEDULE
+
+    from repro_torch.kernels import backend
+    from repro_torch.runtime import LocalRuntime, launch_localhost
+    backend.build()                    # no child waits on nvcc
+    launch_localhost(code=SCHEDULE + GPU_CHILD, args=[str(tmp_path)],
+                     n_procs=2, shards_per_process=4, timeout=300)
+    ns = {}
+    exec(SCHEDULE, ns)
+    for kind in ("fifo", "lifo"):
+        want, _, _ = ns["run"](kind, LocalRuntime(8, device="cpu"))
+        got = dict(np.load(tmp_path / f"{kind}.npz"))
+        assert sorted(got) == sorted(want)
+        for k in want:
+            assert np.array_equal(got[k], want[k]), (kind, k)
+
+
+def test_work_queue_on_gpu_matches_cpu(cuda):
+    """The seeded WorkQueue scenario of tests/test_torch_work_queue.py:
+    grants, stats and leases on the card equal the CPU's."""
+    import json
+
+    from test_torch_work_queue import SCENARIO
+
+    from repro_torch.dqueue import WorkQueue
+    ns = {"np": np}
+    exec(SCENARIO, ns)
+    res = []
+    for dev in ("cuda", "cpu"):
+        dq = DeviceQueue(4, cap=128, payload_width=4, ops_per_shard=16,
+                         device=dev)
+        res.append(json.loads(json.dumps(
+            ns["drive"](WorkQueue(dq, lease_steps=3), 0))))
+    assert res[0] == res[1]
