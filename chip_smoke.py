@@ -45,8 +45,8 @@ size:
 * Wavescope: the FIFO, priority and Seap queues at full size with the
   metrics ring, every row against the checked outputs, waves/s with the
   ring on and off in turns; ``python -m repro_torch.obs --smoke``; the
-  FIFO serving run again with ``telemetry=True`` (one row per queue wave,
-  the Prometheus text parsed);
+  FIFO serving run's first burst again with ``telemetry=True`` (one row
+  per queue wave, the Prometheus text parsed);
 * a 64-shard FIFO queue with a backlog above 1,000,000 saved, restored
   at 48 shards and drained in order; ``run_with_restarts`` over elastic
   FIFO bursts through a shard failure (LEAVE, quarantine, regrow JOIN)
@@ -59,11 +59,17 @@ size:
   the elastic FIFO queue on a ``SimRuntime`` with a scheduled shard
   failure under ``run_with_restarts`` (LEAVE, regrow JOIN), its modelled
   wire time against the formula over the counted launches and bytes;
-  and the FIFO and LIFO configurations in two processes sharing the card
-  (``launch_localhost``, a ``DistributedRuntime`` of 32 shards each, gloo
-  on CUDA tensors) through a LEAVE and a JOIN that interleave the
-  processes' shards, each process checking every burst against the host
-  model (this script re-run with ``--dist-child``).
+  and the FIFO, LIFO, priority (strict and relaxation 1) and Seap
+  configurations in two processes sharing the card (``launch_localhost``,
+  a ``DistributedRuntime`` of 32 shards each, gloo on CUDA tensors)
+  through a LEAVE and a JOIN that interleave the processes' shards, each
+  process checking every burst against the host model, its exchange
+  budget and its kernels' launches (one tiered launch a wave, one relaxed
+  launch a wave on the relaxed path); and the EDF serving run again in
+  two processes (4 of its 8 queue shards each, zamba2-1.2b from the same
+  seed in both), its admission order, served requests and deadline
+  misses against the one-process run's, its tokens equal in the two
+  processes (this script re-run with ``--dist-child``).
 
 Each is checked against a host model written here (order, ⊥ counts,
 overflow, migration counts, the exchange budget, the kernels' launch
@@ -141,11 +147,14 @@ SCAN_OPS = 20          # int ops per op: transform, ~2 composes, emission
 HASH_OPS = 12          # int ops per element: splitmix32, shift, modulo
 TIER_OPS = 10          # int ops per op: key, warp match, rank, emission
 CARD = ""              # "name, power limit" from nvidia-smi, set in main()
+T0 = time.perf_counter()  # each phase line's t_s: seconds since the start
 INT32_MIN, INT32_MAX = -(2 ** 31), 2 ** 31 - 1
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, "card": CARD, **fields}), flush=True)
+    print(json.dumps({"phase": phase, "card": CARD,
+                      "t_s": time.perf_counter() - T0, **fields}),
+          flush=True)
 
 
 def check(cond, what: str) -> None:
@@ -2108,7 +2117,8 @@ def phase_serve_zamba2(torch, rng, results, zamba, telemetry=False):
     """ServeEngine over an 8-shard ElasticDeviceQueue serving zamba2-1.2b:
     32 requests in two bursts with a resize 8 -> 6 between them, against
     a host FIFO admission model.  With ``telemetry`` the queue keeps its
-    metrics ring: the snapshot's ``waves`` section must hold one row per
+    metrics ring and serves the first burst only (16 requests, the resize,
+    a drain): the snapshot's ``waves`` section must hold one row per
     queue wave, each request's enqueue and dequeue counted once, and its
     Prometheus text must parse."""
     from repro_torch.kernels.flash_attention import flash_attention
@@ -2130,6 +2140,8 @@ def phase_serve_zamba2(torch, rng, results, zamba, telemetry=False):
     reqs = [Request(rid=i, prompt=[int(t) for t in rng.integers(
         0, cfg.vocab, int(rng.integers(16, 65)))], max_new=max_new)
         for i in range(32)]
+    if telemetry:                     # the first burst and the resize
+        reqs = reqs[:16]
     eng.step()                                   # warm-up: an idle step
     for c in (flash_attention, ssd_scan, queue_scan, hash_route):
         c.launches = 0
@@ -2158,7 +2170,7 @@ def phase_serve_zamba2(torch, rng, results, zamba, telemetry=False):
           f"the queue waves and the resize went through the queue-scan and "
           f"hash-route kernels: {launches}")
     check(all(r.done and len(r.out) == max_new for r in reqs),
-          "all 32 requests served with 16 tokens each")
+          f"all {len(reqs)} requests served with 16 tokens each")
     check(all(r.start_step > resize_step for r in reqs if r.rid in pending),
           "requests queued at the resize started after it")
     starts = [r.start_step for r in reqs]
@@ -2193,8 +2205,8 @@ def phase_serve_zamba2(torch, rng, results, zamba, telemetry=False):
         check(len(rows) == queue_waves[0],
               f"one metrics row per queue wave ({len(rows)} rows, "
               f"{queue_waves[0]} waves)")
-        check(sum(r["puts"] for r in rows) == 32
-              and sum(r["gets"] for r in rows) == 32,
+        check(sum(r["puts"] for r in rows) == len(reqs)
+              and sum(r["gets"] for r in rows) == len(reqs),
               "every request enqueued and dequeued once in the rows")
         check(queue_waves[0] - waves0 == launches["queue_scan"],
               "one queue-scan launch per timed queue wave")
@@ -2252,40 +2264,37 @@ def _serve_record(eng, reqs, wall, steps, launches, peak):
             "max_memory_allocated": peak, "metrics": eng.metrics()}
 
 
-def phase_serve_edf_zamba2(torch, rng, results, zamba):
-    """ServeEngine(deadline=True) over an 8-shard ElasticDeviceSeapQueue
-    serving zamba2-1.2b with deferral and an autoscaler: 16 requests with
-    loose deadlines, a resize 8 -> 6, 16 with tight ones; every queue
-    burst against the host Seap model, EDF order within each refill.
-    Then the tier mode (4 tiers, relaxation 1) on the same model with 16
-    requests, against the host tier model."""
-    from repro_torch.kernels.hash_route import hash_route
-    from repro_torch.kernels.segscan import tiered_queue_scan
+EDF_SLOTS, EDF_MAX_SEQ, EDF_HORIZON, EDF_BUCKETS = 8, 256, 64, 8
+
+
+def _edf_engine(model, params, **kw):
+    """The EDF engine of ``path:serve_edf_zamba2`` (8 shards, a bucket
+    window of 2 x 8 shards, deferral past it, and an autoscaler that grows
+    at the first overloaded step, no shrink in this run) and its
+    controller; ``kw`` is ``device=`` or ``runtime=``."""
     from repro_torch.serve import (ControllerConfig, HysteresisController,
                                    ServeEngine)
-    cfg, model, params = zamba
-    slots, max_seq, horizon, n_buckets = 8, 256, 64, 8
-    # a bucket window of 2 x 8 shards, deferral past it, and an autoscaler
-    # that grows at the first overloaded step (no shrink in this run)
     ctl = HysteresisController(ControllerConfig(
         high_watermark=0.75, low_watermark=0.0, high_patience=1,
         low_patience=1_000_000, cooldown=0))
-    eng = ServeEngine(model, params, 8, max_slots=slots, max_seq=max_seq,
-                      queue_cap=2, deadline=True, n_buckets=n_buckets,
-                      deadline_horizon=horizon, admission="defer",
-                      autoscale=ctl, device="cuda")
-    grid = horizon // n_buckets
-    seeds = [i * grid for i in range(1, n_buckets)]
-    model_q = SeapChecker(n_buckets, 2 * slots, seeds, payload=_rid_payload)
-    loose = _zamba2_requests(rng, cfg, 16)
-    tight = _zamba2_requests(rng, cfg, 16, first_rid=16)
-    reqs = loose + tight
-    eng.step()                                   # warm-up: an idle step
-    log = _capture_bursts(eng)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    tiered_queue_scan.launches = hash_route.launches = 0
-    t0 = time.perf_counter()
+    eng = ServeEngine(model, params, 8, max_slots=EDF_SLOTS,
+                      max_seq=EDF_MAX_SEQ, queue_cap=2, deadline=True,
+                      n_buckets=EDF_BUCKETS, deadline_horizon=EDF_HORIZON,
+                      admission="defer", autoscale=ctl, **kw)
+    return eng, ctl
+
+
+def _edf_seap_model():
+    """The host Seap model of the EDF engine's request queue."""
+    grid = EDF_HORIZON // EDF_BUCKETS
+    seeds = [i * grid for i in range(1, EDF_BUCKETS)]
+    return SeapChecker(EDF_BUCKETS, 2 * EDF_SLOTS, seeds,
+                       payload=_rid_payload), seeds
+
+
+def _edf_drive(eng, loose, tight):
+    """16 loose deadlines, 24 steps, a resize 8 -> 6, 16 tight deadlines,
+    a drain.  Returns the ids still queued at the resize and its stats."""
     for i, r in enumerate(loose):
         r.deadline = eng.step_no + 40 + i        # loose: 40-55 steps out
     eng.submit(loose)
@@ -2298,6 +2307,46 @@ def phase_serve_edf_zamba2(torch, rng, results, zamba):
           f"the resize kept every queued request ({len(pending)})")
     eng.submit(tight, deadline=2)                # tight: 2 steps out
     check(eng.run_until_drained(max_steps=2000), "served to the end")
+    return pending, mig
+
+
+def _edf_checks(eng, ctl, loose, tight, pending):
+    reqs = loose + tight
+    check(all(r.done and len(r.out) == 16 for r in reqs),
+          "all 32 requests served with 16 tokens each")
+    queued = [r for r in loose if r.rid in pending]
+    late_loose = min((r.start_step for r in queued), default=None)
+    check(late_loose is None or max(r.start_step for r in tight)
+          <= late_loose, "the tight deadlines were admitted ahead of the "
+                         "loose ones still queued")
+    check(ctl.stats["grows"] >= 1 and eng.admission_stats["deferred"] > 0,
+          "the tight burst was deferred and the autoscaler grew the queue")
+
+
+def phase_serve_edf_zamba2(torch, rng, results, zamba):
+    """ServeEngine(deadline=True) over an 8-shard ElasticDeviceSeapQueue
+    serving zamba2-1.2b with deferral and an autoscaler: 16 requests with
+    loose deadlines, a resize 8 -> 6, 16 with tight ones; every queue
+    burst against the host Seap model, EDF order within each refill.
+    Then the tier mode (4 tiers, relaxation 1) on the same model with 16
+    requests, against the host tier model."""
+    from repro_torch.kernels.hash_route import hash_route
+    from repro_torch.kernels.segscan import tiered_queue_scan
+    from repro_torch.serve import ServeEngine
+    cfg, model, params = zamba
+    slots, max_seq = EDF_SLOTS, EDF_MAX_SEQ
+    eng, ctl = _edf_engine(model, params, device="cuda")
+    model_q, seeds = _edf_seap_model()
+    loose = _zamba2_requests(rng, cfg, 16)
+    tight = _zamba2_requests(rng, cfg, 16, first_rid=16)
+    reqs = loose + tight
+    eng.step()                                   # warm-up: an idle step
+    log = _capture_bursts(eng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tiered_queue_scan.launches = hash_route.launches = 0
+    t0 = time.perf_counter()
+    pending, mig = _edf_drive(eng, loose, tight)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -2312,18 +2361,10 @@ def phase_serve_edf_zamba2(torch, rng, results, zamba):
           f"one tiered launch per queue wave ({n_waves} waves): {launches}")
     check(launches["hash_route"] >= 2, "the resize and the autoscaler's "
                                        "grow launched the hash route")
-    check(all(r.done and len(r.out) == 16 for r in reqs),
-          "all 32 requests served with 16 tokens each")
-    queued = [r for r in loose if r.rid in pending]
-    late_loose = min((r.start_step for r in queued), default=None)
-    check(late_loose is None or max(r.start_step for r in tight)
-          <= late_loose, "the tight deadlines were admitted ahead of the "
-                         "loose ones still queued")
-    check(ctl.stats["grows"] >= 1 and eng.admission_stats["deferred"] > 0,
-          "the tight burst was deferred and the autoscaler grew the queue")
+    _edf_checks(eng, ctl, loose, tight, pending)
     steps = eng.step_no - 1
     rec = {"arch": cfg.name, "slots": slots, "max_seq": max_seq,
-           "queue_cap": 2, "n_buckets": n_buckets, "seed_bounds": seeds,
+           "queue_cap": 2, "n_buckets": EDF_BUCKETS, "seed_bounds": seeds,
            "queue_shards": f"8 -> 6 -> {eng.queue.n_shards}",
            "queued_at_resize": len(pending),
            "migrations": [{k: m[k] for k in ("kind", "P_from", "P_to",
@@ -2337,6 +2378,13 @@ def phase_serve_edf_zamba2(torch, rng, results, zamba):
            **_serve_record(eng, reqs, wall, steps, launches, peak)}
     results["serve_edf_zamba2"] = rec
     emit("path:serve_edf_zamba2", **rec)
+    # what the two-process EDF run replays and is held to (not printed)
+    results["serve_edf_replay"] = {
+        "loose": [[r.rid, r.prompt] for r in loose],
+        "tight": [[r.rid, r.prompt] for r in tight],
+        "admission": [[r.rid, r.start_step, r.finish_step, r.deadline]
+                      for r in reqs],
+        "tokens": [r.out for r in reqs]}
 
     # the tier mode: 8 requests of the lowest tier fill the slots, then
     # 8 of tiers 0-2 queue behind them
@@ -2577,12 +2625,12 @@ def phase_telemetry(torch, rng, results):
     """FIFO, priority and Seap at their full sizes with ``metrics=True``:
     every drained row against the checked outputs and the models' sizes,
     K+1 exchanges a burst with the ring on; waves/s with the ring on and
-    off, in turns (on, off, ...), 4 bursts a side.  Then ``python -m
+    off, in turns (on, off, ...), 2 bursts a side.  Then ``python -m
     repro_torch.obs --smoke`` on the card."""
     from repro_torch.dqueue import (ElasticDevicePriorityQueue,
                                     ElasticDeviceQueue,
                                     ElasticDeviceSeapQueue)
-    L, K, N = 1_024, 16, 64
+    L, K, N, SIDE = 1_024, 16, 64, 2
     specs = {
         "fifo": (lambda m: ElasticDeviceQueue(
             N, cap=65_536, payload_width=4, ops_per_shard=L, metrics=m,
@@ -2606,7 +2654,7 @@ def phase_telemetry(torch, rng, results):
         sides = {on: (make(on), checker()) for on in (True, False)}
         secs = {True: 0.0, False: 0.0}
         rows_checked = 0
-        for i in range(8):
+        for i in range(2 * SIDE):
             on = i % 2 == 0
             q, model = sides[on]
             occ0 = list(model.sizes) if n_disp == 3 else [model.size]
@@ -2628,10 +2676,10 @@ def phase_telemetry(torch, rng, results):
                 rows_checked += K
             else:
                 check(q.trajectory() == [], "no rows with the ring off")
-        recs[name] = {"bursts_per_side": 4, "K": K,
+        recs[name] = {"bursts_per_side": SIDE, "K": K,
                       "rows_checked": rows_checked,
-                      "waves_per_s_on": 4 * K / secs[True],
-                      "waves_per_s_off": 4 * K / secs[False],
+                      "waves_per_s_on": SIDE * K / secs[True],
+                      "waves_per_s_off": SIDE * K / secs[False],
                       "on_over_off": secs[False] / secs[True]}
         del sides
     proc = subprocess.run([sys.executable, "-m", "repro_torch.obs",
@@ -3134,179 +3182,443 @@ def phase_sim_runtime(torch, rng, results):
     emit("path:sim_runtime", **rec)
 
 
+# the two-process queue paths: the one-process paths' configurations,
+# 8-wave bursts, the structures run in this order by one pair of processes
+DIST_QUEUES = ("fifo", "lifo", "priority", "relaxed", "seap")
+DIST_N, DIST_L, DIST_K, DIST_BACKLOG = 64, 1_024, 8, 1_000_000
+DIST_CAPS = {"fifo": 65_536, "lifo": 32_768, "priority": 16_384,
+             "relaxed": 16_384, "seap": 16_384}
 DIST_SHRINK = list(range(8, 24))     # leaves process 0 with 16, 1 with 32
+DIST_TIER_P = [0.4, 0.3, 0.2, 0.1]
 
 
-def dist_child(kind: str, seed: int) -> int:
-    """One process of ``path:distributed_<kind>`` (started by
-    ``phase_distributed`` through ``launch_localhost``): 32 of the 64
-    shards on the card, the same waves as its sibling from the same seed,
-    every burst's outputs gathered and checked against the host model.
-    Prints one ``DIST_RESULT`` JSON line."""
+def _wire_timers(torch, rt):
+    """Wrap ``rt.exchange`` and ``rt.gather`` in synchronised host clocks:
+    calls, seconds and bytes this process sends, per seam.  Returns the
+    tally; ``del rt.exchange, rt.gather`` restores the methods."""
+    wire = {"exchange": [0, 0.0, 0], "gather": [0, 0.0, 0],
+            "tensors": set()}
+
+    def timed(name, fn):
+        def call(buf, *args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(buf, *args)
+            torch.cuda.synchronize()
+            w = wire[name]
+            w[0] += 1
+            w[1] += time.perf_counter() - t0
+            w[2] += buf.numel() * buf.element_size()
+            wire["tensors"].add(buf.device.type)
+            return out
+        return call
+    rt.exchange = timed("exchange", rt.exchange)
+    rt.gather = timed("gather", rt.gather)
+    return wire
+
+
+def _dist_queue(torch, rt, kind: str, seed: int) -> dict:
+    """One structure of ``path:distributed_<kind>`` in this process: 32 of
+    the 64 shards on the card, the same waves as its sibling from the same
+    seed, every burst's outputs gathered and checked against the host
+    model, the exchange budget and the kernels' launches counted."""
     import hashlib
 
-    import torch
     import torch.distributed as dist
 
-    from repro_torch.dqueue import ElasticDeviceQueue, ElasticDeviceStack
-    from repro_torch.kernels.segscan import queue_scan, stack_scan
-    from repro_torch.runtime import DistributedRuntime
-    rt = DistributedRuntime.from_env(device="cuda")
-    rng = np.random.default_rng(seed)
-    W, L, K = 4, 1_024, 8
+    from repro_torch.dqueue import (ElasticDevicePriorityQueue,
+                                    ElasticDeviceQueue,
+                                    ElasticDeviceSeapQueue,
+                                    ElasticDeviceStack)
+    from repro_torch.kernels.relaxed import relaxed_deletemin
+    from repro_torch.kernels.segscan import (queue_scan, stack_scan,
+                                             tiered_queue_scan)
+    rng = np.random.default_rng([seed, DIST_QUEUES.index(kind)])
+    N, W, L, K, CAP = DIST_N, 4, DIST_L, DIST_K, DIST_CAPS[kind]
+    lifo, seap = kind == "lifo", kind == "seap"
+    tiers = kind in ("priority", "relaxed")
+    kw = dict(payload_width=W, ops_per_shard=L, runtime=rt)
     if kind == "fifo":
-        N, CAP = 64, 65_536
-        q = ElasticDeviceQueue(N, cap=CAP, payload_width=W, ops_per_shard=L,
-                               runtime=rt)
-        model, counter = FifoChecker(), queue_scan
-        fill, size = 0.65, (lambda: model.size)
+        q = ElasticDeviceQueue(N, cap=CAP, **kw)
+        model, counters = FifoChecker(), {"queue_scan": queue_scan}
+    elif lifo:
+        q = ElasticDeviceStack(N, cap=CAP, slot_depth=4, **kw)
+        model = LifoChecker(max_depth=4_000_000)
+        counters = {"stack_scan": stack_scan}
+    elif seap:
+        q = ElasticDeviceSeapQueue(N, n_buckets=8, cap=CAP,
+                                   split_occupancy=SEAP_OCC,
+                                   seed_bounds=SEAP_SEEDS, **kw)
+        model = SeapChecker(8, SEAP_OCC, SEAP_SEEDS)
+        counters = {"tiered_queue_scan": tiered_queue_scan}
     else:
-        N, CAP = 64, 32_768
-        q = ElasticDeviceStack(N, cap=CAP, slot_depth=4, payload_width=W,
-                               ops_per_shard=L, runtime=rt)
-        model, counter = LifoChecker(max_depth=4_000_000), stack_scan
-        fill, size = 0.65, (lambda: model.depth)
-    wire = {"calls": 0, "seconds": 0.0, "bytes": 0, "tensors": set()}
-    exchange = rt.exchange
+        k = int(kind == "relaxed")
+        q = ElasticDevicePriorityQueue(N, n_prios=4, relaxation=k, cap=CAP,
+                                       **kw)
+        model = TierChecker(4, DIST_TIER_P, relaxation=k)
+        counters = {"tiered_queue_scan": tiered_queue_scan}
+        if k:
+            counters["relaxed_deletemin"] = relaxed_deletemin
 
-    def timed_exchange(buf, src=None, dst=None):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = exchange(buf, src, dst)
-        torch.cuda.synchronize()
-        wire["seconds"] += time.perf_counter() - t0
-        wire["calls"] += 1
-        wire["bytes"] += buf.numel() * buf.element_size()
-        wire["tensors"].add(buf.device.type)
-        return out
-    rt.exchange = timed_exchange
+    def model_size():
+        return (model.depth if lifo else sum(model.sizes) if tiers
+                else model.size)
+    wire = _wire_timers(torch, rt)
     digest = hashlib.sha256()
-    timing = {"waves": 0, "seconds": 0.0, "wire": 0.0}
+    timing = {"waves": 0, "seconds": 0.0, "exchange": 0.0, "exchanges": 0,
+              "exchange_bytes": 0, "gather": 0.0, "gathers": 0,
+              "gather_bytes": 0}
     migrations, bursts = [], []
-    counter.launches = 0
-    lifo = kind == "lifo"
+    for c in counters.values():
+        c.launches = 0
+    n_sharded = 4 if kind in ("fifo", "lifo") else 5
 
-    def burst(p):
+    def burst(*stage):
         nL = q.n_shards * L
-        staged = model.stage(K, nL, p, rng)
-        x0, g0, s0 = rt.n_exchanges, rt.n_gathers, counter.launches
-        w0 = wire["seconds"]
+        staged = model.stage(K, nL, *stage, rng)
+        x0, g0 = rt.n_exchanges, rt.n_gathers
+        c0 = {n: c.launches for n, c in counters.items()}
+        (en0, es0, eb0), (gn0, gs0, gb0) = wire["exchange"], wire["gather"]
         rt.sync()
         t0 = time.perf_counter()
         out = q.run_waves(*staged)
         rt.sync()
         dt = time.perf_counter() - t0
-        timing["wire"] += wire["seconds"] - w0
+        timing["exchange"] += wire["exchange"][1] - es0
+        timing["exchanges"] += wire["exchange"][0] - en0
+        timing["exchange_bytes"] += wire["exchange"][2] - eb0
+        timing["gather"] += wire["gather"][1] - gs0
+        timing["gathers"] += wire["gather"][0] - gn0
+        timing["gather_bytes"] += wire["gather"][2] - gb0
         check(rt.n_exchanges - x0 == K + 1, "K+1 exchanges a burst")
         check(rt.n_gathers - g0 == K + lifo,
-              "one op-bit gather a wave (and the stack's overflow flag)")
-        check(counter.launches - s0 == K, "one scan launch a wave")
-        host = [rt.to_host(o, q.shards, lead=1) for o in out[:4]]
-        host.append(rt.host_reduce(out[4], "any"))
-        rec = model.verify(*staged, *host)
+              "one descriptor gather a wave (and the stack's overflow flag)")
+        for n, c in counters.items():
+            check(c.launches - c0[n] == K, f"one {n} launch a wave")
+        host = [rt.to_host(o, q.shards, lead=1) for o in out[:n_sharded]]
+        if n_sharded == 4:
+            host.append(rt.host_reduce(out[4], "any"))
+        else:
+            host += [rt.to_host(o) for o in out[5:]]
+        rec = model.verify(*staged, *host,
+                           **({"n_shards": q.n_shards} if tiers else {}))
         for h in host:
             digest.update(np.ascontiguousarray(h).tobytes())
         timing["waves"] += K
         timing["seconds"] += dt
-        bursts.append({"n_shards": q.n_shards, "seconds": dt, **rec})
-        check(q.size == size(), "size matches the host model")
+        bursts.append({"n_shards": q.n_shards, "stage": list(stage[:1]),
+                       "seconds": dt, **rec})
+        check(q.size == model_size(), "size matches the host model")
+        if seap or tiers:
+            check(q.sizes == model.sizes, "window sizes match the model")
+        if seap:
+            check(q.directory() == model.directory(),
+                  "the directory matches the model")
 
     def migrate(fn, arg):
         x0, g0, before = rt.n_exchanges, rt.n_gathers, q.size
+        _, es0, eb0 = wire["exchange"]
         st = fn(arg)
         check(st["moved"] == before == q.size, "moved == size")
         check(rt.n_exchanges - x0 == 1 and rt.n_gathers - g0 == 1,
               "one exchange and one count gather a migration")
-        migrations.append({k: st[k] for k in ("kind", "P_from", "P_to",
-                                              "moved", "bytes_moved",
-                                              "wave_s", "total_s")})
+        if seap:
+            check(q.directory() == model.directory(),
+                  "the migration kept the directory")
+        migrations.append({**{k: st[k] for k in (
+            "kind", "P_from", "P_to", "moved", "bytes_moved", "wave_s",
+            "total_s")}, "exchange_s": wire["exchange"][1] - es0,
+            "exchange_send_bytes": wire["exchange"][2] - eb0})
 
-    while q.size < 1_000_000:
-        burst(fill)
+    slack = (SLACK_1,) if seap else ()
+    while q.size < DIST_BACKLOG:                         # fill
+        burst(0.65, *slack)
     backlog = q.size
-    migrate(q.shrink, DIST_SHRINK)                        # LEAVE 16
-    burst(0.5)
-    migrate(q.grow, len(DIST_SHRINK))                     # JOIN 16
+    if seap:
+        while model.sizes[0] or model.sizes[1]:          # drain the lowest
+            burst(0.2, SLACK_1)
+        slack = (SLACK_2,)
+        while not (model.merges and model.splits):       # drift
+            burst(0.65, SLACK_2)
+    sizes_at_leave = q.sizes if (seap or tiers) else [q.size]
+    check(max(sizes_at_leave) <= (N - len(DIST_SHRINK)) * CAP,
+          "every window fits the shards a LEAVE keeps")
+    migrate(q.shrink, DIST_SHRINK)                       # LEAVE 16
+    burst(0.5, *slack)
+    migrate(q.grow, len(DIST_SHRINK))                    # JOIN 16
     ids = [s.id for s in q.shards]
     check(ids == [i for i in range(N) if i not in DIST_SHRINK] + DIST_SHRINK,
           "the JOIN appends the regrown shards: the processes interleave")
     n_bottom = 0
-    while q.size > 0 or (lifo and n_bottom == 0):
-        burst(0.0)
+    while q.size > 0 or (kind != "fifo" and n_bottom == 0):  # drain
+        burst(0.0, *slack)
         n_bottom += bursts[-1]["bottom"]
-    check(model.size == 0 if not lifo else model.depth == 0, "drained")
+    check(model_size() == 0, "drained")
+    del rt.exchange, rt.gather
+    ex = wire["exchange"]
     rec = {"rank": rt.rank, "kind": kind, "n_shards": N, "cap": CAP,
            "payload_width": W, "ops_per_shard": L, "K": K,
            "shards_per_process": rt.shards_per_process,
            "local_shards_after_join": len(rt.local_shards(q.shards)),
            "active_order_after_join": ids, "backlog_max": backlog,
+           "sizes_at_leave": sizes_at_leave,
            "bursts": len(bursts), "waves": timing["waves"],
            "waves_per_s": timing["waves"] / timing["seconds"],
-           "exchange_calls": wire["calls"],
-           "exchange_ms_total": 1e3 * wire["seconds"],
-           "exchange_ms_per_call": 1e3 * wire["seconds"] / wire["calls"],
-           "exchange_send_bytes_per_call": wire["bytes"] / wire["calls"],
-           "exchange_share_of_bursts": timing["wire"] / timing["seconds"],
-           "gathers": rt.n_gathers, "scan_launches": counter.launches,
+           "exchange_calls": ex[0],
+           "exchange_ms_total": 1e3 * ex[1],
+           "exchange_ms_per_call": 1e3 * ex[1] / ex[0],
+           "exchange_send_bytes_per_call": ex[2] / ex[0],
+           "exchange_share_of_bursts": timing["exchange"] / timing["seconds"],
+           "burst_exchange_ms_per_call":
+               1e3 * timing["exchange"] / timing["exchanges"],
+           "burst_exchange_send_bytes_per_call":
+               timing["exchange_bytes"] / timing["exchanges"],
+           "descriptor_gathers": timing["gathers"],
+           "descriptor_gather_ms_per_call":
+               1e3 * timing["gather"] / timing["gathers"],
+           "descriptor_send_bytes_per_call":
+               timing["gather_bytes"] / timing["gathers"],
+           "descriptor_share_of_bursts":
+               timing["gather"] / timing["seconds"],
+           "gathers": rt.n_gathers,
+           "launches": {n: c.launches for n, c in counters.items()},
            "backend": dist.get_backend(),
            "wire_tensors": sorted(wire["tensors"]),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
            "migrations": migrations, "digest": digest.hexdigest(),
            "burst_log": bursts}
+    if tiers:
+        rec["relaxed_serves"] = sum(b["relaxed"] for b in bursts)
+        check((rec["relaxed_serves"] > 0) == (kind == "relaxed"),
+              "relaxed serves only with relaxation")
+    if seap:
+        rec.update(splits=model.splits, merges=model.merges)
+    return rec
+
+
+def _dist_serve(torch, rt, seed: int, spec_path: str) -> dict:
+    """One process of ``path:distributed_serve_edf_zamba2``: the EDF
+    engine of ``path:serve_edf_zamba2`` on this runtime (its 8 queue
+    shards split 4 and 4, then 6 after the resize), zamba2-1.2b from the
+    same seed in both processes, replaying the one-process run's requests
+    (``spec_path``); every queue burst against the host Seap model."""
+    import hashlib
+
+    from repro_torch.kernels.segscan import tiered_queue_scan
+    from repro_torch.serve import Request
+    spec = json.loads(Path(spec_path).read_text())
+    cfg, model, params, _ = _zamba2(torch, seed)
+    loose = [Request(rid=rid, prompt=p, max_new=16)
+             for rid, p in spec["loose"]]
+    tight = [Request(rid=rid, prompt=p, max_new=16)
+             for rid, p in spec["tight"]]
+    reqs = loose + tight
+    eng, ctl = _edf_engine(model, params, runtime=rt)
+    model_q, _ = _edf_seap_model()
+    eng.step()                                   # warm-up: an idle step
+    log, q = [], eng.queue
+    run = q.run_waves
+
+    def run_waves(*ops):
+        out = run(*ops)
+        log.append((list(q.shards), ops, out))
+        return out
+    q.run_waves = run_waves
+    wire = _wire_timers(torch, rt)
+    tiered_queue_scan.launches = 0
+    rt.sync()
+    t0 = time.perf_counter()
+    pending, mig = _edf_drive(eng, loose, tight)
+    rt.sync()
+    wall = time.perf_counter() - t0
+    del rt.exchange, rt.gather
+    launches = tiered_queue_scan.launches
+    n_waves = 0
+    for shards, ops, out in log:
+        host = ([x.numpy() for x in ops]
+                + [rt.to_host(o, shards, lead=1) for o in out[:5]]
+                + [rt.to_host(o) for o in out[5:]])
+        model_q.verify(*host)
+        n_waves += host[0].shape[0]
+    check(launches == n_waves,
+          f"one tiered launch per queue wave ({n_waves} waves): {launches}")
+    _edf_checks(eng, ctl, loose, tight, pending)
+    tokens = [r.out for r in reqs]
+    ex = wire["exchange"]
+    steps = eng.step_no - 1
+    return {"rank": rt.rank, "arch": cfg.name,
+            "shards_per_process": rt.shards_per_process,
+            "queue_shards": f"8 -> 6 -> {eng.queue.n_shards}",
+            "local_shards_after": len(rt.local_shards(eng.queue.shards)),
+            "queued_at_resize": len(pending),
+            "migrations": [{k: m[k] for k in ("kind", "P_from", "P_to",
+                                              "moved", "wave_s")}
+                           for m in eng.queue.migrations],
+            "queue_waves": n_waves, "tiered_queue_scan_launches": launches,
+            "steps": steps, "wall_s": wall,
+            "decode_step_ms": wall / steps * 1e3,
+            "generated_tokens_per_s": sum(map(len, tokens)) / wall,
+            "exchange_calls": ex[0], "exchange_ms_total": 1e3 * ex[1],
+            "exchange_ms_per_call": 1e3 * ex[1] / max(1, ex[0]),
+            "exchange_send_bytes_per_call": ex[2] / max(1, ex[0]),
+            "exchange_share_of_wall": ex[1] / wall,
+            "gathers": rt.n_gathers,
+            "deadline_stats": eng.deadline_stats(),
+            "admission_stats": {k: v for k, v in eng.admission_stats.items()
+                                if k != "decide_us"},
+            "autoscale": ctl.snapshot(), "edf_order": "ok",
+            "admission": [[r.rid, r.start_step, r.finish_step, r.deadline]
+                          for r in reqs],
+            "tokens": tokens,
+            "tokens_digest": hashlib.sha256(
+                json.dumps(tokens).encode()).hexdigest(),
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
+
+
+def dist_child(what: str, seed: int, spec_path: str = "") -> int:
+    """One process of the two-process paths (started by
+    ``phase_distributed`` or ``phase_distributed_serve`` through
+    ``launch_localhost``): ``what`` is a comma list of DIST_QUEUES, run in
+    order, or ``serve_edf``.  Prints one ``DIST_RESULT`` JSON line per
+    structure."""
+    import torch
+
+    from repro_torch.runtime import DistributedRuntime
+    rt = DistributedRuntime.from_env(device="cuda")
+    for kind in what.split(","):
+        torch.cuda.reset_peak_memory_stats()
+        rec = (_dist_serve(torch, rt, seed, spec_path) if kind == "serve_edf"
+               else _dist_queue(torch, rt, kind, seed))
+        print("DIST_RESULT " + json.dumps(rec), flush=True)
+        torch.cuda.empty_cache()
     rt.close()
-    print("DIST_RESULT " + json.dumps(rec), flush=True)
     return 0
 
 
-def phase_distributed(torch, kind: str, seed: int, results):
-    """Two processes on the card through ``launch_localhost``, 32 of 64
-    shards each, gloo on CUDA tensors: the FIFO (or LIFO) configuration
-    filled above 1,000,000, a 50/50 burst, a LEAVE of shard ids 8-23 and a
-    JOIN of 16 that interleaves the processes' shards, a drain; each
-    process checks every burst against the host model and both print the
-    same digest.  The kernels are built first, so no child runs nvcc."""
+def _launch_dist(torch, what: str, seed: int, shards_per_process: int,
+                 timeout: float, extra=()) -> tuple:
+    """Build the kernels here (no child runs nvcc), start the two
+    processes, and return their records by structure, process order, and
+    the wall seconds."""
     from repro_torch.kernels import backend
     from repro_torch.runtime import launch_localhost
     backend.build()
     torch.cuda.empty_cache()          # the children share the card
     t0 = time.perf_counter()
     res = launch_localhost(script=str(ROOT / "chip_smoke.py"),
-                           args=["--dist-child", kind, "--seed", str(seed)],
-                           n_procs=2, shards_per_process=32, timeout=420)
+                           args=["--dist-child", what, "--seed", str(seed),
+                                 *extra],
+                           n_procs=2, shards_per_process=shards_per_process,
+                           timeout=timeout)
     wall = time.perf_counter() - t0
-    recs = [json.loads(next(x for x in r.stdout.splitlines()
-                            if x.startswith("DIST_RESULT "))[12:])
-            for r in res]
-    check(recs[0]["digest"] == recs[1]["digest"],
-          "both processes gathered the same outputs")
-    check(all(r["scan_launches"] == r["waves"] for r in recs),
-          "one scan launch a wave in each process")
-    name = "queue_scan" if kind == "fifo" else "stack_scan"
-    rec = {"processes": 2,
-           "shards_per_process": recs[0]["shards_per_process"],
-           "wall_s": wall,
-           f"{name}_launches_by_process": [r["scan_launches"]
-                                           for r in recs],
+    by_kind: dict = {}
+    for r in res:
+        for line in r.stdout.splitlines():
+            if line.startswith("DIST_RESULT "):
+                rec = json.loads(line[12:])
+                by_kind.setdefault(rec.get("kind", what), []).append(rec)
+    check(all(len(v) == 2 for v in by_kind.values())
+          and len(by_kind) == len(what.split(",")),
+          f"both processes reported every structure: {sorted(by_kind)}")
+    return by_kind, wall
+
+
+def phase_distributed(torch, seed: int, results):
+    """Two processes on the card through ``launch_localhost``, 32 of 64
+    shards each, gloo on CUDA tensors, one pair for every structure in
+    DIST_QUEUES: the FIFO, LIFO, priority (strict and relaxation 1) and
+    Seap configurations of the one-process paths, each filled above
+    1,000,000 (Seap then drained at its lowest buckets and drifted until a
+    merge and a split show), a LEAVE of shard ids 8-23, a 50/50 burst, a
+    JOIN of 16 that interleaves the processes' shards, a drain; each
+    process checks every burst against the host model, and both print the
+    same digest.  One launch (group) of the structure's scan a wave in
+    each process, and of the relaxed kernel on the relaxed path."""
+    by_kind, wall = _launch_dist(torch, ",".join(DIST_QUEUES), seed,
+                                 DIST_N // 2, timeout=600)
+    for kind in DIST_QUEUES:
+        recs = by_kind[kind]
+        check(recs[0]["digest"] == recs[1]["digest"],
+              f"{kind}: both processes gathered the same outputs")
+        for r in recs:
+            check(all(n == r["waves"] for n in r["launches"].values()),
+                  f"{kind}: one launch a wave of {sorted(r['launches'])} "
+                  f"in each process")
+        rec = {"processes": 2,
+               "shards_per_process": recs[0]["shards_per_process"],
+               "wall_s_all_structures": wall,
+               "launches_by_process": {n: [r["launches"][n] for r in recs]
+                                       for n in recs[0]["launches"]},
+               **{k: recs[0][k] for k in recs[0] if k in (
+                   "n_shards", "cap", "payload_width", "ops_per_shard", "K",
+                   "backlog_max", "sizes_at_leave", "bursts", "waves",
+                   "active_order_after_join", "migrations", "backend",
+                   "wire_tensors", "digest", "relaxed_serves", "splits",
+                   "merges")},
+               "per_process": [{k: r[k] for k in (
+                   "rank", "local_shards_after_join", "waves_per_s",
+                   "exchange_calls", "exchange_ms_total",
+                   "exchange_ms_per_call", "exchange_send_bytes_per_call",
+                   "exchange_share_of_bursts", "burst_exchange_ms_per_call",
+                   "burst_exchange_send_bytes_per_call", "descriptor_gathers",
+                   "descriptor_gather_ms_per_call",
+                   "descriptor_send_bytes_per_call",
+                   "descriptor_share_of_bursts", "gathers",
+                   "max_memory_allocated")} for r in recs],
+               "order": "ok", "burst_log": recs[0]["burst_log"]}
+        results[f"distributed_{kind}"] = rec
+        emit(f"path:distributed_{kind}", **rec)
+
+
+def phase_distributed_serve(torch, seed: int, results):
+    """The EDF engine of ``path:serve_edf_zamba2`` in two processes on the
+    card (4 of its 8 queue shards each; zamba2-1.2b from the same seed in
+    both), replaying that path's requests: the admission order, the
+    requests served and the deadline misses must equal the one-process
+    run's, and the tokens must be equal in the two processes."""
+    one = results["serve_edf_replay"]
+    spec = ROOT / "build" / "dist_serve_requests.json"
+    spec.parent.mkdir(parents=True, exist_ok=True)
+    spec.write_text(json.dumps(one))
+    try:
+        by_kind, wall = _launch_dist(torch, "serve_edf", seed, 4,
+                                     timeout=420, extra=[str(spec)])
+    finally:
+        spec.unlink()
+    recs = by_kind["serve_edf"]
+    for r in recs:
+        check(r["admission"] == one["admission"],
+              "admission order, served requests and deadlines equal the "
+              "one-process EDF run's")
+        check(r["deadline_stats"] == results["serve_edf_zamba2"][
+            "deadline_stats"], "deadline misses equal the one-process run's")
+    check(recs[0]["tokens_digest"] == recs[1]["tokens_digest"],
+          "both processes generated the same tokens")
+    rec = {"processes": 2, "wall_s": wall,
+           "tokens_equal_one_process": recs[0]["tokens"] == one["tokens"],
            **{k: recs[0][k] for k in (
-               "n_shards", "cap", "payload_width", "ops_per_shard", "K",
-               "backlog_max", "bursts", "waves", "active_order_after_join",
-               "migrations", "backend", "wire_tensors", "digest")},
+               "arch", "shards_per_process", "queue_shards",
+               "queued_at_resize", "migrations", "queue_waves", "steps",
+               "deadline_stats", "admission_stats", "autoscale",
+               "edf_order", "tokens_digest")},
+           "one_process_decode_step_ms": results["serve_edf_zamba2"][
+               "decode_step_ms"],
            "per_process": [{k: r[k] for k in (
-               "rank", "local_shards_after_join", "waves_per_s",
+               "rank", "local_shards_after", "tiered_queue_scan_launches",
+               "wall_s", "decode_step_ms", "generated_tokens_per_s",
                "exchange_calls", "exchange_ms_total", "exchange_ms_per_call",
-               "exchange_send_bytes_per_call", "exchange_share_of_bursts",
-               "gathers",
-               "max_memory_allocated")} for r in recs],
-           "order": "ok", "burst_log": recs[0]["burst_log"]}
-    results[f"distributed_{kind}"] = rec
-    emit(f"path:distributed_{kind}", **rec)
+               "exchange_send_bytes_per_call", "exchange_share_of_wall",
+               "gathers", "max_memory_allocated")} for r in recs]}
+    results["distributed_serve_edf_zamba2"] = rec
+    emit("path:distributed_serve_edf_zamba2", **rec)
 
 
 def main() -> int:
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--dist-child", choices=("fifo", "lifo"),
+    ap.add_argument("--dist-child", help=argparse.SUPPRESS)
+    ap.add_argument("dist_spec", nargs="?", default="",
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
@@ -3318,7 +3630,7 @@ def main() -> int:
                          f"from the root of a checkout of the repository")
     sys.path.insert(0, str(SRC))
     if args.dist_child:
-        return dist_child(args.dist_child, args.seed)
+        return dist_child(args.dist_child, args.seed, args.dist_spec)
     CARD = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -3350,8 +3662,7 @@ def main() -> int:
     phase_seed_wave(torch, rng, results)
     phase_workqueue(torch, rng, results)
     phase_sim_runtime(torch, rng, results)
-    phase_distributed(torch, "fifo", args.seed, results)
-    phase_distributed(torch, "lifo", args.seed, results)
+    phase_distributed(torch, args.seed, results)
     phase_profile(torch, rng, results)
     phase_scan_device_split(torch, rng, results)
     phase_hash_balance(torch, rng, results)
@@ -3361,6 +3672,7 @@ def main() -> int:
     phase_serve_zamba2(torch, rng, results, zamba)
     phase_serve_zamba2(torch, rng, results, zamba, telemetry=True)
     phase_serve_edf_zamba2(torch, rng, results, zamba)
+    phase_distributed_serve(torch, args.seed, results)
     hb = results["hash_balance"]
 
     def scan_row(name, n, path, launches, replaces, **extra):
@@ -3376,6 +3688,12 @@ def main() -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": None, **extra}
     q24 = results[("queue_scan", TIMED_N[1])]
+    def two(path, kernel):
+        """A kernel's launches on a two-process path: both processes'."""
+        if path == "distributed_serve_edf_zamba2":
+            return sum(r["tiered_queue_scan_launches"]
+                       for r in results[path]["per_process"])
+        return sum(results[path]["launches_by_process"][kernel])
     # the tiered kernel's launches, counted on each path that runs it
     tiered = {
         "elastic_priority": results["elastic_priority"][
@@ -3384,19 +3702,24 @@ def main() -> int:
         "serve_edf_zamba2": results["serve_edf_zamba2"]["launches"][
             "tiered_queue_scan"],
         "serve_tiers_zamba2": results["serve_tiers_zamba2"]["launches"][
-            "tiered_queue_scan"]}
-    # the FIFO and stack kernels' launches on each path that runs them (the
-    # two-process paths: both processes' launches)
+            "tiered_queue_scan"],
+        **{p: two(p, "tiered_queue_scan") for p in (
+            "distributed_priority", "distributed_relaxed",
+            "distributed_seap", "distributed_serve_edf_zamba2")}}
+    # the FIFO and stack kernels' launches on each path that runs them
     fifo_paths = {
         "elastic_fifo": results["elastic_fifo"]["queue_scan_launches"],
         "workqueue": results["workqueue"]["queue_scan_launches"],
         "sim_runtime": results["sim_runtime"]["queue_scan_launches"],
-        "distributed_fifo": sum(results["distributed_fifo"][
-            "queue_scan_launches_by_process"])}
+        "distributed_fifo": two("distributed_fifo", "queue_scan")}
     lifo_paths = {
         "elastic_lifo": results["elastic_lifo"]["stack_scan_launches"],
-        "distributed_lifo": sum(results["distributed_lifo"][
-            "stack_scan_launches_by_process"])}
+        "distributed_lifo": two("distributed_lifo", "stack_scan")}
+    relaxed_paths = {
+        "elastic_relaxed_priority": results["elastic_relaxed_priority"][
+            "relaxed_deletemin_launches"],
+        "distributed_relaxed": two("distributed_relaxed",
+                                   "relaxed_deletemin")}
     kernels = [
         scan_row("queue_scan", 65_536, ", ".join(fifo_paths),
                  sum(fifo_paths.values()),
@@ -3419,9 +3742,8 @@ def main() -> int:
                  sum(lifo_paths.values()),
                  "src/repro/kernels/segscan/kernel.py:303",
                  launches_by_path=lifo_paths),
-        scan_row("tiered_queue_scan", 65_536,
-                 "elastic_priority, elastic_seap, serve_edf_zamba2, "
-                 "serve_tiers_zamba2", sum(tiered.values()),
+        scan_row("tiered_queue_scan", 65_536, ", ".join(tiered),
+                 sum(tiered.values()),
                  "src/repro/kernels/segscan/kernel.py:361",
                  launches_by_path=tiered,
                  kernels_per_call=results[("tiered_queue_scan", 65_536)][
@@ -3456,10 +3778,10 @@ def main() -> int:
         "replaces": "src/repro/core/scan_queue.py:294",
         "replaces_note": "the reference's lax.scan (:294-316); no Pallas "
                          "kernel there",
-        "path": "elastic_relaxed_priority",
+        "path": ", ".join(relaxed_paths),
         "shape": "n=65536 (one wave), P=4, relaxation 1, 64 shards",
-        "launches": results["elastic_relaxed_priority"][
-            "relaxed_deletemin_launches"],
+        "launches": sum(relaxed_paths.values()),
+        "launches_by_path": relaxed_paths,
         "matched_plain": all(r["bit_identical"] for r in cases.values()),
         "max_abs_err": max(r["max_abs_err"] for r in cases.values()),
         "ms": rel["ms"], "device_ms": rel.get("device_ms", "not measured"),

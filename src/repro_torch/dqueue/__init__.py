@@ -1,5 +1,6 @@
 """SKUEUE device path in PyTorch: queue, stack, priority tiers and Seap's
-arbitrary keys over one device's shards.
+arbitrary keys over shards on one device, or split over the processes of
+a :class:`~repro_torch.runtime.DistributedRuntime`.
 
 :class:`WaveEngine` drives a discipline (:class:`FifoDiscipline`,
 :class:`LifoDiscipline`, :class:`PriorityDiscipline`,

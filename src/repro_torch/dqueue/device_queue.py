@@ -30,7 +30,7 @@ process's shards are not contiguous in the wave's global op order.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -120,29 +120,42 @@ class FifoDiscipline(Discipline):
 
 ROADMAP_MULTI_PROCESS = "ROADMAP queue 1, item 8"
 
+# What the reference itself runs on one process only: it reads a sharded
+# array on the host, and its DistributedRuntime reads only fully
+# replicated arrays there (repro/runtime/distributed.py:18-20).  Both
+# raise RuntimeError on its two-process launcher.
+REFERENCE_LIMITS = {
+    "WorkQueue": "its WorkQueue reads the sharded dequeue outputs with "
+                 "np.asarray (repro/dqueue/work_queue.py:178-179)",
+    "save": "its save_checkpoint reads every leaf with jax.device_get "
+            "(repro/checkpoint/checkpointer.py:53)",
+}
 
-def check_runtime(runtime, what: str, multi_process: bool = False):
-    """``runtime`` if ``what`` runs on it: any of the port's runtimes, a
-    multi-process one only where ``multi_process`` says so."""
+
+def check_runtime(runtime, what: str, limit: Optional[str] = None):
+    """``runtime`` if ``what`` runs on it: any of the port's runtimes; a
+    multi-process one unless ``limit`` (a key of ``REFERENCE_LIMITS``)
+    names the reference's own reason not to run ``what`` there."""
     if not isinstance(runtime, Runtime):
         raise NotImplementedError(
             f"{type(runtime).__name__} is not one of the port's runtimes "
             "(LocalRuntime, SimRuntime, DistributedRuntime); others wait "
             f"({ROADMAP_MULTI_PROCESS})")
-    if runtime.multi_process and not multi_process:
+    if runtime.multi_process and limit is not None:
         raise NotImplementedError(
-            f"{what} on a multi-process runtime is not ported yet "
-            f"({ROADMAP_MULTI_PROCESS})")
+            f"{what} runs on one process only, as in the reference: "
+            f"{REFERENCE_LIMITS[limit]}, and the reference's runtime reads "
+            "only fully replicated arrays on the host "
+            "(repro/runtime/distributed.py:18-20)")
     return runtime
 
 
-def _make_runtime(n_shards: int, runtime, device, what: str,
-                  multi_process: bool = False):
+def _make_runtime(n_shards: int, runtime, device, what: str):
     """The runtime of a fixed-size structure: a LocalRuntime over
     ``n_shards`` on ``device`` by default."""
     if runtime is None:
         return LocalRuntime(n_shards, device=device)
-    return check_runtime(runtime, what, multi_process)
+    return check_runtime(runtime, what)
 
 
 class DeviceQueue:
@@ -181,8 +194,7 @@ class DeviceQueue:
         if metrics and not fused:
             raise ValueError("Wavescope metrics need the fused engine path "
                              "(fused=True)")
-        runtime = _make_runtime(n_shards, runtime, device, "DeviceQueue",
-                                multi_process=True)
+        runtime = _make_runtime(n_shards, runtime, device, "DeviceQueue")
         self.runtime = runtime
         self.device = runtime.device
         self.n_shards = n_shards
@@ -477,8 +489,8 @@ class DeviceStack:
                  slot_depth: int = 4, pipelined: bool = True,
                  metrics: bool = False, metrics_ring: int = 64,
                  runtime=None, shards=None, device=None):
-        self.runtime = _make_runtime(n_shards, runtime, device, "DeviceStack",
-                                     multi_process=True)
+        self.runtime = _make_runtime(n_shards, runtime, device,
+                                     "DeviceStack")
         self.device = self.runtime.device
         self.n_shards = n_shards
         self.cap = cap

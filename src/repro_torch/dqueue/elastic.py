@@ -32,15 +32,16 @@ exchange.
 (the layout in the manifest); a restore at another shard count is a
 restore at the saved count plus one migration wave.
 
-On a multi-process runtime (the queue and the stack) every process holds
-its own shards' store rows and passes the same global host ops, of which
-it places its own shards' rows.  The migration goes from the old shard
-list to the new one: each process packs its old shards' live elements,
-the one exchange delivers them to the processes that hold the new
-shards, and the moved count and lost flag are summed over the processes
-at the host read.  ``first``/``last`` are replicated.  The priority and
-Seap wrappers and ``save``/``restore`` stay on one process (ROADMAP
-queue 1, item 8).
+On a multi-process runtime every process holds its own shards' store
+rows and passes the same global host ops, of which it places its own
+shards' rows.  The migration goes from the old shard list to the new
+one: each process packs its old shards' live elements (every window's,
+for the priority tiers and Seap buckets), the one exchange delivers them
+to the processes that hold the new shards, and the moved count and lost
+flag are summed over the processes at the host read.  The intervals
+(and Seap's directory) are replicated.  ``save``/``restore`` stay on
+one process, as in the reference, whose checkpointer reads every leaf
+on the host (``repro/checkpoint/checkpointer.py:53``).
 """
 from __future__ import annotations
 
@@ -72,7 +73,6 @@ class _ElasticBase:
     and checkpoint save/restore."""
 
     _kind: str = "queue"
-    _multi_process: bool = False   # runs on a multi-process runtime
 
     def __init__(self, n_shards: int, *, cap: int = 1024,
                  payload_width: int = 4, ops_per_shard: int = 64,
@@ -83,7 +83,7 @@ class _ElasticBase:
         if runtime is None:
             runtime = LocalRuntime(pool_size or n_shards, device=device)
         else:
-            check_runtime(runtime, type(self).__name__, self._multi_process)
+            check_runtime(runtime, type(self).__name__)
             if pool_size is not None or device is not None:
                 raise ValueError("pass pool_size=/device= OR runtime=, not "
                                  "both (the runtime owns the shard pool)")
@@ -372,7 +372,7 @@ class _ElasticBase:
         """Checkpoint the state in the reference's format (the layout in
         the manifest's ``meta``).  Returns the committed directory."""
         from ..checkpoint import save_checkpoint
-        check_runtime(self.runtime, f"{type(self).__name__}.save")
+        check_runtime(self.runtime, f"{type(self).__name__}.save", "save")
         with span("checkpoint:save", cat="checkpoint", kind=self._kind,
                   step=step):
             return save_checkpoint(ckpt_dir, step, self._state_dict(),
@@ -393,7 +393,7 @@ class _ElasticBase:
         """
         from ..checkpoint import latest_step, restore_sharded
         if runtime is not None:
-            check_runtime(runtime, f"{cls.__name__}.restore")
+            check_runtime(runtime, f"{cls.__name__}.restore", "save")
         if step is None:
             step = latest_step(ckpt_dir)
             if step is None:
@@ -493,7 +493,6 @@ class ElasticDeviceQueue(_ElasticBase):
     """
 
     _kind = "queue"
-    _multi_process = True
 
     def __init__(self, n_shards: int, *, cap: int = 1024,
                  payload_width: int = 4, ops_per_shard: int = 64,
@@ -594,7 +593,6 @@ class ElasticDeviceStack(_ElasticBase):
     """
 
     _kind = "stack"
-    _multi_process = True
     _overflow_detail = ("a store slot's depth-D ticket set was exhausted "
                         "at commit time")
 

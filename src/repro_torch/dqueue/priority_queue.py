@@ -11,16 +11,20 @@ Only the dispatch differs from FIFO; the commit is the shared dense-ring
 rewrite (:func:`~.wave_engine.ring_commit`):
 
 * enqueues get per-tier FIFO positions from ONE launch of the tiered
-  sweep kernel (``kernels.segscan.make_tier_scan``), on one device straight
-  from the flat wave (the reference packs the priority into an
-  ``all_gather`` descriptor first);
+  sweep kernel (``kernels.segscan.make_tier_scan``) over the whole flat
+  wave: on one process straight from the wave, on a multi-process
+  runtime after ONE ``runtime.gather`` of the reference's int32
+  descriptor ``tier·4 + 2·is_enq + valid``; every process then runs the
+  same sweep and keeps its own shards' rows, so the tier windows are
+  replicated;
 * the wave's dequeues drain the priority-ordered pool highest tier first:
   the d-th dequeue takes the d-th best element (strict mode, prefix
   arithmetic at full width);
 * ``relaxation=k`` lets a dequeue take a locally owned head up to k tiers
   below the best one.  That resolution is sequential over the wave's
   dequeues: one launch of the relaxed kernel a wave
-  (``kernels.relaxed``), with no host read.
+  (``kernels.relaxed``), with no host read, in every process over the
+  same gathered wave (so ``n_relaxed`` is the same in each).
 """
 from __future__ import annotations
 
@@ -85,7 +89,8 @@ class PriorityDiscipline(Discipline):
         return PriorityQueueState(carry[0], carry[1], store[0], store[1])
 
     def _shards_of(self, nL: int, device) -> torch.Tensor:
-        """The issuing shard of each op of the flat wave, made once."""
+        """The issuing shard (index in the active order) of each op of
+        the whole flat wave, made once."""
         so = self._shard_of
         if so is None or so.shape[0] != nL or so.device != device:
             so = torch.div(torch.arange(nL, dtype=torch.int32, device=device),
@@ -94,10 +99,14 @@ class PriorityDiscipline(Discipline):
         return so
 
     def dispatch(self, carry, ops) -> Dispatch:
-        """Stages 1-3: assign positions and build the routed Dispatch."""
-        is_enq, valid, prio, payload = ops
+        """Stages 1-3: one tiered sweep (and, relaxed, one relaxed
+        resolution) over the whole flat wave, its descriptors gathered on
+        a multi-process runtime, then owners and slots as this process's
+        ``[n_local, L]`` rows."""
+        is_enq_l, valid_l, prio_l, payload = ops
         firsts, lasts = carry
         n, cap = self.n_shards, self.cap
+        is_enq, valid, prio = self.gather_ops(is_enq_l, valid_l, prio_l)
         shard_of = (self._shards_of(is_enq.shape[0], is_enq.device)
                     if self.relaxation > 0 else None)
         tier, pos, matched, new_firsts, new_lasts, n_relaxed = (
@@ -106,8 +115,8 @@ class PriorityDiscipline(Discipline):
                                 relaxation=self.relaxation,
                                 shard_of=shard_of, n_shards=n,
                                 tier_scan=self._tier_scan))
-        t2, p2, m2 = (x.reshape(n, -1) for x in (tier, pos, matched))
-        e2 = is_enq.reshape(n, -1)
+        t2, p2, m2 = (self.local(x) for x in (tier, pos, matched))
+        e2 = is_enq_l.view(p2.shape)
         owner = torch.where(m2, torch.remainder(p2, n), -1).to(torch.int32)
         slot = torch.where(
             m2, t2 * cap + torch.remainder(
@@ -118,9 +127,9 @@ class PriorityDiscipline(Discipline):
         # capacity holds per tier (each tier owns its own slot window)
         ovf = post_enqueue_peak_overflow(firsts, new_lasts, n * cap)
         return Dispatch(owner, slot, tag.to(torch.int32), (),
-                        payload.reshape(n, -1, self.W), m2, m2 & ~e2,
-                        (tier, pos, matched), (new_firsts, new_lasts), ovf,
-                        (n_relaxed,))
+                        payload.reshape(*p2.shape, self.W), m2, m2 & ~e2,
+                        (t2.reshape(-1), p2.reshape(-1), m2.reshape(-1)),
+                        (new_firsts, new_lasts), ovf, (n_relaxed,))
 
     def commit(self, store, recv):
         """Stage 4: apply each shard's routed requests to its store."""
@@ -142,8 +151,7 @@ class PriorityDiscipline(Discipline):
 
 
 class DevicePriorityQueue:
-    """Distributed constant-priority queue over ``n_shards`` shards on
-    one device.
+    """Distributed constant-priority queue over ``n_shards`` shards.
 
     Args:
       n_shards: shards; n_prios: tiers P (0 = most urgent); cap: slots per
@@ -151,8 +159,10 @@ class DevicePriorityQueue:
         ops_per_shard: wave width L.
       relaxation: 0 = strict priority order; k > 0 lets a dequeue take a
         locally owned head up to k tiers below the best non-empty tier.
-      pipelined, runtime, device: as
-        :class:`~repro_torch.dqueue.DeviceQueue`.
+      pipelined, runtime, shards, device: as
+        :class:`~repro_torch.dqueue.DeviceQueue` (on a multi-process
+        runtime the state holds this process's shards' store rows, and
+        ops and per-op outputs are their ``[n_local * L]`` rows).
       metrics, metrics_ring: a Wavescope row per wave into a device
         ring, as :class:`~repro_torch.dqueue.DeviceQueue`.
     """
@@ -161,7 +171,7 @@ class DevicePriorityQueue:
                  payload_width: int = 4, ops_per_shard: int = 64,
                  relaxation: int = 0, pipelined: bool = True,
                  metrics: bool = False, metrics_ring: int = 64,
-                 runtime=None, device=None):
+                 runtime=None, shards=None, device=None):
         if n_prios < 1:
             raise ValueError("need at least one priority tier")
         self.runtime = _make_runtime(n_shards, runtime, device,
@@ -178,13 +188,15 @@ class DevicePriorityQueue:
         self.engine = WaveEngine(
             n_shards, PriorityDiscipline(n_shards, n_prios, cap,
                                          payload_width, relaxation),
-            self.runtime, pipelined=pipelined, metrics=metrics,
-            metrics_ring=metrics_ring)
+            self.runtime, shards=shards, pipelined=pipelined,
+            metrics=metrics, metrics_ring=metrics_ring)
         self.disc = self.engine.disc
+        self.shards, self.n_local = self.engine.shards, self.engine.n_local
 
     def init_state(self) -> PriorityQueueState:
-        """An empty queue on this structure's device."""
-        n, cap, W, P_, dev = (self.n_shards, self.cap, self.W, self.n_prios,
+        """An empty queue on this structure's device (this process's
+        shards' store rows)."""
+        n, cap, W, P_, dev = (self.n_local, self.cap, self.W, self.n_prios,
                               self.device)
         return PriorityQueueState(
             firsts=torch.zeros(P_, dtype=torch.int32, device=dev),
@@ -259,7 +271,7 @@ class ElasticDevicePriorityQueue(_MultiWindowElastic):
                                    pipelined=self.pipelined,
                                    metrics=self.metrics,
                                    metrics_ring=self.metrics_ring,
-                                   runtime=self.runtime)
+                                   runtime=self.runtime, shards=shards)
 
     # ------------------------------------------------------------ waves ----
     def step(self, is_enq, valid, prio, payload):

@@ -12,8 +12,12 @@ directory:
 * a boundary table ``(lo[B], active[B])`` maps a key to the active bucket
   with the largest boundary ``lo <= key``;
 * enqueues get per-bucket FIFO positions from ONE launch of the tiered
-  sweep kernel with tier := bucket, on one device straight from the flat
-  wave (the reference gathers key descriptors first);
+  sweep kernel with tier := bucket over the whole flat wave: on one
+  process straight from the wave, on a multi-process runtime after ONE
+  ``runtime.gather`` of the reference's ``[n_local, L, 2]`` int32
+  descriptor (code ‖ key); every process then runs the same lookup,
+  sweep and rebalance and keeps its own shards' rows, so the directory
+  and the bucket windows are replicated;
 * the wave's dequeues drain the directory in ascending boundary order,
   FIFO inside a bucket (Skeap's batch-DeleteMin over the sorted
   directory);
@@ -96,15 +100,21 @@ class SeapDiscipline(Discipline):
         return SeapQueueState(*carry, store[0], store[1])
 
     def dispatch(self, carry, ops) -> Dispatch:
-        """Stages 1-3: assign positions and build the routed Dispatch."""
-        is_enq, valid, key, payload = ops
+        """Stages 1-3: the directory lookup, one tiered sweep and the
+        rebalance over the whole flat wave, its key descriptors gathered
+        on a multi-process runtime, then owners and slots as this
+        process's ``[n_local, L]`` rows.  Every process scans the same
+        gathered keys, so the directory stays replicated."""
+        is_enq_l, valid_l, key_l, payload = ops
         n, cap = self.n_shards, self.cap
+        is_enq, valid, key = self.gather_ops(is_enq_l, valid_l, key_l,
+                                             key_column=True)
         (bucket, pos, matched, new_firsts, new_lasts, new_lo, new_active,
          new_key_lo, new_key_hi, n_active) = seap_queue_scan(
             is_enq, key, valid, *carry, n_buckets=self.n_buckets,
             split_occupancy=self.split_occupancy, tier_scan=self._tier_scan)
-        b2, p2, m2 = (x.reshape(n, -1) for x in (bucket, pos, matched))
-        e2 = is_enq.reshape(n, -1)
+        b2, p2, m2 = (self.local(x) for x in (bucket, pos, matched))
+        e2 = is_enq_l.view(p2.shape)
         owner = torch.where(m2, torch.remainder(p2, n), -1).to(torch.int32)
         slot = torch.where(
             m2, b2 * cap + torch.remainder(
@@ -115,8 +125,8 @@ class SeapDiscipline(Discipline):
         # capacity holds per bucket (each bucket owns its own slot window)
         ovf = post_enqueue_peak_overflow(carry[0], new_lasts, n * cap)
         return Dispatch(owner, slot, tag.to(torch.int32), (),
-                        payload.reshape(n, -1, self.W), m2, m2 & ~e2,
-                        (bucket, pos, matched),
+                        payload.reshape(*p2.shape, self.W), m2, m2 & ~e2,
+                        (b2.reshape(-1), p2.reshape(-1), m2.reshape(-1)),
                         (new_firsts, new_lasts, new_lo, new_active,
                          new_key_lo, new_key_hi), ovf, (n_active,))
 
@@ -146,8 +156,7 @@ def default_split_occupancy(n_shards: int, cap: int) -> int:
 
 
 class DeviceSeapQueue:
-    """Distributed arbitrary-key queue over ``n_shards`` shards on one
-    device.
+    """Distributed arbitrary-key queue over ``n_shards`` shards.
 
     Args:
       n_shards: shards; n_buckets: directory capacity B (bucket ids, each
@@ -158,8 +167,10 @@ class DeviceSeapQueue:
         halved into a free id (default: 3/4 of a bucket window).
       seed_bounds: optional warm-start boundaries (strictly increasing
         ints, see :func:`repro_torch.core.seap.check_seed_bounds`).
-      pipelined, runtime, device: as
-        :class:`~repro_torch.dqueue.DeviceQueue`.
+      pipelined, runtime, shards, device: as
+        :class:`~repro_torch.dqueue.DeviceQueue` (on a multi-process
+        runtime the state holds this process's shards' store rows, and
+        ops and per-op outputs are their ``[n_local * L]`` rows).
       metrics, metrics_ring: a Wavescope row per wave into a device
         ring, as :class:`~repro_torch.dqueue.DeviceQueue`.
     """
@@ -168,7 +179,8 @@ class DeviceSeapQueue:
                  payload_width: int = 4, ops_per_shard: int = 64,
                  split_occupancy: Optional[int] = None, seed_bounds=None,
                  pipelined: bool = True, metrics: bool = False,
-                 metrics_ring: int = 64, runtime=None, device=None):
+                 metrics_ring: int = 64, runtime=None, shards=None,
+                 device=None):
         if n_buckets < 1:
             raise ValueError("need at least one bucket")
         if split_occupancy is None:
@@ -190,14 +202,16 @@ class DeviceSeapQueue:
         self.engine = WaveEngine(
             n_shards, SeapDiscipline(n_shards, n_buckets, cap,
                                      payload_width, split_occupancy),
-            self.runtime, pipelined=pipelined, metrics=metrics,
-            metrics_ring=metrics_ring)
+            self.runtime, shards=shards, pipelined=pipelined,
+            metrics=metrics, metrics_ring=metrics_ring)
         self.disc = self.engine.disc
+        self.shards, self.n_local = self.engine.shards, self.engine.n_local
 
     def init_state(self) -> SeapQueueState:
-        """An empty queue on this structure's device, its directory the
-        root plus the seed bounds."""
-        n, cap, W, B, dev = (self.n_shards, self.cap, self.W, self.n_buckets,
+        """An empty queue on this structure's device (this process's
+        shards' store rows), its directory the root plus the seed
+        bounds."""
+        n, cap, W, B, dev = (self.n_local, self.cap, self.W, self.n_buckets,
                              self.device)
         ns = len(self.seed_bounds)
         lo = [INT32_MIN] + self.seed_bounds + [INT32_MAX] * (B - 1 - ns)
@@ -288,7 +302,7 @@ class ElasticDeviceSeapQueue(_MultiWindowElastic):
                                pipelined=self.pipelined,
                                metrics=self.metrics,
                                metrics_ring=self.metrics_ring,
-                               runtime=self.runtime)
+                               runtime=self.runtime, shards=shards)
 
     # ------------------------------------------------------------ waves ----
     def step(self, is_enq, valid, key, payload):

@@ -6,10 +6,11 @@ process holds is one row of the leading dimension of tensors on its
 device (all of them on one process), and each of the reference's
 ``all_to_all`` collectives is one call of the runtime's exchange seam on
 a ``[src_local, dst, L, C]`` send buffer.  On a multi-process runtime a
-discipline's scan also needs the whole wave's op bits: one
-``runtime.gather`` of them a wave, the reference's descriptor
-``all_gather`` (``repro/dqueue/device_queue.py:361``).  A discipline
-(FIFO, LIFO, priority tiers) supplies
+discipline's scan also needs the whole wave's op descriptors: one
+``runtime.gather`` of them a wave (op bits; the priority tier or the
+Seap key beside them), the reference's descriptor ``all_gather``
+(``repro/dqueue/device_queue.py:361``).  A discipline (FIFO, LIFO,
+priority tiers, Seap buckets) supplies
 
 * **dispatch** (Stages 1-3): each op's position, owner shard and store
   slot, from one scan over the flat shard-major wave;
@@ -184,17 +185,40 @@ class Discipline:
         self.local_rows = (runtime.local_rows(shards)
                            if runtime.multi_process else None)
 
-    def gather_ops(self, is_x, valid):
-        """The wave's op bits, every shard's in active order: on a
-        multi-process runtime ONE ``runtime.gather`` of ``[n_local, L]``
-        uint8 codes (``2·is_x + valid``, ``n_shards·L`` bytes); on one
-        process the ops as they are."""
-        if self.local_rows is None:
-            return is_x, valid
-        code = (is_x.to(torch.uint8) * 2 + valid.to(torch.uint8)).view(
-            self.local_rows.numel(), -1)
-        g = self.runtime.gather(code, self.shards).reshape(-1)
-        return (g & 2) > 0, (g & 1) > 0
+    def gather_ops(self, is_x, valid, key=None, *, key_column=False):
+        """The wave's op descriptors, every shard's in active order: on a
+        multi-process runtime ONE ``runtime.gather`` a wave; on one
+        process the ops as they are.  Returns ``(is_x, valid)``, or
+        ``(is_x, valid, key)`` when a ``key`` is given.
+
+        The descriptor is the code ``2·is_x + valid``: ``[n_local, L]``
+        uint8 (``n_shards·L`` bytes) without a key.  A priority tier rides
+        above the code in one int32, ``key·4 + code`` (the reference's
+        ``repro/dqueue/priority_queue.py:121-124``), so the tier every
+        process reads is the key's low 30 bits, sign-extended, as there.
+        An arbitrary int32 key (``key_column=True``, Seap) keeps a column
+        of its own beside the code, ``[n_local, L, 2]``
+        (``repro/dqueue/seap_queue.py:136``), so keys at the int32 edges
+        survive whole."""
+        if key is None:
+            if self.local_rows is None:
+                return is_x, valid
+            code = is_x.to(torch.uint8) * 2 + valid.to(torch.uint8)
+        else:
+            key = key.to(torch.int32)
+            if self.local_rows is None:
+                return is_x, valid, key if key_column else (key * 4) >> 2
+            code = is_x.to(torch.int32) * 2 + valid.to(torch.int32)
+            code = (torch.stack([code, key], -1) if key_column
+                    else code + key * 4)
+        g = self.runtime.gather(
+            code.view(self.local_rows.numel(), -1, *code.shape[1:]),
+            self.shards).reshape(-1, *code.shape[1:])
+        c = g[:, 0] if key_column else g
+        out = ((c & 2) > 0, (c & 1) > 0)
+        if key is None:
+            return out
+        return out + (g[:, 1] if key_column else g >> 2,)
 
     def local(self, x):
         """A whole wave's per-op values ``[n_shards·L, ...]`` -> this

@@ -26,8 +26,11 @@ The grants, the lease dict (its order too) and the stats are the
 reference's.  The staging is numpy over whole waves, and the expiry scan
 stops at the first unexpired lease while the dict's issue steps are in
 order (which a re-grant of a held id breaks; then it scans them all).
-The queue must be on one process: the grants are read from whole host
-arrays (ROADMAP queue 1, item 8).
+The queue must be on one process, as in the reference: the grants are
+read from whole host arrays, and the reference's own ``WorkQueue`` reads
+the sharded dequeue outputs with ``np.asarray``
+(``repro/dqueue/work_queue.py:178-179``), which its multi-process
+runtime refuses.
 """
 from __future__ import annotations
 
@@ -63,12 +66,13 @@ class WorkQueue:
     Raises:
       QueueOverflowError: on oversized submit batches ("work") or when
         the backing device queue overflows ("workqueue").
-      NotImplementedError: on a multi-process runtime.
+      NotImplementedError: on a multi-process runtime (as the
+        reference, which runs it on one process only).
     """
 
     def __init__(self, dq: DeviceQueue, lease_steps: int = 8,
                  flight_k: int = 16):
-        check_runtime(dq.runtime, "WorkQueue")
+        check_runtime(dq.runtime, "WorkQueue", "WorkQueue")
         self.dq = dq
         self.state = dq.init_state()
         self.lease_steps = lease_steps

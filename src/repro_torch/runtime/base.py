@@ -9,8 +9,8 @@ every collective of the reference:
   reference's ``all_to_all`` budget: 2 per ``step``, K+1 per pipelined
   K-wave burst, 1 per migration);
 * :meth:`Runtime.gather`, the all-gather of each local shard's rows over
-  the processes (``n_gathers``): the wave's op bits on a multi-process
-  runtime, and the host reads of sharded values.
+  the processes (``n_gathers``): the wave's op descriptors on a
+  multi-process runtime, and the host reads of sharded values.
 
 The implementations decide what a shard physically is:
 

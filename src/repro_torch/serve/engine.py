@@ -60,7 +60,6 @@ import torch
 
 from ..dqueue import (ElasticDevicePriorityQueue, ElasticDeviceQueue,
                       ElasticDeviceSeapQueue, ServeInvariantError)
-from ..dqueue.device_queue import check_runtime
 from ..kernels.backend import resolve_device
 from ..obs.trace import span
 from .admission import AdmissionRejected, PressureSignal, resolve_policy
@@ -127,10 +126,15 @@ class ServeEngine:
         ``max_shards`` defaults to the queue's shard pool.
       pool_size: shards available to ``resize`` (default ``n_shards``).
       device: default CUDA; raises where there is none.
-      runtime: a :class:`~repro_torch.runtime.LocalRuntime` or
-        :class:`~repro_torch.runtime.SimRuntime` owning the queue's shard
-        pool and device (exclusive with ``pool_size``/``device``); a
-        multi-process runtime raises ``NotImplementedError``.
+      runtime: a :class:`~repro_torch.runtime.LocalRuntime`,
+        :class:`~repro_torch.runtime.SimRuntime` or
+        :class:`~repro_torch.runtime.DistributedRuntime` owning the
+        queue's shard pool and device (exclusive with
+        ``pool_size``/``device``).  On a multi-process runtime every
+        process builds the engine with the same arguments, submits the
+        same requests and decodes on its own replica of the model, as in
+        the reference; the queue's shards are split over the processes
+        and each granted request id is gathered to all of them.
 
     Raises:
       ValueError: incompatible discipline flags or unknown policy name.
@@ -145,8 +149,6 @@ class ServeEngine:
                  flight_k: int = 16, admission=None, spill_cap: int = 64,
                  autoscale=None, pool_size: Optional[int] = None,
                  device=None, runtime=None):
-        if runtime is not None:
-            check_runtime(runtime, "ServeEngine")
         if deadline and priorities > 1:
             raise ValueError("deadline=True (EDF via the Seap queue) and "
                              "priorities > 1 (SLA tiers) are exclusive "
@@ -405,12 +407,13 @@ class ServeEngine:
             key.flat[j] = [self.requests[rid].deadline if self.deadline
                            else self.requests[rid].prio for rid in enq_rids]
             ops.insert(2, key)
-        out = q.run_waves(*(torch.from_numpy(a).to(self.device)
-                            for a in ops))
+        # the elastic wrapper places each array (this process's shards'
+        # rows of it on a multi-process runtime)
+        out = q.run_waves(*(torch.from_numpy(a) for a in ops))
         k = q.inner.disc.n_disp_outs             # dequeued values follow
         dv, dok = out[k], out[k + 1]
-        dv = q.runtime.to_host(dv).reshape(n_waves * n, 2)
-        dok = q.runtime.to_host(dok).reshape(n_waves * n)
+        dv = q.runtime.to_host(dv, q.shards, 1).reshape(n_waves * n, 2)
+        dok = q.runtime.to_host(dok, q.shards, 1).reshape(n_waves * n)
         got = [int(x) for x in dv[dok, 0]]
         self._host_qsize += len(enq_rids) - len(got)
         return got

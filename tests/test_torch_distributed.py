@@ -18,8 +18,9 @@ the FIFO run to the JAX package's ``ElasticDeviceQueue`` on a forced
 pipelined burst, 2 a step, 1 a migration), and the two-process run adds
 one gather a wave (the op bits), one a LIFO burst (its overflow flag)
 and one a migration (the moved count and lost flag).  The Wavescope
-rows each process drains (gathered) equal one process's.  The unported
-structures raise ``NotImplementedError`` there.
+rows each process drains (gathered) equal one process's.  ``WorkQueue``
+and ``save``/``restore``, which the reference runs on one process only,
+raise ``NotImplementedError`` there, naming the reference's limit.
 """
 import json
 
@@ -150,17 +151,12 @@ for kind in ("fifo", "lifo", "seed"):
         np.savez(f"{sys.argv[1]}/{kind}.npz", **out)
     result[kind] = {"counts": counts, "digest": digest}
 
-# the structures that stay on one process refuse the multi-process runtime
-from repro_torch.dqueue import (DeviceQueue, ElasticDevicePriorityQueue,
-                                ElasticDeviceQueue, ElasticDeviceSeapQueue,
-                                WorkQueue)
-from repro_torch.serve import ServeEngine
+# what the reference runs on one process only refuses the multi-process
+# runtime, naming the reference's own limit
+from repro_torch.dqueue import DeviceQueue, ElasticDeviceQueue, WorkQueue
 refused = []
 for name, make in [
-        ("priority", lambda: ElasticDevicePriorityQueue(8, runtime=rt)),
-        ("seap", lambda: ElasticDeviceSeapQueue(8, runtime=rt)),
         ("workqueue", lambda: WorkQueue(DeviceQueue(8, cap=8, runtime=rt))),
-        ("serve", lambda: ServeEngine(None, None, runtime=rt)),
         ("save", lambda: ElasticDeviceQueue(8, cap=8, runtime=rt).save(
             sys.argv[1] + "/ckpt", 1)),
         ("restore", lambda: ElasticDeviceQueue.restore(
@@ -168,8 +164,7 @@ for name, make in [
     try:
         make()
     except NotImplementedError as e:
-        if "ROADMAP queue 1, item 8" in str(e):
-            refused.append(name)
+        refused.append([name, str(e)])
 result["refused"] = refused
 result["snapshot"] = rt.snapshot()
 rt.close()
@@ -305,10 +300,20 @@ def test_two_process_fifo_matches_jax(two_process, jax_fifo):
 
 
 def test_unported_structures_refuse_two_processes(two_process):
+    """WorkQueue and save/restore stay on one process, as in the
+    reference (whose two-process runs raise at these lines); the message
+    names the reference's limit, not a port still to do."""
     parsed, _ = two_process
+    where = {"workqueue": "repro/dqueue/work_queue.py:178-179",
+             "save": "repro/checkpoint/checkpointer.py:53",
+             "restore": "repro/checkpoint/checkpointer.py:53"}
     for p in parsed:
-        assert p["refused"] == ["priority", "seap", "workqueue", "serve",
-                                "save", "restore"]
+        assert [name for name, _ in p["refused"]] == ["workqueue", "save",
+                                                      "restore"]
+        for name, msg in p["refused"]:
+            assert where[name] in msg, msg
+            assert "repro/runtime/distributed.py:18-20" in msg, msg
+            assert "not ported" not in msg, msg
 
 
 def test_launcher_reports_a_failing_child():

@@ -919,6 +919,55 @@ def test_two_processes_on_gpu_match_one_process_on_cpu(cuda, tmp_path):
             assert np.array_equal(got[k], want[k]), (kind, k)
 
 
+# the relaxed schedule of tests/test_torch_distributed_tiers.py, each
+# process on the card, counting its kernels' launches
+GPU_TIERS_CHILD = r"""
+import json, sys
+import numpy as np
+from repro_torch.kernels.relaxed import relaxed_deletemin
+from repro_torch.kernels.segscan import tiered_queue_scan
+from repro_torch.runtime import DistributedRuntime
+rt = DistributedRuntime.from_env(device="cuda")
+out, counts, digest = run("relaxed", rt)
+launches = [tiered_queue_scan.launches, relaxed_deletemin.launches,
+            sum(k for _, k, _, _ in counts)]
+if rt.process_role.coordinator:
+    np.savez(f"{sys.argv[1]}/relaxed.npz", **out)
+print("RESULT" + json.dumps([digest, launches]))
+rt.close()
+"""
+
+
+def test_two_process_relaxed_priority_on_gpu_matches_cpu(cuda, tmp_path):
+    """The relaxed priority queue in two processes sharing the card (4 of
+    8 shards each) through the interleaving LEAVE and JOINs: gathered
+    outputs, relaxed-serve counts and final store equal one process's on
+    the CPU, and each process launches the tiered and the relaxed kernel
+    once a wave over the same gathered wave."""
+    import json
+
+    from test_torch_distributed_tiers import SCHEDULE
+
+    from repro_torch.kernels import backend
+    from repro_torch.runtime import LocalRuntime, launch_localhost
+    backend.build()                    # no child waits on nvcc
+    res = launch_localhost(code=SCHEDULE + GPU_TIERS_CHILD,
+                           args=[str(tmp_path)], n_procs=2,
+                           shards_per_process=4, timeout=300)
+    ns = {}
+    exec(SCHEDULE, ns)
+    want, _, digest = ns["run"]("relaxed", LocalRuntime(8, device="cpu"))
+    got = dict(np.load(tmp_path / "relaxed.npz"))
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert np.array_equal(got[k], want[k]), k
+    for r in res:
+        line = [x for x in r.stdout.splitlines() if x.startswith("RESULT")]
+        got_digest, (tiered, relaxed, waves) = json.loads(line[0][6:])
+        assert got_digest == digest
+        assert tiered == relaxed == waves > 0
+
+
 def test_work_queue_on_gpu_matches_cpu(cuda):
     """The seeded WorkQueue scenario of tests/test_torch_work_queue.py:
     grants, stats and leases on the card equal the CPU's."""
