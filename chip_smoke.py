@@ -25,7 +25,17 @@ size:
   priority queue (8 -> 6 shards) through the hash-route report, a
   300-tier priority queue (4 -> 6 -> 4 shards) and a Seap queue with keys
   at both int32 edges (8 -> 6 -> 8 shards), each on the card against the
-  same waves on the CPU;
+  same waves on the CPU, and op by op against the port's host oracles
+  (``PriorityOracle``, ``SeapOracle``);
+* the paper's protocol (the port's ``Skueue``, host code) at Fig. 4's
+  full setting, 1,024 processes at 1.0 requests per virtual node per
+  round for 120 rounds, in queue mode and in stack mode with local
+  combining, through 32 JOINs and 16 LEAVEs (the anchor's process among
+  them) to quiescence, checked by the port's consistency checker; then
+  its total order replayed through the elastic FIFO queue and stack on
+  the card (64 -> 48 -> 64 shards), every position, ⊥ flag and dequeued
+  element the protocol's; and ``synthetic_tokens`` on the card against
+  the CPU at the prefill's shape;
 * the prefill of zamba2-1.2b at full width and depth (random weights
   from the seed): 4 prompts of 4,096 tokens through 6 flash-attention
   calls (all on the tensor-core kernel) and 38 SSD-scan calls (three
@@ -1011,11 +1021,61 @@ def phase_elastic_priority(torch, rng, results):
     emit("path:elastic_priority", **rec)
 
 
+def _hold_to_priority_oracle(oracle, staged, out, n_shards) -> None:
+    """Each wave of a burst through the port's ``PriorityOracle``, op by
+    op: tiers, positions, ⊥ flags, dequeued ids and relaxed serves must be
+    the card's."""
+    from repro_torch.core.priority import DEQ, ENQ
+    E, V, PR, P = staged
+    tier, pos, m, dv, dok, _ovf, nrel = out
+    L = E.shape[1] // n_shards
+    for k in range(E.shape[0]):
+        ops = [None if not V[k, i] else
+               (ENQ, int(PR[k, i]), int(P[k, i, 0]), i // L) if E[k, i]
+               else (DEQ, 0, None, i // L) for i in range(E.shape[1])]
+        recs = oracle.wave(ops, n_shards=n_shards)
+        check(np.array_equal(tier[k], [r.tier for r in recs]) and
+              np.array_equal(pos[k], [r.pos for r in recs]) and
+              np.array_equal(m[k], [r.matched for r in recs]),
+              "tiers, positions and ⊥ flags equal PriorityOracle's")
+        got = [r.value is not None for r in recs]
+        check(np.array_equal(dok[k], got) and np.array_equal(
+            dv[k][dok[k], 0], [r.value for r in recs if r.value is not None]),
+              "dequeued ids equal PriorityOracle's")
+        check(int(nrel[k]) == sum(r.relaxed for r in recs),
+              "relaxed serves equal PriorityOracle's")
+
+
+def _hold_to_seap_oracle(oracle, staged, out) -> None:
+    """Each wave of a burst through the port's ``SeapOracle``, op by op:
+    buckets, positions, ⊥ flags, dequeued ids and the active bucket count
+    must be the card's."""
+    from repro_torch.core.seap import DEQ, ENQ
+    E, V, KEY, P = staged
+    bucket, pos, m, dv, dok, _ovf, nact = out
+    for k in range(E.shape[0]):
+        ops = [None if not V[k, i] else
+               (ENQ, int(KEY[k, i]), int(P[k, i, 0])) if E[k, i]
+               else (DEQ, 0, None) for i in range(E.shape[1])]
+        recs = oracle.wave(ops)
+        check(np.array_equal(bucket[k], [r.bucket for r in recs]) and
+              np.array_equal(pos[k], [r.pos for r in recs]) and
+              np.array_equal(m[k], [r.matched for r in recs]),
+              "buckets, positions and ⊥ flags equal SeapOracle's")
+        got = [r.value is not None for r in recs]
+        check(np.array_equal(dok[k], got) and np.array_equal(
+            dv[k][dok[k], 0], [r.value for r in recs if r.value is not None]),
+              "dequeued ids equal SeapOracle's")
+        check(int(nact[k]) == oracle.n_active,
+              "active buckets equal SeapOracle's")
+
+
 def phase_priority_many_tiers(torch, rng, results):
     """ElasticDevicePriorityQueue with 300 tiers, more than one tiered
     launch takes (two launches a wave, counted), on 4 shards: two bursts, a JOIN of 2, a
     burst, a LEAVE of 2 and a drain, on the card against the same staged
     waves on the CPU (bit for bit) and the host tier model."""
+    from repro_torch.core.priority import PriorityOracle
     from repro_torch.dqueue import ElasticDevicePriorityQueue
     from repro_torch.kernels.segscan import tiered_queue_scan
     P_, N, CAP, W, L, K = 300, 4, 256, 4, 1_024, 4
@@ -1024,6 +1084,7 @@ def phase_priority_many_tiers(torch, rng, results):
         pool_size=8, device=d) for d in ("cuda", "cpu")}
     card = queues["cuda"]
     model = TierChecker(P_, [1 / P_] * P_)
+    oracle = PriorityOracle(P_)
     plan = [("burst", 0.7), ("burst", 0.7), ("grow", 2), ("burst", 0.5),
             ("shrink", [4, 5]), ("burst", 0.0), ("burst", 0.0)]
     bursts, migrations, waves, seconds, high = [], [], 0, 0.0, 0
@@ -1052,7 +1113,10 @@ def phase_priority_many_tiers(torch, rng, results):
               "300 tiers: the card's burst bit-identical to the CPU's")
         bursts.append(model.verify(*staged, *outs["cuda"],
                                    n_shards=card.n_shards))
-        check(card.sizes == model.sizes, "tier sizes match the model")
+        _hold_to_priority_oracle(oracle, staged, outs["cuda"],
+                                 card.n_shards)
+        check(card.sizes == model.sizes == oracle.sizes,
+              "tier sizes match the model and PriorityOracle")
         high += int((outs["cuda"][0] >= 256).sum())
         waves += K
     launches = tiered_queue_scan.launches
@@ -1067,6 +1131,7 @@ def phase_priority_many_tiers(torch, rng, results):
            "tiered_scan_launches": launches,
            "ops_in_tiers_past_255": high, "migrations": migrations,
            "card_equals_cpu": True, "priority_order": "ok",
+           "priority_oracle": "equal",
            "bursts": bursts}
     results["priority_300_tiers"] = rec
     emit("path:priority_300_tiers", **rec)
@@ -1076,6 +1141,7 @@ def phase_relaxed_priority(torch, rng, results):
     """A small relaxed queue (8 shards x 64 ops, relaxation 1): the host
     resolution loop, and an 8 -> 6 migration whose hash-balance report
     goes through the hash-route kernel."""
+    from repro_torch.core.priority import PriorityOracle
     from repro_torch.dqueue import ElasticDevicePriorityQueue
     from repro_torch.kernels.hash_route import hash_route
     dev = torch.device("cuda")
@@ -1084,6 +1150,7 @@ def phase_relaxed_priority(torch, rng, results):
                                     payload_width=4, ops_per_shard=64,
                                     pool_size=8, device="cuda")
     model = TierChecker(4, [0.1, 0.2, 0.3, 0.4], relaxation=1)
+    oracle = PriorityOracle(4, relaxation=1)
     waves = seconds = 0.0
     logs = []
 
@@ -1096,9 +1163,11 @@ def phase_relaxed_priority(torch, rng, results):
         torch.cuda.synchronize()
         seconds += time.perf_counter() - t0
         waves += K
-        logs.append(model.verify(*staged, *(o.cpu().numpy() for o in out),
-                                 n_shards=eq.n_shards))
-        check(eq.sizes == model.sizes, "tier sizes match the model")
+        host = [o.cpu().numpy() for o in out]
+        logs.append(model.verify(*staged, *host, n_shards=eq.n_shards))
+        _hold_to_priority_oracle(oracle, staged, host, eq.n_shards)
+        check(eq.sizes == model.sizes == oracle.sizes,
+              "tier sizes match the model and PriorityOracle")
 
     for p_enq in (0.7, 0.7, 0.5):
         burst(p_enq)
@@ -1114,7 +1183,8 @@ def phase_relaxed_priority(torch, rng, results):
            "waves": waves, "ms_per_wave": seconds / waves * 1e3,
            "relaxed_serves": sum(r["relaxed"] for r in logs),
            "hash_balance": st["hash_balance"],
-           "hash_route_launches": hash_route.launches, "bursts": logs}
+           "hash_route_launches": hash_route.launches,
+           "priority_oracle": "equal", "bursts": logs}
     results["relaxed_priority"] = rec
     emit("path:relaxed_priority", **rec)
 
@@ -1366,6 +1436,7 @@ def phase_seap_card_vs_cpu(torch, rng, results):
     1,024 ops, keys with clusters at INT32_MIN and INT32_MAX) on the card
     and on the CPU: every burst, the migrations (the hash-route report
     included) and the final state bit for bit, and the host model."""
+    from repro_torch.core.seap import SeapOracle
     from repro_torch.dqueue import ElasticDeviceSeapQueue
     from repro_torch.kernels.hash_route import hash_route
     from repro_torch.kernels.segscan import tiered_queue_scan
@@ -1375,6 +1446,7 @@ def phase_seap_card_vs_cpu(torch, rng, results):
         split_occupancy=OCC, pool_size=8, device=d) for d in ("cuda", "cpu")}
     card = queues["cuda"]
     model = SeapChecker(B, OCC)
+    oracle = SeapOracle(B, split_occupancy=OCC)
     plan = [("burst", 0.7), ("burst", 0.7), ("shrink", [6, 7]),
             ("burst", 0.5), ("grow", 2), ("burst", 0.3), ("burst", 0.0)]
     bursts, migrations, waves, seconds = [], [], 0, 0.0
@@ -1407,8 +1479,9 @@ def phase_seap_card_vs_cpu(torch, rng, results):
                                                        outs["cpu"])),
               "Seap: the card's burst bit-identical to the CPU's")
         bursts.append(model.verify(*staged, *outs["cuda"]))
-        check(card.directory() == model.directory(),
-              "the directory matches the model")
+        _hold_to_seap_oracle(oracle, staged, outs["cuda"])
+        check(card.directory() == model.directory() == oracle.directory(),
+              "the directory matches the model and SeapOracle")
         waves += K
     state = [[x.cpu() for x in q.state] for q in queues.values()]
     junk = B * CAP
@@ -1426,9 +1499,226 @@ def phase_seap_card_vs_cpu(torch, rng, results):
            "hash_route_launches": hash_route.launches,
            "splits": model.splits, "merges": model.merges,
            "directory": model.directory(), "migrations": migrations,
-           "card_equals_cpu": True, "bursts": bursts}
+           "card_equals_cpu": True, "seap_oracle": "equal",
+           "bursts": bursts}
     results["seap_card_vs_cpu"] = rec
     emit("path:seap_card_vs_cpu", **rec)
+
+
+# ------------------------------------------------- the paper's protocol --
+# The port's Skueue at Fig. 4's ``--full`` setting (n = 1,024 processes,
+# rate 1.0 per virtual node per round, 120 rounds, half enqueues), with
+# churn: 16 processes JOIN at round 30 and 16 more at round 60, and 16
+# processes (the anchor's among them) LEAVE at round 90.  Its total order
+# ≺ (value(op), the paper's virtual counter) is then replayed on the card:
+# the FIFO in waves of 64 x 1,024 ops; the stack's 70,000-odd global
+# requests (the rest pair up locally) in waves of 64 x 256, so that the
+# replay has a wave after each migration.  LEAVE 16 of 64 shards after the
+# second wave, JOIN them back after the fourth.
+PROTO_N, PROTO_RATE, PROTO_ROUNDS, PROTO_P_ENQ = 1_024, 1.0, 120, 0.5
+PROTO_JOINS = {30: 16, 60: 16}          # round -> processes that JOIN
+PROTO_LEAVE = (90, 16)                  # round, processes that LEAVE
+PROTO_SHAPES = {"queue": {"cap": 65_536, "ops_per_shard": 1_024},
+                "stack": {"cap": 32_768, "ops_per_shard": 256,
+                          "slot_depth": 4}}
+PROTO_PLAN = {2: ("shrink", list(range(48, 64))), 4: ("grow", 16)}
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def protocol_run(mode: str, seed: int, n: int = PROTO_N,
+                 rounds: int = PROTO_ROUNDS, joins=PROTO_JOINS,
+                 leave=PROTO_LEAVE, impl=None):
+    """The port's ``Skueue`` (stack: with local combining) under random
+    requests and the churn schedule, run until every request is done and
+    every JOIN and LEAVE integrated, then checked: sequential consistency
+    (the port's checker), DHT placement, membership.  Host code only.
+    ``impl``, a ``(Skueue, check_sequential_consistency)`` pair, runs
+    another implementation on the same schedule (a comparison passes the
+    reference's; this script never imports it)."""
+    from repro_torch.core.consistency import check_sequential_consistency
+    from repro_torch.core.protocol import DEQ, ENQ, Skueue
+    if impl is not None:
+        Skueue, check_sequential_consistency = impl
+    sk = Skueue(n, mode=mode, seed=seed)
+    rng = np.random.default_rng(seed + 1)
+    anchor_pid = sk.ring.proc[sk.ring.anchor]
+    leavers = [anchor_pid] + [p for p in range(n)
+                              if p != anchor_pid][:leave[1] - 1]
+
+    def inject(s, rnd):
+        for _ in range(joins.get(rnd, 0)):
+            s.request_join()
+        if rnd == leave[0]:
+            for pid in leavers:
+                s.request_leave(pid)
+        nids = s.ring.node_ids()
+        for _ in range(rng.binomial(len(nids), PROTO_RATE)):
+            s.inject(nids[int(rng.integers(len(nids)))],
+                     ENQ if rng.random() < PROTO_P_ENQ else DEQ)
+
+    t0 = time.perf_counter()
+    sk.run_rounds(rounds, inject_fn=inject)
+    extra = 0
+    while sk.pending_membership or sk.update_active:
+        sk.run_rounds(1)
+        extra += 1
+        check(extra <= 10_000, "the membership changes complete")
+    sim_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stats = check_sequential_consistency(sk)
+    sk.check_dht_placement()
+    check_s = time.perf_counter() - t0
+    procs = {sk.ring.proc[v] for v in sk.ring.node_ids()}
+    check(sk.pending_membership == 0, "pending_membership == 0")
+    check(not procs & set(leavers), "no node runs on a process that left")
+    check(len(procs) == n + sum(joins.values()) - len(leavers),
+          "every JOIN and LEAVE took effect")
+    lat = [r.t_done - r.t_issue for r in sk.requests]
+    return sk, {
+        "mode": mode, "n": n, "rate": PROTO_RATE, "rounds": rounds,
+        "p_enq": PROTO_P_ENQ, "joins": joins, "leave": list(leave),
+        "anchor_left": anchor_pid, "requests": stats["n_requests"],
+        "global_requests": stats["n_requests"] - stats["n_locally_paired"],
+        "locally_paired": stats["n_locally_paired"],
+        "mean_rounds_per_request": float(np.mean(lat)),
+        "total_msgs": sk.total_msgs, "update_phases": sk.update_phases,
+        "max_batch_runs": sk.stats_batch_max_runs,
+        "rounds_to_quiescence": sk.now, "processes": len(procs),
+        "virtual_nodes": sk.ring.size, "consistent": True,
+        "dht_placement": "ok", "pending_membership": 0,
+        "host_sim_s": sim_s, "host_check_s": check_s}
+
+
+def replay_protocol(torch, sk, es, plan) -> dict:
+    """Feed the protocol's total order ≺ (its global requests by
+    value(op); locally paired stack requests never reach the anchor) to
+    the elastic structure ``es`` one wave of ``es.n_shards * es.L`` ops at
+    a time, the element's id (``rid``) in payload word 0, migrating after
+    the waves ``plan`` names.  Every op's position and ⊥ flag and every
+    dequeued element must be the protocol's; no wave may overflow."""
+    from repro_torch.core.intervals import BOTTOM
+    reqs = sorted((r for r in sk.requests if r.order != -1),
+                  key=lambda r: r.order)
+    enq = np.array([r.kind == "enq" for r in reqs])
+    elem = np.array([r.elem if r.kind == "enq" else 0 for r in reqs],
+                    np.int64)
+    want_pos = np.array([BOTTOM if r.pos is None else r.pos for r in reqs],
+                        np.int64)
+    want_res = np.array([r.result if r.kind == "deq" and r.result != BOTTOM
+                         else 0 for r in reqs], np.int64)
+    dev, rt = es.device, es.runtime
+    waves, start, seconds, migrations, n_bottom = 0, 0, 0.0, [], 0
+    while start < len(reqs):
+        n = es.n_shards * es.L
+        m = min(n, len(reqs) - start)
+        sl = slice(start, start + m)
+        E, V = np.zeros(n, bool), np.zeros(n, bool)
+        E[:m], V[:m] = enq[sl], True
+        P = np.zeros((n, es.W), np.int32)
+        P[:m] = _payload(elem[sl])
+        args = [torch.from_numpy(x).to(dev) for x in (E, V, P)]
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        out = es.step(*args)
+        _sync(torch, dev)
+        seconds += time.perf_counter() - t0
+        pos, mt, dv, dok, ovf = (x.cpu().numpy() for x in out)
+        matched = want_pos[sl] != BOTTOM
+        deq_ok = ~enq[sl] & matched
+        check(not ovf.any(), "no wave overflows")
+        check(np.array_equal(pos[:m], want_pos[sl]),
+              "positions equal the protocol's")
+        check(np.array_equal(mt[:m], matched) and not mt[m:].any(),
+              "⊥ flags equal the protocol's")
+        check(np.array_equal(dok[:m], deq_ok),
+              "every matched dequeue found its element")
+        check(np.array_equal(dv[:m][deq_ok], _payload(want_res[sl][deq_ok])),
+              "dequeued elements equal the protocol's, whole")
+        n_bottom += int((~enq[sl] & ~matched).sum())
+        waves += 1
+        start += m
+        if waves in plan:
+            kind, arg = plan[waves]
+            _migrate(es, rt, es.shrink if kind == "shrink" else es.grow, arg,
+                     migrations)
+            hb = es.migrations[-1].get("hash_balance")
+            migrations[-1]["hash_balance"] = hb
+            check(hb is None or sum(hb["counts"]) == es.size,
+                  "the hash-route report covers every live position")
+    want_size = sk.queue_size()
+    check(es.size == want_size, "the size equals the protocol anchor's")
+    return {"waves": waves, "ops": len(reqs), "bottom": n_bottom,
+            "ops_per_wave_64_shards": 64 * es.L, "final_size": es.size,
+            "replay_wall_ms": seconds * 1e3,
+            "waves_per_s": waves / seconds, "migrations": migrations,
+            "positions_bottoms_elements_equal": True, "overflow": False}
+
+
+def phase_protocol_replay(torch, seed, results):
+    """The paper's protocol in queue and stack mode (host), then its order
+    replayed through the elastic FIFO queue and stack on the card."""
+    from repro_torch.dqueue import ElasticDeviceQueue, ElasticDeviceStack
+    from repro_torch.kernels.hash_route import hash_route
+    from repro_torch.kernels.segscan import queue_scan, stack_scan
+    rec = {}
+    for mode, cls, scan in (("queue", ElasticDeviceQueue, queue_scan),
+                            ("stack", ElasticDeviceStack, stack_scan)):
+        sk, proto = protocol_run(mode, seed)
+        es = cls(64, payload_width=4, device="cuda", **PROTO_SHAPES[mode])
+        queue_scan.launches = stack_scan.launches = hash_route.launches = 0
+        rep = replay_protocol(torch, sk, es, PROTO_PLAN)
+        launches = {"queue_scan": queue_scan.launches,
+                    "stack_scan": stack_scan.launches,
+                    "hash_route": hash_route.launches}
+        check(launches[scan.__name__] == rep["waves"],
+              f"one {scan.__name__} launch a wave")
+        check(launches["hash_route"] == sum(
+            m["hash_balance"] is not None for m in rep["migrations"]),
+              "one hash-route launch a reported migration")
+        rec[mode] = {**proto, **rep, **PROTO_SHAPES[mode], "n_shards":
+                     "64 -> 48 -> 64", "launches": launches}
+        del es
+    for kernel in ("queue_scan", "stack_scan", "hash_route"):
+        check(sum(r["launches"][kernel] for r in rec.values()) > 0,
+              f"the replay launched {kernel}")
+    results["protocol_replay"] = rec
+    emit("path:protocol_replay", **rec)
+
+
+def phase_data_pipeline(torch, results):
+    """``synthetic_tokens`` on the card against the CPU, bit for bit, at
+    the zamba2-1.2b prefill's shape (4 x 4,097 tokens), and two workers'
+    slices of ``GlobalOrderPipeline`` against one worker's batch."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import GlobalOrderPipeline, synthetic_tokens
+    vocab = get_config("zamba2_1p2b").vocab
+    B, T, step = 4, 4_096, 7
+    idx = np.arange(step * B, step * B + B)
+    card = synthetic_tokens(idx, T + 1, vocab)
+    host = synthetic_tokens(idx, T + 1, vocab, device="cpu")
+    check(card.is_cuda and tuple(card.shape) == (B, T + 1),
+          "tokens on the card, of the prefill's shape")
+    check(torch.equal(card.cpu(), host), "card tokens equal the CPU's")
+    pipe = GlobalOrderPipeline(T, vocab, B)
+    full = pipe.batch_at_step(step)
+    halves = [pipe.batch_at_step(step, n_workers=2, worker=w)
+              for w in (0, 1)]
+    for k in ("tokens", "targets", "sample_indices"):
+        check(torch.equal(torch.cat([h[k] for h in halves]), full[k]),
+              f"two workers' {k} concatenate to one worker's")
+    check(torch.equal(full["tokens"].cpu(), host[:, :-1]) and
+          torch.equal(full["targets"].cpu(), host[:, 1:]),
+          "the pipeline's batch is the step's tokens")
+    ms = time_ms(lambda: synthetic_tokens(idx, T + 1, vocab), 20, torch)
+    rec = {"shape": [B, T + 1], "vocab": vocab, "step": step,
+           "card_equals_cpu": True, "workers_concatenate": True,
+           "synthetic_tokens_ms": ms}
+    results["data_pipeline"] = rec
+    emit("path:data_pipeline", **rec)
 
 
 def _profile_burst(torch, structure, staged, label: str) -> dict:
@@ -3657,6 +3947,8 @@ def main() -> int:
     phase_relaxed_priority(torch, rng, results)
     phase_elastic_seap(torch, rng, results)
     phase_seap_card_vs_cpu(torch, rng, results)
+    phase_protocol_replay(torch, args.seed, results)
+    phase_data_pipeline(torch, results)
     phase_telemetry(torch, rng, results)
     phase_checkpoint_fault(torch, rng, results)
     phase_seed_wave(torch, rng, results)
@@ -3706,15 +3998,27 @@ def main() -> int:
         **{p: two(p, "tiered_queue_scan") for p in (
             "distributed_priority", "distributed_relaxed",
             "distributed_seap", "distributed_serve_edf_zamba2")}}
-    # the FIFO and stack kernels' launches on each path that runs them
+    # the FIFO, stack and hash-route kernels' launches on each path that
+    # runs them
+    replay = {mode: r["launches"]
+              for mode, r in results["protocol_replay"].items()}
     fifo_paths = {
         "elastic_fifo": results["elastic_fifo"]["queue_scan_launches"],
         "workqueue": results["workqueue"]["queue_scan_launches"],
         "sim_runtime": results["sim_runtime"]["queue_scan_launches"],
-        "distributed_fifo": two("distributed_fifo", "queue_scan")}
+        "distributed_fifo": two("distributed_fifo", "queue_scan"),
+        "protocol_replay": replay["queue"]["queue_scan"]}
     lifo_paths = {
         "elastic_lifo": results["elastic_lifo"]["stack_scan_launches"],
-        "distributed_lifo": two("distributed_lifo", "stack_scan")}
+        "distributed_lifo": two("distributed_lifo", "stack_scan"),
+        "protocol_replay": replay["stack"]["stack_scan"]}
+    hash_paths = {
+        "hash_balance": hb["hash_route_launches"],
+        "relaxed_priority": results["relaxed_priority"][
+            "hash_route_launches"],
+        "seap_card_vs_cpu": results["seap_card_vs_cpu"][
+            "hash_route_launches"],
+        "protocol_replay": sum(r["hash_route"] for r in replay.values())}
     relaxed_paths = {
         "elastic_relaxed_priority": results["elastic_relaxed_priority"][
             "relaxed_deletemin_launches"],
@@ -3731,8 +4035,10 @@ def main() -> int:
         {"name": "hash_route", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/hash_route.cu",
          "replaces": "src/repro/kernels/hash_route/kernel.py:49",
-         "path": "hash_balance", "shape": f"n={hb['n']}, 6 shards",
-         "launches": hb["hash_route_launches"],
+         "path": ", ".join(hash_paths),
+         "shape": f"n={hb['n']}, 6 shards (hash_balance)",
+         "launches": sum(hash_paths.values()),
+         "launches_by_path": hash_paths,
          "matched_plain": hb["identical"],
          "max_abs_err": hb["max_abs_err"], "ms": hb["ms"],
          "device_ms": hb["device_ms"], "device_kernels": hb["device_kernels"],

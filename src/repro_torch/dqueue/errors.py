@@ -20,9 +20,17 @@ class QueueOverflowError(RuntimeError):
     structure's contents are no longer trustworthy.
 
     Attributes:
-      kind: the structure ("queue").
-      capacity: elements one window holds (``n_shards * cap`` for FIFO).
-      occupancy: occupancy per window AFTER the step/burst completed.
+      kind: the structure ("queue" / "stack" / "pqueue" / "squeue" /
+        "workqueue"; "work" when a ``WorkQueue`` batch exceeds its wave).
+      capacity: elements one window holds (per tier/bucket for the
+        priority and Seap queues, total for FIFO, ``slots * depth`` for
+        the stack; the wave's width for "work").
+      occupancy: occupancy per window AFTER the step/burst completed
+        (one entry for FIFO/stack; per tier for the priority queue; per
+        bucket for Seap).  The flagged wave exceeded ``capacity`` at its
+        post-enqueue peak (see ``wave_engine.post_enqueue_peak_overflow``)
+        — in a multi-wave burst, waves after the flagged one still ran
+        and may have drained the window below what this vector shows.
       wave: index of the first overflowing wave within a multi-wave
         burst, or None for a single ``step``.
       trajectory: the flight-recorder trajectory, the last K wave-summary

@@ -985,3 +985,22 @@ def test_work_queue_on_gpu_matches_cpu(cuda):
         res.append(json.loads(json.dumps(
             ns["drive"](WorkQueue(dq, lease_steps=3), 0))))
     assert res[0] == res[1]
+
+
+def test_hashing_and_synthetic_tokens_on_gpu_match_cpu(cuda):
+    """The uint64 bits held in int64 wrap the same on the card: splitmix64,
+    hash01 and synthetic_tokens equal the CPU's, bit for bit."""
+    from repro_torch.core.hashing import hash01, splitmix64
+    from repro_torch.data import synthetic_tokens
+    edge = np.array([0, 1, 2 ** 31, 2 ** 32 - 1, 2 ** 63 - 1, 2 ** 63,
+                     2 ** 64 - 1], dtype=np.uint64)
+    x = np.concatenate([edge, np.random.default_rng(0).integers(
+        0, 2 ** 64 - 1, 1 << 16, dtype=np.uint64, endpoint=True)])
+    t = torch.from_numpy(x.view(np.int64))
+    assert torch.equal(splitmix64(t.to(cuda)).cpu(), splitmix64(t))
+    assert torch.equal(hash01(t.to(cuda), 0xD47).cpu(), hash01(t, 0xD47))
+    for vocab in (3, 32_000, 2 ** 31 - 1):
+        got = synthetic_tokens(t[:64], 513, vocab)
+        assert got.is_cuda
+        assert torch.equal(got.cpu(),
+                           synthetic_tokens(t[:64], 513, vocab, device="cpu"))

@@ -15,8 +15,10 @@ positions, matched flags, dequeued values, ok and overflow flags,
 of the port's tiered kernel takes, the JAX ``DevicePriorityQueue`` runs
 its fused Pallas sweep (interpret mode) and the port's
 ``DevicePriorityQueue`` and ``ElasticDevicePriorityQueue`` the same
-waves.  Also: the host oracle
-``repro.core.priority.PriorityOracle`` op by op through JOIN/LEAVE, a JAX
+waves.  Also: the port's host oracle
+``repro_torch.core.priority.PriorityOracle`` op by op through JOIN/LEAVE
+(beside the reference's ``repro.core.priority.PriorityOracle`` on the same
+waves, record for record), a JAX
 final state continued in the port, and the per-tier overflow error.  All
 outputs are integers: the tolerance is zero.
 """
@@ -27,12 +29,13 @@ import torch
 import jax
 import jax.numpy as jnp
 from multidev import run_multidev
-from repro.core.priority import DEQ, ENQ, PriorityOracle
+from repro.core.priority import PriorityOracle as RefPriorityOracle
 from repro.core.scan_queue import priority_queue_scan as _j_pq_scan
 from repro.core.scan_queue import strict_batch_deletemin as j_deletemin
 from repro.kernels.segscan import (priority_queue_scan_pallas,
                                    tiered_queue_scan_pallas)
 
+from repro_torch.core.priority import DEQ, ENQ, PriorityOracle
 from repro_torch.core.scan_queue import (priority_queue_scan,
                                          strict_batch_deletemin)
 from repro_torch.dqueue import (DevicePriorityQueue,
@@ -398,6 +401,7 @@ def test_elastic_priority_matches_oracle(relax, n_prios):
                                     cap=32, payload_width=2, ops_per_shard=4,
                                     pool_size=8, device="cpu")
     oracle = PriorityOracle(n_prios, relaxation=relax)
+    ref_oracle = RefPriorityOracle(n_prios, relaxation=relax)
     rng = np.random.default_rng(100 * n_prios + relax)
     relaxed = 0
     for it in range(14):
@@ -417,6 +421,8 @@ def test_elastic_priority_matches_oracle(relax, n_prios):
                ((ENQ, int(pr[i]), int(pw[i, 0]), i // eq.L) if e[i]
                 else (DEQ, 0, None, i // eq.L)) for i in range(n)]
         recs = oracle.wave(ops, n_shards=eq.n_shards)
+        assert [vars(r) for r in recs] == [
+            vars(r) for r in ref_oracle.wave(ops, n_shards=eq.n_shards)]
         for i, r in enumerate(recs):
             assert (bool(m[i]), int(tier[i]), int(pos[i])) == (
                 r.matched, r.tier, r.pos), (it, i)

@@ -17,8 +17,10 @@ and seeded) run in one forced-multi-device subprocess that writes an
 ``.npz``; the port runs the same waves on ``device="cpu"``.  Buckets,
 positions, matched flags, dequeued values, ok and overflow flags,
 ``n_active``, migration ``moved`` and hash balance, and the final
-8-field state (junk slot excluded) must be equal.  Also: the host oracle
-``repro.core.seap.SeapOracle`` op by op through JOIN/LEAVE, a JAX final
+8-field state (junk slot excluded) must be equal.  Also: the port's host oracle
+``repro_torch.core.seap.SeapOracle`` op by op through JOIN/LEAVE (beside
+the reference's ``repro.core.seap.SeapOracle`` on the same waves, record
+for record), a JAX final
 state continued in the port, the per-bucket overflow error, seed
 validation, and the CUDA default.  Every output is an integer: the
 tolerance is zero.
@@ -32,11 +34,11 @@ import jax.numpy as jnp
 from multidev import run_multidev
 from repro.core.scan_queue import seap_bucket_lookup as j_lookup
 from repro.core.scan_queue import seap_queue_scan as j_seap_scan
-from repro.core.seap import DEQ, ENQ, SeapOracle
+from repro.core.seap import SeapOracle as RefSeapOracle
 from repro.kernels.segscan import make_tier_scan as j_make_tier_scan
 
 from repro_torch.core.scan_queue import seap_bucket_lookup, seap_queue_scan
-from repro_torch.core.seap import check_seed_bounds
+from repro_torch.core.seap import DEQ, ENQ, SeapOracle, check_seed_bounds
 from repro_torch.dqueue import (DeviceSeapQueue, ElasticDeviceSeapQueue,
                                 PriorityQueueState, QueueOverflowError,
                                 SeapQueueState)
@@ -504,6 +506,7 @@ def test_elastic_seap_matches_oracle(B, seeds):
                                 ops_per_shard=4, split_occupancy=6,
                                 seed_bounds=seeds, pool_size=8, device="cpu")
     oracle = SeapOracle(B, split_occupancy=6, seed_bounds=seeds)
+    ref_oracle = RefSeapOracle(B, split_occupancy=6, seed_bounds=seeds)
     rng = np.random.default_rng(1000 + B)
     for it in range(14):
         if it == 5:
@@ -522,11 +525,14 @@ def test_elastic_seap_matches_oracle(B, seeds):
                ((ENQ, int(key[i]), int(pw[i, 0])) if e[i]
                 else (DEQ, 0, None)) for i in range(n)]
         recs = oracle.wave(ops)
+        assert [vars(r) for r in recs] == [
+            vars(r) for r in ref_oracle.wave(ops)]
         for i, r in enumerate(recs):
             assert (bool(m[i]), int(bucket[i]), int(pos[i])) == (
                 r.matched, r.bucket, r.pos), (it, i)
             if r.matched and r.value is not None:
                 assert dok[i] and int(dv[i, 0]) == r.value, (it, i)
+        assert oracle.directory() == ref_oracle.directory()
         assert int(nact) == oracle.n_active == eq.n_active
         assert eq.directory() == oracle.directory()
     assert eq.sizes == oracle.sizes

@@ -10,8 +10,9 @@ one forced-multi-device subprocess that writes an ``.npz``; the port runs
 the same waves on ``device="cpu"``.  Positions, matched flags, popped
 values, ok and overflow flags, migration ``moved`` and hash balance, and
 the final store (junk slot excluded) must be equal.  Also: the paper's
-host protocol ``repro.core.protocol.Skueue`` in stack mode through JOIN/
-LEAVE, pipelined == sequential, a JAX final state continued in the port,
+host protocol, the port's ``repro_torch.core.protocol.Skueue`` in stack
+mode through JOIN/LEAVE (its records equal to the reference's
+``repro.core.protocol.Skueue`` on the same schedule), pipelined == sequential, a JAX final state continued in the port,
 and the slot-depth overflow error.  All outputs are integers: the
 tolerance is zero.
 """
@@ -22,14 +23,17 @@ import torch
 import jax
 import jax.numpy as jnp
 from multidev import run_multidev
-from repro.core.consistency import check_sequential_consistency
-from repro.core.protocol import DEQ, ENQ, Skueue
+from repro.core.consistency import \
+    check_sequential_consistency as ref_check_sequential_consistency
+from repro.core.protocol import Skueue as RefSkueue
 from repro.core.scan_queue import StackState as JStackState
 from repro.core.scan_queue import stack_compose as j_compose
 from repro.core.scan_queue import stack_op_transforms as j_transforms
 from repro.core.scan_queue import stack_scan as _j_stack_scan
 from repro.kernels.segscan import stack_scan_pallas
 
+from repro_torch.core.consistency import check_sequential_consistency
+from repro_torch.core.protocol import DEQ, ENQ, Skueue
 from repro_torch.core.scan_queue import (StackState, stack_compose,
                                          stack_op_transforms)
 from repro_torch.core.scan_queue import stack_scan as t_core_scan
@@ -425,8 +429,8 @@ def _run_port_trace(es):
     return pos_l, bot_l, res_l
 
 
-def _run_protocol():
-    sk = Skueue(4, mode="stack", seed=0, local_combining=False)
+def _run_protocol(cls=Skueue, check=check_sequential_consistency):
+    sk = cls(4, mode="stack", seed=0, local_combining=False)
     nid = sk.ring.node_ids()[0]
     rids = []
 
@@ -448,7 +452,7 @@ def _run_protocol():
     sk.run_rounds(len(PROTO_OPS) + 80, inject_fn=inject)
     assert all(sk.requests[r].done for r in rids)
     assert sk.update_phases >= 2, "membership schedule never took effect"
-    check_sequential_consistency(sk)
+    check(sk)
     reqs = [sk.requests[r] for r in rids]
     pos_l = [-1 if r.pos is None else r.pos for r in reqs]
     bot_l = [r.kind == DEQ and r.result == -1 for r in reqs]
@@ -462,6 +466,12 @@ def test_elastic_stack_matches_skueue_protocol():
                             slot_depth=8, pool_size=8, device="cpu")
     d_pos, d_bot, d_res = _run_port_trace(es)
     sk, p_pos, p_bot, p_res = _run_protocol()
+    ref, *ref_lists = _run_protocol(RefSkueue,
+                                    ref_check_sequential_consistency)
+    assert [p_pos, p_bot, p_res] == ref_lists
+    assert [vars(r) for r in sk.requests] == [vars(r) for r in ref.requests]
+    assert (sk.total_msgs, sk.update_phases, vars(sk.anchor_state)) == (
+        ref.total_msgs, ref.update_phases, vars(ref.anchor_state))
     assert d_pos == p_pos, "stack positions diverged"
     assert d_bot == p_bot, "unmatched-pop (⊥) sets diverged"
     assert d_res == p_res, "pop sequences diverged (lost or reordered)"
