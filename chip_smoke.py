@@ -79,7 +79,17 @@ size:
   two processes (4 of its 8 queue shards each, zamba2-1.2b from the same
   seed in both), its admission order, served requests and deadline
   misses against the one-process run's, its tokens equal in the two
-  processes (this script re-run with ``--dist-child``).
+  processes (this script re-run with ``--dist-child``);
+* training: the flash-attention backward kernel and the SSD scan's
+  backward (three kernel scans) against their plain versions at the
+  training shape and others; zamba2-1.2b at full width and depth
+  trained through ``make_train_step`` (8 x 4,096 tokens from
+  ``GlobalOrderPipeline`` as 2 microbatches, remat, AdamW) for 3 steps,
+  every forward and backward launch counted against the model and no
+  plain version run, one step profiled; at 6 layers, one f32 step on
+  the card against the CPU (and the bf16 step, reported); and
+  ``train_loop`` for 120 steps through a failure and a restart from a
+  checkpoint, the replayed steps' losses bit for bit.
 
 Each is checked against a host model written here (order, ⊥ counts,
 overflow, migration counts, the exchange budget, the kernels' launch
@@ -153,6 +163,53 @@ CARD_CPU_LAYERS = 6
 CARD_CPU_TOKENS = 1000
 CARD_CPU_DRAWS = 3
 CARD_CPU_TOL = 0.4
+# flash attention's backward kernel vs its plain backward, per element of
+# dq, dk, dv: |got - want| <= FLASH_BWD_RTOL |want| + FLASH_BWD_ATOL_REL
+# max|want|.  Both compute in f32 (the kernel's P and dS enter the tensor
+# cores as bf16 hi + lo parts, about f32's accuracy) and round each
+# gradient to bf16 once: one bf16 step, plus the two f32 summation
+# orders' difference over up to Lq terms, which shows where |want| is near
+# 0 (tests/test_torch_flash_attention.py emulates the kernel's arithmetic
+# on the CPU within this limit).  f32 inputs: FLASH_BWD_F32_REL of
+# max|want|, summation order only.
+FLASH_BWD_RTOL = 2.0 ** -7
+FLASH_BWD_ATOL_REL = 2.0 ** -10
+FLASH_BWD_F32_REL = 1e-5
+# the SSD scan's backward (three kernel scans) vs the plain backward (three
+# chunked scans), f32: summation order through the carried states, and
+# for dloga a reverse cumulative sum over L of differences; relative to
+# each gradient's max
+SSD_BWD_REL = 1e-4
+# zamba2-1.2b at full width cut to TRAIN_CPU_LAYERS layers (one shared
+# block call), f32 weights, TRAIN_CPU_BATCH x TRAIN_CPU_TOKENS tokens: one
+# train step on the card (kernels, TF32 off) against the CPU (plain
+# versions).  Both are f32 in other summation orders (cuBLAS, the SSD
+# kernel's 3xTF32, the flash kernels' tiles), amplified through 7 blocks
+# of random weights: the loss within TRAIN_CPU_LOSS_TOL, each gradient
+# leaf and each leaf of AdamW's first moment (0.1 times the clipped
+# gradient) within TRAIN_CPU_GRAD_REL (relative Frobenius error).  The
+# updated parameters are held within TRAIN_CPU_STEP_LR learning rates,
+# which catches a wrong step (NaN, a wrong learning rate, weight decay or
+# cast) but never a wrong gradient: AdamW's first step moves an element
+# by at most lr whatever its gradient, so the two sides are never more
+# than 2·lr apart; the moments carry the gradient.  Readings on an
+# NVIDIA H100 80GB HBM3 at 700 W (seed 0): loss 9.5e-7 (one f32 step of 10.8); gradients
+# 7.9e-4 (A_log) and 7.3e-4 (dt_bias), which sum dloga, itself a reverse
+# cumulative sum of differences, over every token, and at most 3.7e-5
+# elsewhere; first moments 7.9e-4 (A_log); updated parameters 1.17 lr.
+# Each bound is about 2.5 times its reading (ten f32 steps for the loss).
+TRAIN_CPU_LAYERS = 6
+TRAIN_CPU_BATCH = 2
+TRAIN_CPU_TOKENS = 512
+TRAIN_CPU_LOSS_TOL = 1e-5
+TRAIN_CPU_GRAD_REL = 2e-3
+TRAIN_CPU_STEP_LR = 2.5
+# path:train_zamba2: global batches of TRAIN_BATCH x TRAIN_SEQ tokens as
+# TRAIN_MICRO microbatches, TRAIN_STEPS steps (train_4k's global batch of
+# 256 cut to 8 for one card); path:train_loop at TRAIN_CPU_LAYERS layers
+LOOP_STEPS, LOOP_CKPT_EVERY, LOOP_FAIL_AT = 120, 40, 60
+LOOP_BATCH, LOOP_SEQ = 8, 1_024
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 4_096, 2, 3
 SCAN_OPS = 20          # int ops per op: transform, ~2 composes, emission
 HASH_OPS = 12          # int ops per element: splitmix32, shift, modulo
 TIER_OPS = 10          # int ops per op: key, warp match, rank, emission
@@ -248,7 +305,7 @@ def phase_build():
     emit("build", seconds=total, kernels=kernels,
          dynamic_smem_bytes=dynamic)
     for name, rec in kernels.items():
-        if name in ("flash_attention", "ssd_scan"):
+        if name in ("flash_attention", "flash_attention_bwd", "ssd_scan"):
             for f in rec["functions"]:
                 print(f"ptxas {name}: {f['function']}: {f['registers']} "
                       f"registers, {f['smem_bytes']} bytes static smem, "
@@ -327,6 +384,17 @@ def phase_hash_route(torch, rng, results):
                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
         results[("hash_route", n, n_shards)] = rec
         emit("kernel:hash_route", **rec)
+    # one launch's floor: the kernel at n = 1 and n = 1,024 beside the
+    # bytes bound, to set the migration's reading (n up to 65,536) against;
+    # their device ms come with the profiled phases (phase_scan_device_split)
+    floor = {}
+    for n in HASH_FLOOR_N:
+        p = pos[:n].clone()
+        va = torch.ones(n, dtype=torch.bool, device=dev)
+        b_ms, b_by = bound(9 * n + 4 * 64, HASH_OPS * n)
+        floor[n] = {"ms": time_ms(lambda: hash_route(p, va, 64), 100, torch),
+                    "bound_ms": b_ms, "bound_by": b_by}
+    results["hash_route_floor"] = floor
 
 
 def _time_pair(torch, kernel, plain):
@@ -338,6 +406,7 @@ def _time_pair(torch, kernel, plain):
 # and at 2^24 + 1 (a ragged last tile at full size) beside the sizes they
 # are timed at: one wave and 2^24.
 TIMED_N = (65_536, 16_777_216)
+HASH_FLOOR_N = (1, 1_024)       # hash_route's one-launch floor
 
 
 def _scan_sizes():
@@ -1896,7 +1965,14 @@ def phase_scan_device_split(torch, rng, results):
                               "hash_route")
         r.update(split)
         out[f"hash_route n={r['n']} n_shards={n_shards}"] = split
+    floor = results["hash_route_floor"]
+    for n in HASH_FLOOR_N:
+        p = torch.arange(n, dtype=torch.int32, device=dev)
+        va = torch.ones(n, dtype=torch.bool, device=dev)
+        floor[n].update(_device_split(torch, lambda: hash_route(p, va, 64),
+                                      "hash_route"))
     emit("kernel:device_split", **out)
+    emit("kernel:hash_route_floor", n_shards=64, by_n=floor)
 
 
 def phase_hash_balance(torch, rng, results):
@@ -3903,6 +3979,541 @@ def phase_distributed_serve(torch, seed: int, results):
     emit("path:distributed_serve_edf_zamba2", **rec)
 
 
+# -------------------------------------------------------------- training --
+def _counters() -> dict:
+    """The model kernels' wrapper counts (forward launches, tensor-core
+    forward launches, backward calls, plain-version calls)."""
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    return {"flash_fwd": flash_attention.launches,
+            "flash_fwd_tc": flash_attention.tc_launches,
+            "flash_bwd": flash_attention.bwd_launches,
+            "ssd_fwd": ssd_scan.launches, "ssd_bwd": ssd_scan.bwd_calls,
+            "plain": flash_attention.plain_calls + ssd_scan.plain_calls}
+
+
+def _zero_counters() -> None:
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    flash_attention.launches = flash_attention.tc_launches = 0
+    flash_attention.bwd_launches = flash_attention.plain_calls = 0
+    ssd_scan.launches = ssd_scan.bwd_calls = ssd_scan.plain_calls = 0
+
+
+def _expected_counts(cfg, forwards: int, backwards: int) -> dict:
+    """Counts the model implies for ``forwards`` forward passes (remat's
+    recompute counted as one more) and ``backwards`` backward passes of
+    one microbatch each, bf16 with D = 64 (the tensor-core route)."""
+    n_attn = cfg.n_layers // cfg.attn_every
+    return {"flash_fwd": forwards * n_attn, "flash_fwd_tc": forwards * n_attn,
+            "flash_bwd": backwards * n_attn,
+            "ssd_fwd": forwards * cfg.n_layers,
+            "ssd_bwd": backwards * cfg.n_layers, "plain": 0}
+
+
+def _grad_err(torch, got, want, f32: bool) -> dict:
+    """dq, dk, dv against the plain backward, per element: the largest
+    |got - want|, each gradient's max |want| and the largest share of the
+    limit (FLASH_BWD_* above) that got uses."""
+    out = {}
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        d, w = (a.float() - b.float()).abs(), b.float().abs()
+        wmax = float(w.max())
+        limit = (FLASH_BWD_F32_REL * wmax if f32 else
+                 FLASH_BWD_RTOL * w + FLASH_BWD_ATOL_REL * wmax)
+        out[name] = {"max_abs_err": float(d.max()), "max_abs_want": wmax,
+                     "share_of_limit": float((d / limit).max())}
+    return out
+
+
+def _sdpa_bwd_ms(torch, q, k, v, do, reps: int) -> float:
+    """scaled_dot_product_attention's forward plus backward, minus its
+    forward, by CUDA events: the yardstick beside the backward kernel (the
+    port never calls it)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gqa = q.shape[1] != k.shape[1]
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+
+    def both():
+        out = sdpa(qg, kg, vg, is_causal=True, enable_gqa=gqa)
+        torch.autograd.grad(out, (qg, kg, vg), do)
+
+    def fwd():
+        with torch.no_grad():
+            sdpa(q, k, v, is_causal=True, enable_gqa=gqa)
+    return time_ms(both, reps, torch, 2) - time_ms(fwd, reps, torch, 2)
+
+
+def phase_flash_attention_bwd(torch, results):
+    """The flash-attention backward kernel (three launches: dsum, dk/dv,
+    dq) against its plain version (the chunked backward) on the same
+    device tensors and the same forward output, in the model's
+    [B, L, H, D] layout; the first case is the training path's call.  The
+    kernel is reached through the wrapper's autograd Function once
+    (counted), then timed alone with the forward's log-sum-exp."""
+    from repro_torch.kernels.flash_attention import (
+        attention_backward_chunked, flash_attention)
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_kernel, flash_attention_kernel, tc_route)
+    dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
+    gen = torch.Generator(device=dev).manual_seed(3)
+    # (case, B, Hq, Hkv, Lq, Lk, D, window, dtype, timing reps)
+    cases = [("train_path: zamba2 shared block", 4, 32, 32, 4096, 4096, 64,
+              None, bf16, 10),
+             ("gqa: llama3-8b heads", 1, 32, 8, 4096, 4096, 128, None, bf16,
+              5),
+             ("sliding window 1024", 2, 32, 32, 4096, 4096, 64, 1024, bf16,
+              5),
+             ("ragged: Lq < Lk, no multiple of 64", 2, 8, 2, 1000, 1500, 128,
+              None, bf16, 10),
+             ("f32, D 32", 2, 8, 8, 1000, 1000, 32, None, f32, 5)]
+    for case, B, Hq, Hkv, Lq, Lk, D, window, dt, reps in cases:
+        def rand(L, H):
+            return torch.randn(B, L, H, D, generator=gen, device=dev,
+                               dtype=dt).transpose(1, 2)
+        q, k, v, do = rand(Lq, Hq), rand(Lk, Hkv), rand(Lk, Hkv), rand(Lq, Hq)
+        qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+        b0 = flash_attention.bwd_launches
+        out = flash_attention(qg, kg, vg, causal=True, window=window)
+        got = torch.autograd.grad(out, (qg, kg, vg), do)
+        check(flash_attention.bwd_launches - b0 == 1,
+              f"flash_attention_bwd {case}: the autograd Function launched "
+              f"the backward kernel")
+        o = out.detach()
+        del out, qg, kg, vg
+        want = attention_backward_chunked(q, k, v, o, do, causal=True,
+                                          window=window)
+        torch.cuda.synchronize()
+        err = _grad_err(torch, got, want, dt == f32)
+        check(all(g.dtype == dt and g.shape == w.shape
+                  for g, w in zip(got, want)),
+              f"flash_attention_bwd {case}: shapes and types")
+        check(all(e["share_of_limit"] <= 1.0 for e in err.values()),
+              f"flash_attention_bwd {case}: every element within its limit "
+              f"of the plain backward: {err}")
+        del got, want
+        lse = torch.empty(B, Hq, Lq, dtype=f32, device=dev)
+        flash_attention_kernel(q, k, v, causal=True, window=window, lse=lse)
+
+        def run():
+            return flash_attention_bwd_kernel(q, k, v, o, do, lse,
+                                              causal=True, window=window)
+        ms = time_ms(run, reps, torch, 2)
+        # reported, not checked: the profiler here loses kernel events now
+        # and then (see _kernel_calls); the wrapper's count is the check
+        calls = _kernel_calls(torch, run)
+        plain = time_ms(lambda: attention_backward_chunked(
+            q, k, v, o, do, causal=True, window=window), max(1, reps // 5),
+            torch, 1)
+        lib = (_sdpa_bwd_ms(torch, q, k, v, do, reps)
+               if window is None and Lq == Lk else None)
+        pairs = B * Hq * _visible_pairs(Lq, Lk, window)
+        size = q.element_size()
+        n_bytes = (size * D * (4 * B * Hq * Lq + 4 * B * Hkv * Lk)
+                   + 4 * B * Hq * Lq)
+        peak = BF16_FLOPS if dt == bf16 else F32_FLOPS
+        b_ms, b_by = bound(n_bytes, 10 * D * pairs, peak)
+        rec = {"case": case, "B": B, "Hq": Hq, "Hkv": Hkv, "Lq": Lq,
+               "Lk": Lk, "D": D, "window": window, "causal": True,
+               "dtype": str(dt).split(".")[-1],
+               "forward_route": "flash_fwd_wgmma" if tc_route(dt, D, Lq)
+               else "flash_fwd",
+               "kernel": "flash_bwd_dot, flash_bwd_dkdv, flash_bwd_dq "
+                         + ("(mma.sync m16n8k16, P and dS as bf16 hi + lo)"
+                            if dt == bf16 else "(scalar f32)"),
+               "errors": err,
+               "max_abs_err": max(e["max_abs_err"] for e in err.values()),
+               "tolerance": (f"|d| <= {FLASH_BWD_F32_REL} max|want|"
+                             if dt == f32 else
+                             f"|d| <= {FLASH_BWD_RTOL} |want| + "
+                             f"{FLASH_BWD_ATOL_REL} max|want|"),
+               "ms": ms,
+               "device_ms": (sum(m for _, m in calls.values()) if calls
+                             else "not measured"),
+               "device_ms_by_kernel": ({n: m for n, (_, m) in calls.items()}
+                                       if calls else "not measured"),
+               "device_kernels": ({n: c for n, (c, _) in calls.items()}
+                                  if calls else "not measured"),
+               "plain_ms": plain, "library_ms": lib,
+               "library": "scaled_dot_product_attention forward + backward "
+                          "minus its forward" if lib is not None else
+                          "none: masked alignment differs",
+               "flops": 10 * D * pairs, "bytes": n_bytes, "bound_ms": b_ms,
+               "bound_by": b_by, "peak": ("989 TFLOP/s bf16" if dt == bf16
+                                          else "67 TFLOP/s f32")
+               + ", 3.35 TB/s"}
+        results.setdefault("flash_attention_bwd", []).append(rec)
+        emit("kernel:flash_attention_bwd", **rec)
+        del q, k, v, do, o, lse
+
+
+def phase_ssd_scan_bwd(torch, results):
+    """The SSD scan's backward on the card (three kernel scans with the
+    roles permuted, a reverse cumulative sum) against its plain version
+    (three chunked scans), f32, at the training path's shape: xt, loga
+    views of [b, L, H, ...] buffers, B/C [b, L, N] bf16 as one head shared
+    by all (the model's form: dB and dC are the per-head scans summed over
+    the heads in f32).  One call through the autograd Function is counted
+    first."""
+    from repro_torch.kernels.ssd_scan import (ssd_scan,
+                                              ssd_scan_backward_ref)
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    b, H, L, P, N = 4, 64, 4096, 64, 64
+    dt = torch.nn.functional.softplus(torch.randn(b, L, H, generator=gen,
+                                                  device=dev))
+    xt = (torch.randn(b, L, H, P, generator=gen, device=dev)
+          * dt[..., None]).transpose(1, 2)
+    loga = (-dt).transpose(1, 2)
+    Bm, Cm = ((torch.randn(b, L, N, generator=gen, device=dev) * 0.3)
+              .to(torch.bfloat16) for _ in range(2))
+    dy = torch.randn(b, L, H, P, generator=gen, device=dev).transpose(1, 2)
+    Bh, Ch = Bm[:, None], Cm[:, None]
+    ins = [t.detach().requires_grad_() for t in (xt, loga, Bm, Cm)]
+    b0 = ssd_scan.bwd_calls
+    y = ssd_scan(ins[0], ins[1], ins[2][:, None], ins[3][:, None])
+    torch.autograd.grad(y, ins, dy)
+    check(ssd_scan.bwd_calls - b0 == 1,
+          "ssd_scan_bwd: the autograd Function ran the kernel backward")
+    y = y.detach()
+    del ins
+
+    def run():
+        return ssd_scan_backward_ref(xt, loga, Bh, Ch, y, dy,
+                                     scan=ssd_scan_kernel)
+    got = run()
+    want = ssd_scan_backward_ref(xt, loga, Bh, Ch, y, dy)
+    torch.cuda.synchronize()
+    names = ("dxt", "dloga", "dB", "dC")
+    rel = {n: float((g - w).abs().max() / w.abs().max())
+           for n, g, w in zip(names, got, want)}
+    err = {n: float((g - w).abs().max()) for n, g, w in zip(names, got, want)}
+    check(all(g.shape == w.shape for g, w in zip(got, want)),
+          "ssd_scan_bwd: shapes")
+    check(all(r <= SSD_BWD_REL for r in rel.values()),
+          f"ssd_scan_bwd: every gradient within {SSD_BWD_REL} of its max: "
+          f"{rel}")
+    del got, want
+    ms = time_ms(run, 5, torch, 1)
+    calls = _kernel_calls(torch, run)       # reported, as above
+    scans = {n: c for n, (c, _) in calls.items() if n.startswith("ssd_scan")}
+    plain = time_ms(lambda: ssd_scan_backward_ref(xt, loga, Bh, Ch, y, dy),
+                    1, torch, 1)
+    # read xt, y, dy (f32), B, C (bf16, one group), loga; write dxt, dloga
+    # and dB, dC (f32, one group: the per-head scans' outputs are summed
+    # over the heads inside the function)
+    n_bytes = (4 * 4 * b * H * L * P + 2 * 2 * b * L * N + 2 * 4 * b * H * L
+               + 2 * 4 * b * L * N)
+    flops = 3 * 4 * b * H * L * N * P       # three per-token recurrences
+    b_ms, b_by = bound(n_bytes, flops, F32_3XTF32_FLOPS)
+    rec = {"case": "train_path: zamba2 mamba layer", "b": b, "H": H, "L": L,
+           "P": P, "N": N,
+           "B/C": "bfloat16, one group [b, 1, L, N] read with stride 0 over "
+                  "heads; dB, dC summed over heads in f32",
+           "kernel": "three ssd_scan kernel calls (dxt, dB, dC) with the "
+                     "roles permuted and time reversed, plus a reverse "
+                     "cumsum (dloga)",
+           "scan_calls_per_backward": 3,
+           # three launches a scan call (ssd_scan_kernel's design)
+           "kernel_launches_per_backward": 9,
+           "kernel_launches_profiled": (sum(scans.values()) if calls
+                                        else "not measured"),
+           "max_abs_err": err, "rel_err": rel, "tolerance_rel": SSD_BWD_REL,
+           "ms": ms,
+           "device_ms": (sum(m for _, m in calls.values()) if calls
+                         else "not measured"),
+           "device_ms_by_kernel": ({n: m for n, (_, m) in calls.items()}
+                                   if calls else "not measured"),
+           "device_kernels": ({n: c for n, (c, _) in calls.items()}
+                              if calls else "not measured"),
+           "plain_ms": plain, "library_ms": None,
+           "library": "none: no single PyTorch call computes the scan's "
+                      "backward",
+           "flops": flops, "bytes": n_bytes, "bound_ms": b_ms,
+           "bound_by": b_by, "peak": "165 TFLOP/s f32 as 3xTF32, 3.35 TB/s"}
+    results["ssd_scan_bwd"] = rec
+    emit("kernel:ssd_scan_bwd", **rec)
+
+
+def _profile_train_step(torch, step_fn, params, opt, batch) -> dict:
+    """One train step under torch.profiler: device ms by kind of kernel
+    and the device's busy share of the step's wall time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn(params, opt, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    evs = [ev for ev in prof.key_averages()
+           if ev.device_type == DeviceType.CUDA
+           and ev.self_device_time_total > 0]
+    busy = sum(ev.self_device_time_total for ev in evs)
+    by_kind = {"flash_attention forward": 0.0,
+               "flash_attention backward": 0.0,
+               "ssd_scan (forward, recompute, backward scans)": 0.0,
+               "cuBLAS products": 0.0,
+               "other (elementwise, reductions, copies, optimizer)": 0.0}
+    calls = {}
+    for ev in evs:
+        k, t = ev.key, ev.self_device_time_total / 1e3
+        kind = ("flash_attention forward" if "flash_fwd" in k else
+                "flash_attention backward" if "flash_bwd" in k else
+                "ssd_scan (forward, recompute, backward scans)"
+                if "ssd_scan" in k else
+                "cuBLAS products" if any(w in k.lower() for w in (
+                    "nvjet", "gemm", "xmma", "cutlass")) else
+                "other (elementwise, reductions, copies, optimizer)")
+        by_kind[kind] += t
+        m = re.search(r"::(flash_\w+|ssd_scan_\w+)", k)
+        if m:
+            calls[m.group(1)] = calls.get(m.group(1), 0) + ev.count
+    top = sorted(evs, key=lambda ev: -ev.self_device_time_total)[:12]
+    return {"wall_ms": wall_us / 1e3,
+            "device_ms": busy / 1e3 if busy else "not measured",
+            "busy_share": busy / wall_us if busy else "not measured",
+            "device_ms_by_kind": by_kind,
+            "kernel_calls": calls if busy else "not measured",
+            "top_kernels": [{"kernel": ev.key[:120],
+                             "device_ms": ev.self_device_time_total / 1e3,
+                             "calls": ev.count} for ev in top]}
+
+
+def phase_train_zamba2(torch, results, zamba):
+    """zamba2-1.2b at full width and depth (the prefill phase's weights)
+    trained through ``make_train_step``: global batches of 8 x 4,096
+    tokens from ``GlobalOrderPipeline`` as 2 microbatches of 4, remat,
+    AdamW, 3 steps; every flash and SSD launch, forward and backward,
+    counted against what the model implies, and no plain version run;
+    then one more step under the profiler."""
+    from repro_torch.data import GlobalOrderPipeline
+    from repro_torch.train import adamw_init, make_train_step
+    cfg, model, params = zamba
+    pipe = GlobalOrderPipeline(TRAIN_SEQ, cfg.vocab, TRAIN_BATCH, device="cuda")
+    step_fn = make_train_step(model, num_microbatches=TRAIN_MICRO)
+
+    def batch_at(s):
+        return {k: v for k, v in pipe.batch_at_step(s).items()
+                if k != "sample_indices"}
+    opt = adamw_init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, metrics = [], []
+    p = params
+    _zero_counters()
+    for s in range(TRAIN_STEPS):
+        batch = batch_at(s)
+        t0 = time.perf_counter()
+        p, opt, m = step_fn(p, opt, batch)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    counts = _counters()
+    peak = torch.cuda.max_memory_allocated()
+    passes = TRAIN_STEPS * TRAIN_MICRO
+    expect = _expected_counts(cfg, 2 * passes, passes)
+    check(counts == expect,
+          f"train_zamba2: {TRAIN_STEPS} steps of {TRAIN_MICRO} microbatches "
+          f"launched {counts}, the model implies {expect} (remat runs each "
+          f"layer's forward twice; no plain version)")
+    check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+              and m["grad_norm"] > 0 for m in metrics),
+          f"train_zamba2: finite losses and grad norms > 0: {metrics}")
+    check(int(opt.step) == TRAIN_STEPS, "train_zamba2: the optimizer's step")
+    prof = _profile_train_step(torch, step_fn, p, opt, batch_at(TRAIN_STEPS))
+    step_ms = float(np.median(walls[1:]))
+    rec = {"arch": cfg.name, "params": _n_params(params),
+           "layers": cfg.n_layers,
+           "global_batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+           "microbatches": TRAIN_MICRO, "remat": True, "steps": TRAIN_STEPS,
+           "reduced": "train_4k's global batch of 256 cut to 8 (one card)",
+           "launches": counts, "expected_launches": expect,
+           "metrics": metrics, "step_wall_ms": walls,
+           "step_ms_median_after_first": step_ms,
+           "tokens_per_s": TRAIN_BATCH * TRAIN_SEQ / step_ms * 1e3,
+           "max_memory_allocated": peak, "profile": prof}
+    results["train_zamba2"] = rec
+    emit("path:train_zamba2", **rec)
+
+
+def _train_step_parts(torch, model, params, batch):
+    """One train step written out (M = 1): the loss and gradients, the
+    learning rate of step 0, and AdamW's update."""
+    from repro_torch.train import adamw_init, adamw_update
+    from repro_torch.train.optimizer import cosine_lr
+    from repro_torch.train.train_step import value_and_grad
+    loss, grads = value_and_grad(model, params, batch)
+    opt = adamw_init(params)
+    lr = cosine_lr(opt.step)
+    new, opt, gnorm = adamw_update(params, grads, opt, lr)
+    return loss, grads, new, gnorm, lr, opt.m
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k],
+                                                       f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def phase_train_card_vs_cpu(torch, seed, results):
+    """One train step of zamba2-1.2b at full width cut to 6 layers, f32
+    weights, on the card (the kernels) against the CPU (the plain
+    versions), TF32 off: the loss, every gradient leaf and the updated
+    parameters and AdamW's first moments, gated (see TRAIN_CPU_*); then
+    the same step in bf16, reported."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = replace(get_config("zamba2_1p2b"), n_layers=TRAIN_CPU_LAYERS)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 7)
+    params = model.init_params(gen, device="cuda")
+    toks = torch.randint(0, cfg.vocab, (TRAIN_CPU_BATCH, TRAIN_CPU_TOKENS + 1),
+                         generator=gen, device="cuda")
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    try:
+        for name, p in (("float32", _cast(params, torch.float32)),
+                        ("bfloat16", params)):
+            _zero_counters()
+            card = _train_step_parts(torch, model, p, batch)
+            torch.cuda.synchronize()
+            counts = _counters()
+            expect = _expected_counts(cfg, 2, 1)
+            if name == "float32":     # the scalar forward route
+                expect["flash_fwd_tc"] = 0
+            check(counts == expect, f"train_card_vs_cpu {name}: the card's "
+                                    f"step launched {counts}, not {expect}")
+            t0 = time.perf_counter()
+            cpu = _train_step_parts(torch, model, _to(p, "cpu"),
+                                    _to(batch, "cpu"))
+            cpu_s = time.perf_counter() - t0
+            lr = float(cpu[4])
+            grads = {n: float((a.float().cpu() - b.float()).norm()
+                              / b.float().norm().clamp(min=1e-30))
+                     for (n, a), (_, b) in zip(_flat(card[1]),
+                                               _flat(cpu[1]))}
+            worst = max(grads, key=grads.get)
+            step_gap = max(float((a.float().cpu() - b.float()).abs().max())
+                           for (_, a), (_, b) in zip(_flat(card[2]),
+                                                     _flat(cpu[2])))
+            moments = {n: float((a.cpu() - b).norm()
+                                / b.norm().clamp(min=1e-30))
+                       for (n, a), (_, b) in zip(_flat(card[5]),
+                                                 _flat(cpu[5]))}
+            worst_m = max(moments, key=moments.get)
+            out[name] = {
+                "loss_card": float(card[0]), "loss_cpu": float(cpu[0]),
+                "loss_gap": abs(float(card[0]) - float(cpu[0])),
+                "grad_norm_card": float(card[3]),
+                "grad_norm_cpu": float(cpu[3]),
+                "grad_rel_err_worst": grads[worst], "worst_leaf": worst,
+                "grad_rel_err": grads, "lr": lr,
+                "updated_params_max_abs_gap": step_gap,
+                "updated_params_gap_in_lr": step_gap / lr,
+                "first_moment_rel_err_worst": moments[worst_m],
+                "first_moment_worst_leaf": worst_m,
+                "launches": counts, "cpu_seconds": cpu_s}
+            del card, cpu
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags[0]
+        torch.backends.cudnn.allow_tf32 = flags[1]
+    rec = {"arch": cfg.name, "layers": cfg.n_layers,
+           "attention_calls": cfg.n_layers // cfg.attn_every,
+           "batch": TRAIN_CPU_BATCH, "tokens": TRAIN_CPU_TOKENS,
+           "tf32": False, **out,
+           "tolerance": {"loss": TRAIN_CPU_LOSS_TOL,
+                         "grad_rel": TRAIN_CPU_GRAD_REL,
+                         "first_moment_rel": TRAIN_CPU_GRAD_REL,
+                         "updated_params_in_lr": TRAIN_CPU_STEP_LR,
+                         "bfloat16": "reported, not gated"}}
+    results["train_card_vs_cpu"] = rec
+    emit("path:train_card_vs_cpu", **rec)
+    f = out["float32"]
+    check(f["loss_gap"] <= TRAIN_CPU_LOSS_TOL,
+          f"train_card_vs_cpu f32: loss gap {f['loss_gap']}")
+    check(f["grad_rel_err_worst"] <= TRAIN_CPU_GRAD_REL,
+          f"train_card_vs_cpu f32: gradient {f['worst_leaf']} relative "
+          f"error {f['grad_rel_err_worst']}")
+    check(f["first_moment_rel_err_worst"] <= TRAIN_CPU_GRAD_REL,
+          f"train_card_vs_cpu f32: first moment "
+          f"{f['first_moment_worst_leaf']} relative error "
+          f"{f['first_moment_rel_err_worst']}")
+    check(f["updated_params_gap_in_lr"] <= TRAIN_CPU_STEP_LR,
+          f"train_card_vs_cpu f32: updated parameters "
+          f"{f['updated_params_gap_in_lr']} learning rates apart")
+
+
+def phase_train_loop(torch, results):
+    """``repro_torch.launch.train.train_loop`` on the card: zamba2-1.2b at
+    full width cut to 6 layers, 8 x 1,024 tokens a step, 120 steps, a
+    checkpoint every 40 and an injected failure at step 60: the replayed
+    steps' losses bit for bit, one restart, the last loss below the
+    first; checkpoint bytes and save/restore seconds from the spans."""
+    import shutil
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import train_loop
+    from repro_torch.obs.trace import tracer
+    cfg = replace(get_config("zamba2_1p2b"), n_layers=TRAIN_CPU_LAYERS)
+    ckpt = CKPT_DIR / "train_loop"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    tracer.clear()
+    _zero_counters()
+    t0 = time.perf_counter()
+    _, losses, metrics = train_loop(
+        cfg, steps=LOOP_STEPS, global_batch=LOOP_BATCH, seq_len=LOOP_SEQ,
+        ckpt_dir=ckpt, ckpt_every=LOOP_CKPT_EVERY, fail_at=(LOOP_FAIL_AT,),
+        device="cuda", log=lambda *a: None)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = _counters()
+    steps = [s for s, _ in losses]
+    first_run = dict(losses[:LOOP_FAIL_AT])
+    replayed = losses[LOOP_FAIL_AT:2 * LOOP_FAIL_AT - LOOP_CKPT_EVERY]
+    check(steps == list(range(LOOP_FAIL_AT))
+          + list(range(LOOP_CKPT_EVERY, LOOP_STEPS)),
+          "train_loop: steps run, with the replay after the restart")
+    check(metrics["restarts"] == 1, f"train_loop: one restart: {metrics}")
+    identical = all(first_run[s] == loss for s, loss in replayed)
+    check(identical, "train_loop: every replayed step's loss bit for bit "
+                     "the first run's")
+    check(losses[-1][1] < losses[0][1],
+          f"train_loop: the loss decreased: {losses[0][1]} -> "
+          f"{losses[-1][1]}")
+    check(all(np.isfinite(loss) for _, loss in losses),
+          "train_loop: finite losses")
+    expect = _expected_counts(cfg, 2 * len(losses), len(losses))
+    check(counts == expect, f"train_loop: launched {counts}, the model "
+                            f"implies {expect}")
+    spans = tracer.events()
+    saves = [e["dur"] / 1e6 for e in spans if e["name"] == "checkpoint:save"]
+    restores = [e["dur"] / 1e6 for e in spans
+                if e["name"] == "checkpoint:restore"]
+    n_bytes = _dir_bytes(ckpt / f"step_{LOOP_CKPT_EVERY}")
+    rec = {"arch": cfg.name, "layers": cfg.n_layers,
+           "global_batch": LOOP_BATCH, "seq": LOOP_SEQ, "steps": LOOP_STEPS,
+           "ckpt_every": LOOP_CKPT_EVERY, "fail_at": LOOP_FAIL_AT,
+           "steps_run": len(losses), "metrics": metrics,
+           "replayed_steps": [s for s, _ in replayed],
+           "replay_bit_identical": identical,
+           "loss_first": losses[0][1], "loss_last": losses[-1][1],
+           "loss_every_10": [loss for s, loss in losses if s % 10 == 0],
+           "launches": counts, "checkpoint_bytes": n_bytes,
+           "checkpoint_save_s": saves, "checkpoint_restore_s": restores,
+           "wall_s": wall, "ms_per_step": wall / len(losses) * 1e3}
+    results["train_loop"] = rec
+    emit("path:train_loop", **rec)
+    shutil.rmtree(ckpt, ignore_errors=True)
+
+
 def main() -> int:
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -3965,6 +4576,11 @@ def main() -> int:
     phase_serve_zamba2(torch, rng, results, zamba, telemetry=True)
     phase_serve_edf_zamba2(torch, rng, results, zamba)
     phase_distributed_serve(torch, args.seed, results)
+    phase_flash_attention_bwd(torch, results)
+    phase_ssd_scan_bwd(torch, results)
+    phase_train_zamba2(torch, results, zamba)
+    phase_train_card_vs_cpu(torch, args.seed, results)
+    phase_train_loop(torch, results)
     hb = results["hash_balance"]
 
     def scan_row(name, n, path, launches, replaces, **extra):
@@ -4043,7 +4659,10 @@ def main() -> int:
          "max_abs_err": hb["max_abs_err"], "ms": hb["ms"],
          "device_ms": hb["device_ms"], "device_kernels": hb["device_kernels"],
          "plain_ms": hb["plain_ms"], "bound_ms": hb["bound_ms"],
-         "bound_by": hb["bound_by"], "library_ms": None},
+         "bound_by": hb["bound_by"], "library_ms": None,
+         "floor_by_n": {str(n): {k: r[k] for k in ("ms", "device_ms",
+                                                   "bound_ms")}
+                        for n, r in results["hash_route_floor"].items()}},
         scan_row("stack_scan", 65_536, ", ".join(lifo_paths),
                  sum(lifo_paths.values()),
                  "src/repro/kernels/segscan/kernel.py:303",
@@ -4058,22 +4677,67 @@ def main() -> int:
                      "tiered_scan_launches"]),
     ]
     pre = results["prefill_zamba2"]
+    train = results["train_zamba2"]["launches"]
+    cpu_runs = results["train_card_vs_cpu"]
+    loop = results["train_loop"]["launches"]
 
-    def model_row(name, path_launches, replaces):
+    def model_row(name, path_launches, replaces, key):
         r = results[name][0]                     # the prefill path's shape
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu",
                 "replaces": replaces, "path": "prefill_zamba2",
                 "shape": r["case"], "launches": path_launches,
+                "launches_by_path": {"prefill_zamba2": path_launches,
+                                     **train_paths(key)},
                 "matched_plain": True, "max_abs_err": r["max_abs_err"],
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
                 "library_ms": r["library_ms"]}
+
+    def train_paths(key):
+        return {"train_zamba2": train[key],
+                "train_card_vs_cpu": sum(cpu_runs[d]["launches"][key]
+                                         for d in ("float32", "bfloat16")),
+                "train_loop": loop[key]}
+    fb, sb = results["flash_attention_bwd"][0], results["ssd_scan_bwd"]
     kernels += [
         model_row("flash_attention", pre["flash_attention_launches"],
-                  "src/repro/kernels/flash_attention/kernel.py:84"),
+                  "src/repro/kernels/flash_attention/kernel.py:84",
+                  "flash_fwd"),
         model_row("ssd_scan", pre["ssd_scan_launches"],
-                  "src/repro/kernels/ssd_scan/kernel.py:67"),
+                  "src/repro/kernels/ssd_scan/kernel.py:67", "ssd_fwd"),
+    ]
+    backward_rows = [
+        {"name": "flash_attention_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+         "replaces": "src/repro/models/layers.py:134",
+         "replaces_note": "no Pallas backward: the reference differentiates "
+                          "its jnp attention (_sdpa_chunked) with "
+                          "jax.value_and_grad (repro/train/train_step.py:42)",
+         "path": "train_zamba2", "shape": fb["case"],
+         "launches": train["flash_bwd"],
+         "launches_by_path": train_paths("flash_bwd"),
+         "kernels_per_launch": 3, "matched_plain": True,
+         "max_abs_err": fb["max_abs_err"], "ms": fb["ms"],
+         "device_ms": fb["device_ms"], "plain_ms": fb["plain_ms"],
+         "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"],
+         "library_ms": fb["library_ms"], "library": fb["library"]},
+        {"name": "ssd_scan_bwd", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "replaces": "src/repro/models/ssm.py:46",
+         "replaces_note": "no Pallas backward: the reference differentiates "
+                          "_ssd_chunked with jax.value_and_grad; here three "
+                          "calls of the forward kernel "
+                          "(kernels/ssd_scan/ref.py:ssd_scan_backward_ref)",
+         "path": "train_zamba2", "shape": sb["case"],
+         "launches": train["ssd_bwd"],
+         "launches_by_path": train_paths("ssd_bwd"),
+         "kernel_launches_per_call": sb["kernel_launches_per_backward"],
+         "matched_plain": True, "max_abs_err": max(sb["max_abs_err"].values()),
+         "rel_err": sb["rel_err"], "ms": sb["ms"],
+         "device_ms": sb["device_ms"], "plain_ms": sb["plain_ms"],
+         "bound_ms": sb["bound_ms"], "bound_by": sb["bound_by"],
+         "library_ms": None},
     ]
     cases = {k[1]: r for k, r in results.items()
              if isinstance(k, tuple) and k[0] == "relaxed_deletemin"}
@@ -4101,6 +4765,7 @@ def main() -> int:
         "ms_by_case": {k: r["ms"] for k, r in cases.items()},
         "device_ms_by_case": {k: r.get("device_ms", "not measured")
                               for k, r in cases.items()}})
+    kernels += backward_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -26,36 +26,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-
-def _leaves(tree, path=()):
-    """(path, leaf) pairs in the reference's order."""
-    if tree is None:
-        return
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k], path + (str(k),))
-    elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        for name, v in zip(tree._fields, tree):
-            yield from _leaves(v, path + (name,))
-    elif isinstance(tree, (list, tuple)):
-        for i, v in enumerate(tree):
-            yield from _leaves(v, path + (str(i),))
-    else:
-        yield path, tree
-
-
-def _rebuild(tree, it):
-    """``tree``'s structure with its leaves replaced from ``it``."""
-    if tree is None:
-        return None
-    if isinstance(tree, dict):
-        out = {k: _rebuild(tree[k], it) for k in sorted(tree)}
-        return {k: out[k] for k in tree}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_rebuild(v, it) for v in tree))
-    if isinstance(tree, (list, tuple)):
-        return type(tree)(_rebuild(v, it) for v in tree)
-    return next(it)
+from ..tree import leaves_with_path, rebuild
 
 
 def _key_str(path) -> str:
@@ -88,7 +59,7 @@ def save_checkpoint(ckpt_dir, step: int, tree, meta: Optional[dict] = None,
     tmp.mkdir(parents=True, exist_ok=True)
     manifest = {"step": step, "meta": meta or {}, "leaves": []}
     host_arrays = []
-    for path, leaf in _leaves(tree):
+    for path, leaf in leaves_with_path(tree):
         name = _key_str(path)
         arr, dtype = _host(leaf)
         manifest["leaves"].append(
@@ -140,8 +111,8 @@ def load_checkpoint(ckpt_dir, step: Optional[int], like_tree):
     meta = {m["key"]: m for m in manifest["leaves"]}
     out = [_tensor(np.load(d / f"{_key_str(path)}.npy"),
                    meta[_key_str(path)])
-           for path, _ in _leaves(like_tree)]
-    return _rebuild(like_tree, iter(out)), manifest
+           for path, _ in leaves_with_path(like_tree)]
+    return rebuild(like_tree, iter(out)), manifest
 
 
 def restore_sharded(ckpt_dir, step, like_tree, device=None):
@@ -151,5 +122,5 @@ def restore_sharded(ckpt_dir, step, like_tree, device=None):
     host, manifest = load_checkpoint(ckpt_dir, step, like_tree)
     if device is None:
         return host, manifest
-    leaves = [x.to(device) for _, x in _leaves(host)]
-    return _rebuild(host, iter(leaves)), manifest
+    leaves = [x.to(device) for _, x in leaves_with_path(host)]
+    return rebuild(host, iter(leaves)), manifest

@@ -57,6 +57,11 @@
 // it was: 64 x 64 tiles with Q, K, V and P in shared memory as f32 and
 // scalar fmaf, bound by shared-memory bandwidth and the 67 TFLOP/s f32
 // rate.
+//
+// Both kernels write each row's log-sum-exp of the scaled scores when the
+// caller passes an lse buffer (training: flash_attention_bwd.cu reads it to
+// recompute P = exp(S - lse) without a pass for the row statistics; 4
+// bytes a row).  The prefill passes none, and its launches are unchanged.
 #include <cmath>
 #include <cstdint>
 #include <cuda.h>
@@ -80,6 +85,7 @@ struct Params {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                          // [B·Hq, Lq] or null
   Strides sq, sk, sv, so;
   int Hq, G, Lq, Lk, causal, window;   // window <= 0: none
   float scale;
@@ -223,6 +229,11 @@ __global__ void __launch_bounds__(kThreads) flash_fwd(Params p) {
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
       o[(int64_t)row * p.so.l + tx + 16 * c] = from_f<T>(acc[r][c] * inv);
+    // the row's log-sum-exp of scaled scores (Q is pre-scaled); +inf for a
+    // row that sees no key, so the backward's exp(s - lse) is 0 there
+    if (p.lse != nullptr && tx == 0)
+      p.lse[(int64_t)bh * p.Lq + row] = l[r] > 0.f ? m[r] + logf(l[r])
+                                                   : INFINITY;
   }
 }
 
@@ -267,6 +278,7 @@ struct TmaTensor {               // one 4-D map (D, then h, l, b by stride)
 struct TcParams {
   TmaTensor q, k, v;
   void* o;
+  float* lse;                    // [B·Hq, Lq] or null
   Strides so;
   int Hq, G, Lq, Lk, causal, window;
   float scale;
@@ -682,6 +694,11 @@ __global__ void __launch_bounds__(kTcThreads, 1)
     const int row = qw0 + 16 * wl + g + 8 * rr;
     if (row >= p.Lq) continue;
     const float inv = lr > 0.f ? 1.f / lr : 0.f;
+    // log-sum-exp of the scaled scores: p = exp(scale (s - m)), so
+    // lse = scale·m + ln l; +inf for a row that sees no key
+    if (p.lse != nullptr && c == 0)
+      p.lse[(int64_t)bh * p.Lq + row] =
+          lr > 0.f ? m[rr] * p.scale + logf(lr) : INFINITY;
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)row * p.so.l + 8 * j +
@@ -777,10 +794,13 @@ int launch_tc(const TcParams& p, int BH, cudaStream_t stream) {
 // q: [B, Hq, Lq, D]; k, v: [B, Hkv, Lk, D]; o: [B, Hq, Lq, D]; all bf16
 // (is_bf16 = 1) or all f32, each read through strides[12] = the (batch,
 // head, position) element strides of q, k, v, o in that order, with the
-// head dim contiguous.  D in {32, 64, 128}; window <= 0 means none.
+// head dim contiguous.  D in {32, 64, 128}; window <= 0 means none.  lse:
+// null, or [B·Hq, Lq] f32 that receives each row's log-sum-exp of the
+// scaled scores (the backward's input; +inf where a row sees no key).
 // Returns the first CUDA error, 0 on success.
 extern "C" int repro_flash_attention(const void* q, const void* k,
-                                     const void* v, void* o, int is_bf16,
+                                     const void* v, void* o, float* lse,
+                                     int is_bf16,
                                      int B, int Hq, int Hkv, int Lq, int Lk,
                                      int D, int causal, int window,
                                      const int64_t* strides, void* stream) {
@@ -790,6 +810,7 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.sq = {strides[0], strides[1], strides[2]};
   p.sk = {strides[3], strides[4], strides[5]};
   p.sv = {strides[6], strides[7], strides[8]};
@@ -810,10 +831,12 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
 // D in {64, 128}, read through strides[12] = the (batch, head, position)
 // element strides of q, k, v, o in that order, with the head dim
 // contiguous, bases and byte strides of q, k, v multiples of 16 (TMA).
-// window <= 0 means none.  Returns the first CUDA error, 0 on success
-// (cudaErrorInvalidValue where the driver refuses a tensor map).
+// window <= 0 means none; lse as repro_flash_attention's.  Returns the
+// first CUDA error, 0 on success (cudaErrorInvalidValue where the driver
+// refuses a tensor map).
 extern "C" int repro_flash_attention_tc(const void* q, const void* k,
-                                        const void* v, void* o, int B,
+                                        const void* v, void* o, float* lse,
+                                        int B,
                                         int Hq, int Hkv, int Lq, int Lk,
                                         int D, int causal, int window,
                                         const int64_t* strides,
@@ -826,6 +849,7 @@ extern "C" int repro_flash_attention_tc(const void* q, const void* k,
       !encode(p.v, v, B, Hkv, Lk, D, strides + 6))
     return static_cast<int>(cudaErrorInvalidValue);
   p.o = o;
+  p.lse = lse;
   p.so = {strides[9], strides[10], strides[11]};
   p.Hq = Hq;
   p.G = Hq / Hkv;

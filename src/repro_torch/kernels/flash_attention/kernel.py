@@ -1,9 +1,12 @@
-"""Launcher of the CUDA flash attention, ``csrc/flash_attention.cu``.
+"""Launchers of the CUDA flash attention, ``csrc/flash_attention.cu``
+(forward) and ``csrc/flash_attention_bwd.cu`` (backward).
 
-Replaces ``repro/kernels/flash_attention/kernel.py:flash_attention_kernel``
-and the GQA fold of its wrapper.  The CUDA source says what bounds it;
-this module checks the tensors, picks one of its two kernels by
-:func:`tc_route`, and passes pointers and strides.
+The forward replaces
+``repro/kernels/flash_attention/kernel.py:flash_attention_kernel`` and the
+GQA fold of its wrapper; the backward has no Pallas counterpart (the
+reference differentiates its jnp attention).  The CUDA sources say what
+bounds them; this module checks the tensors, picks one of the two forward
+kernels by :func:`tc_route`, and passes pointers and strides.
 """
 from __future__ import annotations
 
@@ -26,10 +29,10 @@ def _lib():
     lib = load("flash_attention")
     fn = lib.repro_flash_attention
     if fn.argtypes is None:
-        fn.argtypes = [_P] * 4 + [_I] * 9 + [_P, _P]
+        fn.argtypes = [_P] * 5 + [_I] * 9 + [_P, _P]
         fn.restype = ctypes.c_int
         tc = lib.repro_flash_attention_tc
-        tc.argtypes = [_P] * 4 + [_I] * 8 + [_P, _P]
+        tc.argtypes = [_P] * 5 + [_I] * 8 + [_P, _P]
         tc.restype = ctypes.c_int
     return lib
 
@@ -53,9 +56,32 @@ def _check_tma(t: torch.Tensor, name: str) -> None:
                          f"strides {t.stride()} at {t.data_ptr():#x}")
 
 
+def _check(q, k, v, window, what: str) -> None:
+    B, Hq, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    if q.dtype not in (torch.bfloat16, torch.float32) or not (
+            k.dtype == v.dtype == q.dtype):
+        raise ValueError(f"{what}: q, k, v must share one dtype, bf16 or "
+                         f"f32; got {q.dtype}, {k.dtype}, {v.dtype}")
+    if D not in HEAD_DIMS:
+        raise ValueError(f"{what}: head dim {D} not in {HEAD_DIMS}")
+    if (k.shape != (B, Hkv, Lk, D) or v.shape != k.shape or Hkv == 0
+            or Hq % Hkv):
+        raise ValueError(f"{what}: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not fit "
+                         f"(Hq % Hkv must be 0)")
+    if k.device != q.device or v.device != q.device:
+        raise ValueError(f"{what}: q, k, v on one device")
+    if any(t.stride(-1) != 1 for t in (q, k, v)):
+        raise ValueError(f"{what}: the head dim must be contiguous")
+    if window is not None and window < 1:
+        raise ValueError(f"{what}: window {window} < 1")
+
+
 def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                            v: torch.Tensor, causal: bool = True,
-                           window: Optional[int] = None
+                           window: Optional[int] = None,
+                           lse: Optional[torch.Tensor] = None
                            ) -> Tuple[torch.Tensor, bool]:
     """One launch on the current stream; no host sync.  ``tc_route``
     picks the kernel.
@@ -66,29 +92,21 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
     ``[B, Lq, Hq, D]`` buffer (the model's layout, so merging the heads
     afterwards is free), and whether the tensor-core kernel was the one
     launched.
+
+    ``lse``: None (the prefill), or a contiguous ``[B, Hq, Lq]`` f32
+    tensor that receives each row's log-sum-exp of the scaled scores
+    (+inf where a row sees no key), which the backward reads.
     """
     B, Hq, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
-    if q.dtype not in (torch.bfloat16, torch.float32) or not (
-            k.dtype == v.dtype == q.dtype):
-        raise ValueError(f"flash_attention_kernel: q, k, v must share one "
-                         f"dtype, bf16 or f32; got {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention_kernel: head dim {D} not in "
-                         f"{HEAD_DIMS}")
-    if (k.shape != (B, Hkv, Lk, D) or v.shape != k.shape or Hkv == 0
-            or Hq % Hkv):
-        raise ValueError(f"flash_attention_kernel: shapes q {tuple(q.shape)}"
-                         f", k {tuple(k.shape)}, v {tuple(v.shape)} do not "
-                         f"fit (Hq % Hkv must be 0)")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention_kernel: q, k, v on one device")
-    if any(t.stride(-1) != 1 for t in (q, k, v)):
-        raise ValueError("flash_attention_kernel: the head dim must be "
-                         "contiguous")
-    if window is not None and window < 1:
-        raise ValueError(f"flash_attention_kernel: window {window} < 1")
+    _check(q, k, v, window, "flash_attention_kernel")
+    if lse is not None and (lse.shape != (B, Hq, Lq) or lse.dtype !=
+                            torch.float32 or not lse.is_contiguous()
+                            or lse.device != q.device):
+        raise ValueError(f"flash_attention_kernel: lse must be a contiguous "
+                         f"[B, Hq, Lq] float32 tensor on q's device, got "
+                         f"{tuple(lse.shape)} {lse.dtype}")
+    lse_ptr = None if lse is None else lse.data_ptr()
     tc = tc_route(q.dtype, D, Lq)
     if tc:
         for t, name in ((q, "q"), (k, "k"), (v, "v")):
@@ -99,14 +117,66 @@ def flash_attention_kernel(q: torch.Tensor, k: torch.Tensor,
                                       for s in t.stride()[:3]))
     if tc:
         err = _lib().repro_flash_attention_tc(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B, Hq,
-            Hkv, Lq, Lk, D, int(causal), int(window or 0),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse_ptr,
+            B, Hq, Hkv, Lq, Lk, D, int(causal), int(window or 0),
             ctypes.cast(strides, _P), stream_ptr(q))
         check_launch(err, "flash_attention_kernel (tensor cores)")
         return o, True
     err = _lib().repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse_ptr,
         int(q.dtype == torch.bfloat16), B, Hq, Hkv, Lq, Lk, D, int(causal),
         int(window or 0), ctypes.cast(strides, _P), stream_ptr(q))
     check_launch(err, "flash_attention_kernel")
     return o, False
+
+
+def _bwd_lib():
+    lib = load("flash_attention_bwd")
+    fn = lib.repro_flash_attention_bwd
+    if fn.argtypes is None:
+        fn.argtypes = [_P] * 10 + [_I] * 9 + [_P, _P]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def flash_attention_bwd_kernel(q, k, v, o, dout, lse, causal: bool = True,
+                               window: Optional[int] = None):
+    """Three launches on the current stream (``dsum = rowsum(dO ∘ O)``,
+    then dk/dv over key tiles, then dq over query tiles); no host sync.
+
+    q, o, dout: [B, Hq, Lq, D]; k, v: [B, Hkv, Lk, D]; one dtype (bf16 or
+    f32), any strides with the head dim contiguous; lse: the forward's
+    ``[B, Hq, Lq]`` f32.  Returns (dq, dk, dv) in q's dtype, views of
+    ``[B, L, H, D]`` buffers (the model's layout).
+    """
+    B, Hq, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    _check(q, k, v, window, "flash_attention_bwd_kernel")
+    for t, name in ((o, "o"), (dout, "dout")):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or t.stride(-1) != 1):
+            raise ValueError(f"flash_attention_bwd_kernel: {name} must be "
+                             f"shaped and typed like q with the head dim "
+                             f"contiguous, got {tuple(t.shape)} {t.dtype} "
+                             f"strides {t.stride()}")
+    if (lse.shape != (B, Hq, Lq) or lse.dtype != torch.float32
+            or not lse.is_contiguous() or lse.device != q.device):
+        raise ValueError("flash_attention_bwd_kernel: lse must be the "
+                         "forward's contiguous [B, Hq, Lq] float32")
+
+    def grad_like(t):
+        return torch.empty(t.shape[0], t.shape[2], t.shape[1], D,
+                           dtype=q.dtype, device=q.device).transpose(1, 2)
+    dq, dk, dv = grad_like(q), grad_like(k), grad_like(v)
+    dsum = torch.empty(B, Hq, Lq, dtype=torch.float32, device=q.device)
+    strides = (ctypes.c_int64 * 24)(*(s for t in (q, k, v, o, dout, dq, dk,
+                                                  dv)
+                                      for s in t.stride()[:3]))
+    err = _bwd_lib().repro_flash_attention_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), int(q.dtype == torch.bfloat16), B, Hq,
+        Hkv, Lq, Lk, D, int(causal), int(window or 0),
+        ctypes.cast(strides, _P), stream_ptr(q))
+    check_launch(err, "flash_attention_bwd_kernel")
+    return dq, dk, dv

@@ -1,13 +1,54 @@
 """Public wrapper of the SSD scan: kernel on CUDA, plain on CPU.
 
 Counterpart of ``repro/kernels/ssd_scan/ops.py:ssd_scan_pallas``.  No
-padding: the CUDA kernel masks a ragged last chunk itself.
+padding: the CUDA kernel masks a ragged last chunk itself.  Where a
+gradient is asked for, the call goes through :class:`SSDScan`, a
+``torch.autograd.Function`` whose backward is three more calls of the same
+kernel with the roles permuted (``ref.py:ssd_scan_backward_ref`` says
+how), so the backward adds no kernel of its own.
 """
 from __future__ import annotations
 
 import torch
 
-from .ref import ssd_chunked_ref
+from .ref import ssd_chunked_ref, ssd_scan_backward_ref
+
+
+def _forward(xt, loga, B, C):
+    if xt.device.type != "cuda":
+        ssd_scan.plain_calls += 1
+        return ssd_chunked_ref(xt, loga, B, C)
+    from .kernel import ssd_scan_kernel
+    shape = xt.shape[:3] + B.shape[3:]
+    y = ssd_scan_kernel(xt, loga, B.expand(shape), C.expand(shape))
+    ssd_scan.launches += 1
+    return y
+
+
+class SSDScan(torch.autograd.Function):
+    """The scan with a hand-written backward: on CUDA the forward kernel and
+    three kernel scans (dxt, dB, dC) plus a reverse cumulative sum (dloga);
+    on CPU the chunked plain version of each.  A B or C of one head is
+    shared by all: its gradient is the per-head scan's summed over the
+    heads in f32 and cast to its type once."""
+
+    @staticmethod
+    def forward(ctx, xt, loga, B, C):
+        y = _forward(xt, loga, B, C)
+        ctx.save_for_backward(xt, loga, B, C, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        xt, loga, B, C, y = ctx.saved_tensors
+        if xt.device.type != "cuda":
+            ssd_scan.plain_calls += 1
+            return ssd_scan_backward_ref(xt, loga, B, C, y, dy)
+        from .kernel import ssd_scan_kernel
+        grads = ssd_scan_backward_ref(xt, loga, B, C, y, dy,
+                                      scan=ssd_scan_kernel)
+        ssd_scan.bwd_calls += 1
+        return grads
 
 
 def ssd_scan(xt: torch.Tensor, loga: torch.Tensor, B: torch.Tensor,
@@ -15,21 +56,26 @@ def ssd_scan(xt: torch.Tensor, loga: torch.Tensor, B: torch.Tensor,
     """Chunked SSD scan, y_t = C_t S_t with S_t = exp(loga_t) S_{t-1} +
     B_t ⊗ xt_t.
 
-    Shapes: the model's ``xt [b, H, L, P]``, ``loga [b, H, L]``,
-    ``B/C [b, H, L, N]``, where B/C may be a stride-0 expand along H.
+    Shapes: ``xt [b, H, L, P]``, ``loga [b, H, L]``, ``B/C [b, H, L, N]``
+    or ``[b, 1, L, N]``, one group shared by every head (the model's form;
+    the kernel reads it with stride 0 over the heads).
     xt and loga are float32, B/C bfloat16 or float32; the result is
     float32, shaped like xt.  A CUDA tensor goes to the CUDA kernel, which
     raises if it cannot be built or launched; a CPU tensor goes to the
-    plain version.  ``ssd_scan.launches`` counts calls that went to the
-    kernel; each call issues three launches (chunk states, state passing,
-    outputs).
+    plain version.  When grad mode is on and an input requires a
+    gradient, the call is differentiable through :class:`SSDScan`.
+    Counters: ``ssd_scan.launches`` counts forward calls that went to the
+    kernel (three launches each: chunk states, state passing, outputs);
+    ``ssd_scan.bwd_calls`` backward calls on CUDA (three kernel calls
+    each); ``ssd_scan.plain_calls`` forward or backward calls that ran
+    the plain version (CPU tensors).
     """
-    if xt.device.type != "cuda":
-        return ssd_chunked_ref(xt, loga, B, C)
-    from .kernel import ssd_scan_kernel
-    y = ssd_scan_kernel(xt, loga, B, C)
-    ssd_scan.launches += 1
-    return y
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (xt, loga, B, C)):
+        return SSDScan.apply(xt, loga, B, C)
+    return _forward(xt, loga, B, C)
 
 
 ssd_scan.launches = 0
+ssd_scan.bwd_calls = 0
+ssd_scan.plain_calls = 0

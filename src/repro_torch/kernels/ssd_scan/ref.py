@@ -3,13 +3,16 @@
 Counterparts of ``repro/kernels/ssd_scan/ref.py`` (the per-token
 recurrence, :func:`ssd_scan_ref`, kept as a test oracle) and of
 ``repro/models/ssm.py:_ssd_chunked`` (the chunked block decomposition,
-:func:`ssd_chunked_ref`, the CUDA kernel's plain version), and the CUDA
-kernel's three passes written out (:func:`ssd_chunk_parallel_ref`).
+:func:`ssd_chunked_ref`, the CUDA kernel's plain version), the CUDA
+kernel's three passes written out (:func:`ssd_chunk_parallel_ref`), and
+the backward as three more scans (:func:`ssd_scan_backward_ref`; the
+reference differentiates its jnp scan instead).
 
-Shapes: the model's ``xt [b, H, L, P]``, ``loga [b, H, L]``,
-``B/C [b, H, L, N]``, where B/C may be a stride-0 ``expand`` along H (the
-model's B and C are shared by all heads).  Math in float32; the output is
-in xt's type.
+Shapes: ``xt [b, H, L, P]``, ``loga [b, H, L]``, ``B/C [b, H, L, N]``
+(any strides, a stride-0 ``expand`` along H included) or
+``[b, 1, L, N]``, one group shared by every head, as the model passes
+them.  Math in float32 (float64 for float64 inputs); the output is in
+xt's type.
 """
 from __future__ import annotations
 
@@ -17,6 +20,11 @@ import torch
 import torch.nn.functional as F
 
 CHUNK = 64   # the CUDA kernel's chunk; chunking does not change the function
+
+
+def _acc(t: torch.Tensor) -> torch.Tensor:
+    """``t`` in the type the math runs in: f32, or f64 for f64 input."""
+    return t.to(torch.promote_types(t.dtype, torch.float32))
 
 
 def _shared_heads(t: torch.Tensor) -> torch.Tensor:
@@ -30,9 +38,9 @@ def ssd_scan_ref(xt, loga, B, C):
     y_t = C_t S_t, one Python step per token (slow: a test oracle)."""
     b, H, L, P = xt.shape
     N = B.shape[-1]
-    x, la = xt.float(), loga.float()
-    Bf, Cf = _shared_heads(B).float(), _shared_heads(C).float()
-    S = torch.zeros(b, H, N, P, dtype=torch.float32, device=xt.device)
+    x, la = _acc(xt), _acc(loga)
+    Bf, Cf = _acc(_shared_heads(B)), _acc(_shared_heads(C))
+    S = torch.zeros(b, H, N, P, dtype=x.dtype, device=xt.device)
     ys = []
     for t in range(L):
         S = (torch.exp(la[:, :, t])[..., None, None] * S
@@ -56,14 +64,14 @@ def ssd_chunked_ref(xt, loga, B, C, chunk: int = CHUNK):
     Q = chunk
     nc = -(-L // Q)
     pad = nc * Q - L
-    x = F.pad(xt.float(), (0, 0, 0, pad)).view(b, H, nc, Q, P)
-    la = F.pad(loga.float(), (0, pad)).view(b, H, nc, Q)
+    x = F.pad(_acc(xt), (0, 0, 0, pad)).view(b, H, nc, Q, P)
+    la = F.pad(_acc(loga), (0, pad)).view(b, H, nc, Q)
     Bs, Cs = _shared_heads(B), _shared_heads(C)
-    Bf = F.pad(Bs.float(), (0, 0, 0, pad)).view(b, Bs.shape[1], nc, Q, N)
-    Cf = F.pad(Cs.float(), (0, 0, 0, pad)).view(b, Cs.shape[1], nc, Q, N)
+    Bf = F.pad(_acc(Bs), (0, 0, 0, pad)).view(b, Bs.shape[1], nc, Q, N)
+    Cf = F.pad(_acc(Cs), (0, 0, 0, pad)).view(b, Cs.shape[1], nc, Q, N)
     ii = torch.arange(Q, device=xt.device)
     tril = ii[:, None] >= ii[None, :]
-    S = torch.zeros(b, H, N, P, dtype=torch.float32, device=xt.device)
+    S = torch.zeros(b, H, N, P, dtype=x.dtype, device=xt.device)
     ys = []
     for c in range(nc):
         xq, bq, cq = x[:, :, c], Bf[:, :, c], Cf[:, :, c]
@@ -115,3 +123,56 @@ def ssd_chunk_parallel_ref(xt, loga, B, C, chunk: int = CHUNK):
     y = (torch.exp(l)[..., None] * (Cf @ S_prev)
          + ((Cf @ Bf.transpose(-1, -2)) * dec) @ x)
     return y.reshape(b, H, nc * Q, P)[:, :, :L].to(xt.dtype)
+
+
+def _heads(t: torch.Tensor, H: int, dtype, flip: bool) -> torch.Tensor:
+    """``t`` [b, H, L, N] or [b, 1, L, N] as [b, H, L, N] in ``dtype``,
+    reversed in time if ``flip``; B or C shared by the heads (one head, or
+    a stride-0 broadcast) is cast and flipped once and read with stride 0
+    over the heads."""
+    s = _shared_heads(t).to(dtype)
+    if flip:
+        s = s.flip(2)
+    return s.expand(t.shape[0], H, *t.shape[2:])
+
+
+def ssd_scan_backward_ref(xt, loga, B, C, y, dy, scan=ssd_chunked_ref):
+    """Gradients ``(dxt, dloga, dB, dC)`` of the scan ``y = ssd(xt, loga,
+    B, C)`` given ``dy`` = dL/dy and the forward's ``y``, as three more
+    forward scans (``scan``: this module's chunked form; the CUDA path
+    passes the kernel) and one reverse cumulative sum.  With ``flip`` the
+    reversal of time and ``a⁺_t = loga_{t+1}`` (``a⁺_{L-1} = 0``):
+
+        dxt   = flip(ssd(flip(dy), flip(a⁺), flip(C), flip(B)))
+        dB    = flip(ssd(flip(C), flip(a⁺), flip(dy), flip(xt)))
+        dC    = ssd(B, loga, xt, dy)
+        dloga = reverse_cumsum_t(<y_t, dy_t> - <xt_t, dxt_t>)
+
+    (the adjoint recurrence G_t = exp(a_{t+1}) G_{t+1} + C_t ⊗ dy_t, with
+    dxt_t = B_t G_t, is a forward scan in reversed time; for dB the roles
+    of P and N swap).  dB and dC are shaped like B and C: where these are
+    one group shared by every head (``[b, 1, L, N]``), the per-head scans'
+    outputs are summed over the heads here, in the math's type, as the
+    reference's gradient through its broadcast is; a ``[b, H, L, N]`` B or
+    C, a stride-0 expand included, gets its per-head gradient.  Results in
+    the math's type (f32, f64 for f64 inputs)."""
+    f = torch.promote_types(xt.dtype, torch.float32)
+    H = xt.shape[1]
+    x, la = _acc(xt), _acc(loga)
+    dy = _acc(dy)
+    if dy.stride(-1) != 1:
+        dy = dy.contiguous()
+    a_next = F.pad(la[..., 1:], (0, 1)).flip(-1)   # flip(a⁺)
+    dyf = dy.flip(2)
+    bc = f if B.dtype == torch.float64 else B.dtype  # the scan's B/C type
+    dxt = scan(dyf, a_next, _heads(C, H, bc, True),
+               _heads(B, H, bc, True)).flip(2)
+    dB = scan(_heads(C, H, f, True), a_next, dyf, x.flip(2)).flip(2)
+    dC = scan(_heads(B, H, f, False), la, x, dy)
+    if B.shape[1] != H:
+        dB = dB.sum(1, keepdim=True)
+    if C.shape[1] != H:
+        dC = dC.sum(1, keepdim=True)
+    dloga = ((_acc(y) * dy).sum(-1) - (x * dxt).sum(-1)).flip(-1).cumsum(
+        -1).flip(-1)
+    return dxt, dloga, dB, dC

@@ -5,11 +5,13 @@ reference's parameter tree (the logical-axis trees are sharding metadata
 and are not ported) with its shapes and scales; ``lead`` prepends stacked
 axes (the layer axis) without changing a parameter's fan-in.
 
-Prefill attention runs through the flash-attention wrapper: the CUDA
-kernel on a CUDA tensor, the query-chunked plain version on a CPU one.
+Prefill and training attention run through the flash-attention wrapper:
+the CUDA kernels on a CUDA tensor (forward, and the backward kernel where
+a gradient is asked for), the query-chunked plain versions on a CPU one.
 Decode keeps the reference's ring-buffer cache and its masks in plain
 torch (on the TPU too this was left to XLA): the cache is updated in
-place, one row per batch element at that row's own position.
+place, one row per batch element at that row's own position.  The loss,
+:func:`chunked_xent`, never holds more than one chunk's logits.
 """
 from __future__ import annotations
 
@@ -17,6 +19,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..kernels.flash_attention import flash_attention
 
@@ -124,3 +127,50 @@ def init_mlp(gen, cfg, device, lead=()):
 
 def mlp(p, x):
     return (F.silu(x @ p["w1"]) * (x @ p["w3"])) @ p["w2"]
+
+
+# ---------------------------------------------------------------- remat ----
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``, under a non-reentrant ``torch.utils.checkpoint`` when
+    ``remat`` and grad mode is on: its activations are recomputed in the
+    backward instead of kept (the layers draw no random numbers, so no
+    RNG state is kept)."""
+    if remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return fn(*args)
+
+
+# ------------------------------------------------------------- lm head -----
+def _chunk_loss(hh, w, tt, vv):
+    logits = (hh @ w).float()
+    lse = torch.logsumexp(logits, -1)
+    gold = logits.gather(-1, tt[..., None].long())[..., 0]
+    return ((lse - gold) * vv).sum(), vv.sum()
+
+
+def chunked_xent(h, w_unembed, targets, valid=None, chunk: int = 512):
+    """Cross-entropy without holding ``[B, S, V]`` (``layers.py:190``): the
+    sequence in chunks of about ``chunk`` positions (the largest count of
+    equal chunks that divides S), each chunk's logits in f32.  Under grad
+    each chunk runs in ``torch.utils.checkpoint``, so its logits are
+    recomputed in the backward instead of kept (the reference's
+    ``jax.checkpoint``).
+
+    h: [B, S, d]; w_unembed: [d, V]; targets: [B, S] int; valid: [B, S]
+    bool or None.  Returns the mean NLL over valid positions (f32)."""
+    B, S, _ = h.shape
+    n = max(1, S // chunk)
+    while S % n:
+        n -= 1
+    c = S // n
+    vmask = (torch.ones(B, S, dtype=torch.float32, device=h.device)
+             if valid is None else valid.float())
+    losses, counts = [], []
+    for i in range(n):
+        nll, cnt = remat_call(True, _chunk_loss, h[:, i * c:(i + 1) * c],
+                              w_unembed, targets[:, i * c:(i + 1) * c],
+                              vmask[:, i * c:(i + 1) * c])
+        losses.append(nll)
+        counts.append(cnt)
+    return torch.stack(losses).sum() / torch.stack(counts).sum().clamp(min=1)

@@ -4,6 +4,7 @@ Counterpart of ``repro/models/model_zoo.py``.  ``build_model(cfg)``
 returns a :class:`Model` exposing
 
   init_params(generator, device)   random parameters (a seed or a Generator)
+  loss_fn(params, batch, remat)    training loss (differentiable)
   init_cache(batch, max_seq)       decode cache
   decode_fn(params, cache, tokens, idx)   one serve step
   prefill(params, tokens)          last-token logits of a whole prompt
@@ -35,6 +36,14 @@ class Model:
             generator = torch.Generator(device=dev).manual_seed(
                 int(generator))
         return TF.init_lm(generator, self.cfg, dev)
+
+    def loss_fn(self, params, batch, remat: bool = True) -> torch.Tensor:
+        """The training loss (f32 scalar) of ``batch`` (``tokens``,
+        ``targets`` [B, S], optional ``valid``): the reference's
+        ``Model.loss_fn``.  ``remat`` recomputes each layer in the
+        backward instead of keeping its activations."""
+        TF._check_family(self.cfg)
+        return TF.lm_loss(params, self.cfg, batch, remat=remat)
 
     def init_cache(self, batch: int, max_seq: int, dtype=torch.bfloat16,
                    device=None) -> dict:

@@ -2,11 +2,13 @@
 
 Counterpart of ``repro/models/ssm.py``.  Block: in_proj -> [z | xBC | dt];
 short causal depthwise conv on xBC; SSD scan over heads; gated RMSNorm(y,
-z); out_proj.  Prefill runs the scan through the SSD-scan wrapper (the
-CUDA kernel on a CUDA tensor, the chunked plain version on a CPU one),
-with B and C shared by every head as a stride-0 expand and xt, y in the
-block's own ``[B, S, H, P]`` layout.  Decode is the O(1) recurrent
-update of the state ``[B, H, N, P]`` and a (K-1)-deep conv tail.
+z); out_proj.  Prefill and training run the scan through the SSD-scan
+wrapper (the CUDA kernel on a CUDA tensor, the chunked plain version on a
+CPU one; its backward is three more scans), with B and C passed as the
+one head every head shares and xt, y in the block's own ``[B, S, H, P]``
+layout.  Gradients reach the conv, ``softplus(dt + dt_bias)``, ``A_log``,
+``D`` and the gated norm through plain autograd.  Decode is the O(1)
+recurrent update of the state ``[B, H, N, P]`` and a (K-1)-deep conv tail.
 """
 from __future__ import annotations
 
@@ -73,11 +75,12 @@ def mamba2_block(p, x, cfg, state: Optional[dict] = None):
     xt = xpart.float() * dt[..., None]
 
     if state is None:
-        # group 0's B and C serve every head (G = 1), read with stride 0
-        Bh = Bmat[:, :, 0][:, None].expand(Bsz, H, S, N)
-        Ch = Cmat[:, :, 0][:, None].expand(Bsz, H, S, N)
-        y = ssd_scan(xt.transpose(1, 2), loga.transpose(1, 2), Bh,
-                     Ch).transpose(1, 2)                 # [B, S, H, P] f32
+        # group 0's B and C serve every head (G = 1): passed as one head
+        # [B, 1, S, N], read with stride 0; in training the scan's backward
+        # sums their per-head gradients over the heads in f32
+        y = ssd_scan(xt.transpose(1, 2), loga.transpose(1, 2),
+                     Bmat[:, :, 0][:, None], Cmat[:, :, 0][:, None]
+                     ).transpose(1, 2)                   # [B, S, H, P] f32
     else:
         b1 = Bmat[:, 0, 0].float()                       # [B, N]
         c1 = Cmat[:, 0, 0].float()

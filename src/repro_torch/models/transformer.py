@@ -2,19 +2,23 @@
 
 Counterpart of ``repro/models/transformer.py``.  Layers are STACKED on a
 leading axis, as in the reference, and run by a Python loop (the
-reference's ``lax.scan``); there is no backward here, so no remat.
-Hybrid (Zamba2-style) models run the Mamba layers in segments of
+reference's ``lax.scan``).  With ``remat`` (training: no cache, grad mode
+on) each layer body runs under ``torch.utils.checkpoint`` and is run again
+in the backward instead of keeping its activations, as the reference's
+``jax.checkpoint`` around its scan bodies; so is the hybrid's shared
+block.  Hybrid (Zamba2-style) models run the Mamba layers in segments of
 ``attn_every`` with ONE shared attention+FFN block after each full
 segment.  The decode cache is updated in place: ``decode_step`` returns
-the same dict it was given.  Activations take the parameters' type
-(bf16 as initialised, like the reference; a float32 copy of the weights
-runs the same code in float32).  ``moe`` and ``vlm`` are not ported yet.
+the same dict it was given.  Activations take the parameters' type (bf16
+as initialised, like the reference; a float32 copy of the weights runs
+the same code in float32).  ``moe`` and ``vlm`` are not ported yet.
 """
 from __future__ import annotations
 
 from typing import Any, Dict
 
 import torch
+import torch.nn.functional as F
 
 from . import layers as L
 from .ssm import init_mamba2, init_mamba_state, mamba2_block
@@ -94,19 +98,24 @@ def _cache_index(cache_index, B: int, device) -> torch.Tensor:
     return ci.expand(B) if ci.dim() == 0 else ci
 
 
-def forward(params, cfg, tokens, cache=None, cache_index=None):
+def forward(params, cfg, tokens, cache=None, cache_index=None,
+            remat: bool = True):
     """tokens: [B, S] int.  Returns the final-normed hidden [B, S, d].
 
-    Without ``cache`` this is the prefill (positions ``arange(S)``; the
-    attention and SSD kernels run here).  With ``cache`` (see
-    :func:`init_cache`) it is one decode step at ``cache_index`` (a scalar
-    or one position per row, ``[B]``), and ``cache`` is updated in place.
+    Without ``cache`` this is the prefill or the training forward
+    (positions ``arange(S)``; the attention and SSD kernels run here);
+    ``remat`` checkpoints each layer body when grad mode is on.  With
+    ``cache`` (see :func:`init_cache`) it is one decode step at
+    ``cache_index`` (a scalar or one position per row, ``[B]``), and
+    ``cache`` is updated in place.
     """
     _check_family(cfg)
-    h = params["embed"][tokens]
+    # a gather whose backward sums rows without float atomics
+    h = F.embedding(tokens, params["embed"])
     B, S, _ = h.shape
     ar = torch.arange(S, device=h.device)
     ci = None
+    remat = remat and cache is None
     if cache is None:
         positions = ar
     else:
@@ -118,20 +127,24 @@ def forward(params, cfg, tokens, cache=None, cache_index=None):
         for i in range(cfg.n_layers):
             c = None if cache is None else {"k": cache["k"][i],
                                             "v": cache["v"][i]}
-            h = _attn_block(_layer(layers, i), h, cfg, positions, c, ci)
+            h = L.remat_call(remat, _attn_block, _layer(layers, i), h,
+                             cfg, positions, c, ci)
     elif cfg.family == "ssm":
         for i in range(cfg.n_layers):
-            h = _mamba_layer(_layer(layers, i), h, cfg, cache, i)
+            h = L.remat_call(remat, _mamba_layer, _layer(layers, i), h,
+                             cfg, cache, i)
     else:   # hybrid: segments of attn_every Mamba layers + the shared block
         k = cfg.attn_every
         for s in range(-(-cfg.n_layers // k)):
             lo, hi = s * k, min((s + 1) * k, cfg.n_layers)
             for i in range(lo, hi):
-                h = _mamba_layer(_layer(layers, i), h, cfg, cache, i)
+                h = L.remat_call(remat, _mamba_layer, _layer(layers, i),
+                                 h, cfg, cache, i)
             if hi == (s + 1) * k:   # a full segment: the shared block
                 c = None if cache is None else {"k": cache["shared_k"][s],
                                                 "v": cache["shared_v"][s]}
-                h = _attn_block(params["shared"], h, cfg, positions, c, ci)
+                h = L.remat_call(remat, _attn_block, params["shared"], h,
+                                 cfg, positions, c, ci)
     return L.rms_norm(h, params["final_ln"], cfg.norm_eps)
 
 
@@ -145,7 +158,23 @@ def prefill(params, cfg, tokens):
     """The dry-run's prefill (``repro/launch/dryrun.py:109-121``): the
     forward over the whole prompt, then the last token's logits
     ``[B, V]`` in f32."""
-    return _logits(params, cfg, forward(params, cfg, tokens))
+    return _logits(params, cfg, forward(params, cfg, tokens, remat=False))
+
+
+# ------------------------------------------------------------------ loss ---
+def lm_loss(params, cfg, batch, remat: bool = True):
+    """Training loss (``transformer.py:216``): batch ``tokens`` and
+    ``targets`` [B, S] (``valid`` [B, S] bool optional).  The mean NLL of
+    :func:`layers.chunked_xent` plus 0.01 times the auxiliary loss, which
+    is 0 here (it is the MoE router's, and ``moe`` is not ported).  The
+    unembedding is rounded to bf16 whatever the weights' type, as the
+    reference's, and enters the product in ``h``'s type."""
+    h = forward(params, cfg, batch["tokens"], remat=remat)
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    nll = L.chunked_xent(h, w.to(L.BF16).to(h.dtype), batch["targets"],
+                         batch.get("valid"))
+    aux = 0.0
+    return nll + 0.01 * aux
 
 
 # ----------------------------------------------------------------- cache ---
@@ -172,5 +201,6 @@ def init_cache(cfg, batch: int, max_seq: int, device, dtype=L.BF16):
 def decode_step(params, cfg, cache, tokens, cache_index):
     """One decode step.  tokens: [B, 1]; cache_index: a scalar or ``[B]``.
     Returns (logits [B, V] f32, cache), the cache updated in place."""
-    h = forward(params, cfg, tokens, cache=cache, cache_index=cache_index)
+    h = forward(params, cfg, tokens, cache=cache, cache_index=cache_index,
+                remat=False)
     return _logits(params, cfg, h), cache

@@ -15,12 +15,15 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from repro.kernels.flash_attention import attention_ref as j_attention_ref
 from repro.kernels.flash_attention import flash_attention as j_flash
 
 from repro_torch.interop import params_from_jax
-from repro_torch.kernels.flash_attention import (attention_chunked,
+from repro_torch.kernels.flash_attention import (FlashAttention,
+                                                 attention_backward_chunked,
+                                                 attention_chunked,
                                                  attention_ref,
                                                  flash_attention)
 from repro_torch.kernels.flash_attention.kernel import tc_route
@@ -203,3 +206,205 @@ def test_route_rule(dtype, D, Lq, tc):
     """bf16 with D in (64, 128) and at least 64 queries goes to the
     tensor-core kernel; everything else to the scalar one."""
     assert tc_route(dtype, D, Lq) is tc
+
+
+# ------------------------------------------------------------- backward ----
+BWD_CASES = [
+    # (B, Hq, Hkv, Lq, Lk, D, causal, window)
+    (2, 4, 4, 128, 128, 64, True, None),          # causal
+    (1, 4, 4, 200, 200, 32, True, 48),            # sliding window
+    (1, 8, 2, 96, 96, 64, True, None),            # GQA
+    (1, 4, 2, 70, 150, 32, True, 64),             # ragged Lq < Lk, GQA
+    (2, 2, 2, 64, 64, 32, False, None),           # no mask
+    (1, 2, 1, 40, 24, 32, True, None),            # rows that see no key
+]
+
+
+def _j_vjp(q, k, v, do, causal, window):
+    _, f = jax.vjp(lambda q, k, v: _j_oracle(q, k, v, causal, window),
+                   q, k, v)
+    return f(do)
+
+
+def _no_key_rows(Lq, Lk, causal):
+    """Rows (queries aligned to the end of the keys) that see no key."""
+    return (np.arange(Lq) + (Lk - Lq) < 0) if causal else np.zeros(Lq, bool)
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_plain_backward_matches_jax_vjp(case):
+    """The chunked plain backward (f32) against ``jax.vjp`` of the JAX
+    oracle, max abs error under 2e-5 of each gradient's max (summation
+    order).  The oracle averages v over a row that sees no key where the
+    port gives 0, so those rows' cotangent is zeroed for the comparison;
+    that they contribute nothing to the port's gradients is checked
+    separately."""
+    B, Hq, Hkv, Lq, Lk, D, causal, window = case
+    rng = np.random.default_rng(sum(case[:6]))
+    arr = [rng.standard_normal(s).astype(np.float32) for s in
+           ((B, Hq, Lq, D), (B, Hkv, Lk, D), (B, Hkv, Lk, D),
+            (B, Hq, Lq, D))]
+    dead = _no_key_rows(Lq, Lk, causal)
+    do_live = arr[3] * ~dead[None, None, :, None]
+    want = _j_vjp(*(jnp.asarray(a) for a in arr[:3]), jnp.asarray(do_live),
+                  causal, window)
+    q, k, v, do = (torch.from_numpy(a) for a in arr)
+    o = attention_chunked(q, k, v, causal=causal, window=window)
+    for chunk in (32, 512):
+        got = attention_backward_chunked(q, k, v, o, torch.from_numpy(
+            do_live), causal=causal, window=window, chunk=chunk)
+        for g, w in zip(got, want):
+            w = np.asarray(w)
+            assert g.shape == w.shape and g.dtype == torch.float32
+            assert _err(g.numpy(), w) <= 2e-5 * np.abs(w).max()
+    if dead.any():
+        full = attention_backward_chunked(q, k, v, o, do, causal=causal,
+                                          window=window)
+        for a, b in zip(full, got):
+            assert torch.equal(a, b)
+
+
+def test_plain_backward_bf16_matches_jax_vjp():
+    """bf16 inputs: both compute in f32 and round each gradient to bf16
+    once, so they sit one bf16 step (2^-7 of |want|) apart, plus the f32
+    summation orders' difference (1e-4 of the max).  The port takes
+    rowsum(dO ∘ O) from the output it is given: here the f32 output, as
+    JAX's exact gradient has it (with a bf16-rounded output the rows'
+    sums move by a bf16 rounding).  One kv head a query head: the JAX
+    side's GQA fold (``jnp.repeat`` of bf16 k, v) would add a bf16 sum."""
+    B, H, L, D = 1, 4, 128, 64
+    rng = np.random.default_rng(5)
+    arr = [jnp.asarray(rng.standard_normal((B, H, L, D)), jnp.bfloat16)
+           for _ in range(4)]
+    want = _j_vjp(*arr, True, None)
+    q, k, v, do = (params_from_jax(a, "cpu") for a in arr)
+    o = torch.from_numpy(np.array(_j_oracle(
+        *(a.astype(jnp.float32) for a in arr[:3]), True, None)))
+    got = attention_backward_chunked(q, k, v, o, do, causal=True)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        w = np.asarray(w).astype(np.float32)
+        d = np.abs(g.float().numpy() - w)
+        assert (d <= 2.0 ** -7 * np.abs(w) + 1e-4 * np.abs(w).max()).all()
+
+
+@pytest.mark.parametrize("case", [
+    (1, 4, 2, 5, 7, 8, True, None),
+    (2, 2, 2, 6, 6, 8, True, 3),
+    (1, 2, 2, 4, 9, 4, False, None),
+    (1, 2, 1, 6, 4, 4, True, None),               # rows that see no key
+])
+def test_function_gradcheck_float64(case):
+    """The autograd Function (its CPU path: the chunked forward and the
+    chunked backward) passes torch.autograd.gradcheck in float64."""
+    B, Hq, Hkv, Lq, Lk, D, causal, window = case
+    g = torch.Generator().manual_seed(Lq * Lk)
+    q, k, v = (torch.randn(B, H, L, D, generator=g, dtype=torch.float64,
+                           requires_grad=True)
+               for H, L in ((Hq, Lq), (Hkv, Lk), (Hkv, Lk)))
+    assert torch.autograd.gradcheck(
+        lambda q, k, v: FlashAttention.apply(q, k, v, causal, window),
+        (q, k, v))
+
+
+@pytest.mark.parametrize("window", [None, 5])
+def test_function_matches_autograd_through_the_oracle(window):
+    """The wrapper's gradients (through the Function) against autograd
+    through the port's full-matrix oracle, head by head (GQA: a kv head's
+    gradient sums its query heads)."""
+    B, Hq, Hkv, Lq, Lk, D = 2, 4, 2, 12, 16, 8
+    g = torch.Generator().manual_seed(3)
+    q, k, v = (torch.randn(B, H, L, D, generator=g, dtype=torch.float64,
+                           requires_grad=True)
+               for H, L in ((Hq, Lq), (Hkv, Lk), (Hkv, Lk)))
+    do = torch.randn(B, Hq, Lq, D, generator=g, dtype=torch.float64)
+    got = torch.autograd.grad(flash_attention(q, k, v, window=window),
+                              (q, k, v), do)
+    G = Hq // Hkv
+    out = torch.stack([attention_ref(q[:, h], k[:, h // G], v[:, h // G],
+                                     causal=True, window=window)
+                       for h in range(Hq)], 1)
+    want = torch.autograd.grad(out, (q, k, v), do)
+    for a, b in zip(got, want):
+        assert float((a - b).abs().max()) < 1e-12
+
+
+def test_no_grad_call_is_the_forward_alone():
+    """Without a gradient to take the wrapper runs the plain forward once
+    (on the card: the one forward launch, no log-sum-exp)."""
+    q = torch.randn(1, 2, 8, 32)
+    n = flash_attention.plain_calls
+    flash_attention(q, q, q)
+    assert flash_attention.plain_calls == n + 1
+    qg = q.clone().requires_grad_()
+    out = flash_attention(qg, q, q)
+    assert out.grad_fn is not None and flash_attention.plain_calls == n + 2
+    out.sum().backward()
+    assert flash_attention.plain_calls == n + 3
+
+
+def _bwd_kernel_emulation(q, k, v, o, do, causal, window):
+    """flash_attention_bwd.cu's bf16 arithmetic on the CPU: P from the
+    row's log-sum-exp in f32, P and dS entering their products as
+    bf16(x) + bf16(x - bf16(x)), products of bf16 values summed in f32,
+    each gradient rounded to bf16 once."""
+    B, Hq, Lq, D = q.shape
+    Hkv, Lk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    qf, dof, of = q.float(), do.float(), o.float()
+    kf = k.float().repeat_interleave(G, 1)
+    vf = v.float().repeat_interleave(G, 1)
+    s = qf @ kf.transpose(-1, -2) * D ** -0.5
+    qpos = torch.arange(Lq)[:, None] + (Lk - Lq)
+    kpos = torch.arange(Lk)[None]
+    keep = torch.ones(Lq, Lk, dtype=torch.bool)
+    if causal:
+        keep &= kpos <= qpos
+    if window is not None:
+        keep &= kpos > qpos - window
+    lse = torch.logsumexp(s.masked_fill(~keep, -math.inf), -1, keepdim=True)
+    p = torch.where(keep, torch.exp(s - lse), 0.0)
+
+    def split(x):
+        hi = x.bfloat16().float()
+        return hi, (x - hi).bfloat16().float()
+    dsum = (dof * of).sum(-1, keepdim=True)
+    ds = p * (dof @ vf.transpose(-1, -2) - dsum)
+    ph, pl = split(p)
+    dh, dl = split(ds)
+    dv = ph.transpose(-1, -2) @ dof + pl.transpose(-1, -2) @ dof
+    dk = (dh.transpose(-1, -2) @ qf + dl.transpose(-1, -2) @ qf) * D ** -0.5
+    dq = (dh @ kf + dl @ kf) * D ** -0.5
+
+    def fold(t):
+        return t.reshape(B, Hkv, G, Lk, D).sum(2)
+    return dq.bfloat16(), fold(dk).bfloat16(), fold(dv).bfloat16()
+
+
+@pytest.mark.parametrize("case", [
+    (1, 4, 4, 512, 512, 64, None),
+    (1, 8, 2, 300, 400, 128, None),
+    (1, 4, 4, 512, 512, 32, 100),
+])
+def test_backward_kernel_arithmetic_within_the_card_limit(case):
+    """The backward kernel's split P and dS, emulated on the CPU, stay
+    within the per-element limit chip_smoke.py holds the kernel to against
+    its plain version: |d| <= 2^-7 |want| + 2^-10 max |want| (one bf16
+    rounding of each gradient, plus the f32 summation orders' difference
+    over up to Lq terms, which shows where |want| is near 0).  Prints the
+    share of the limit used (-s)."""
+    B, Hq, Hkv, Lq, Lk, D, window = case
+    g = torch.Generator().manual_seed(Lq + D)
+    q, do = (torch.randn(B, Hq, Lq, D, generator=g).bfloat16()
+             for _ in range(2))
+    k, v = (torch.randn(B, Hkv, Lk, D, generator=g).bfloat16()
+            for _ in range(2))
+    o = attention_chunked(q, k, v, causal=True, window=window)
+    want = attention_backward_chunked(q, k, v, o, do, causal=True,
+                                      window=window)
+    got = _bwd_kernel_emulation(q, k, v, o, do, True, window)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        d, w = (a.float() - b.float()).abs(), b.float().abs()
+        share = float((d / (2.0 ** -7 * w + 2.0 ** -10 * w.max())).max())
+        print(f"{case} {name}: share of the limit {share}")
+        assert share <= 1.0

@@ -19,7 +19,8 @@ from repro_torch.dqueue import (DevicePriorityQueue, DeviceQueue,
                                 DeviceSeapQueue, DeviceStack,
                                 ElasticDevicePriorityQueue,
                                 ElasticDeviceQueue, ElasticDeviceSeapQueue)
-from repro_torch.kernels.flash_attention import (attention_chunked,
+from repro_torch.kernels.flash_attention import (attention_backward_chunked,
+                                                 attention_chunked,
                                                  flash_attention)
 from repro_torch.kernels.flash_attention.kernel import tc_route
 from repro_torch.kernels.hash_route import hash_route, hash_route_ref
@@ -30,7 +31,8 @@ from repro_torch.kernels.segscan import (queue_scan, queue_scan_ref,
                                          tiered_queue_scan,
                                          tiered_queue_scan_ref)
 from repro_torch.kernels.segscan.kernel import TILE
-from repro_torch.kernels.ssd_scan import ssd_chunked_ref, ssd_scan
+from repro_torch.kernels.ssd_scan import (ssd_chunked_ref, ssd_scan,
+                                          ssd_scan_backward_ref)
 
 pytestmark = pytest.mark.gpu
 
@@ -1004,3 +1006,121 @@ def test_hashing_and_synthetic_tokens_on_gpu_match_cpu(cuda):
         assert got.is_cuda
         assert torch.equal(got.cpu(),
                            synthetic_tokens(t[:64], 513, vocab, device="cpu"))
+
+
+# ------------------------------------------------------------- training --
+@pytest.mark.parametrize("case", [
+    # (B, Hq, Hkv, Lq, Lk, D, causal, window, dtype); the forward takes
+    # the tensor-core route where tc_route says so, the scalar one else
+    (1, 4, 4, 256, 256, 64, True, None, torch.bfloat16),
+    (1, 8, 2, 200, 300, 128, True, None, torch.bfloat16),     # GQA, ragged
+    (2, 4, 4, 300, 300, 64, True, 70, torch.bfloat16),        # window
+    (1, 4, 4, 100, 100, 32, True, None, torch.bfloat16),      # D 32
+    (1, 2, 1, 100, 60, 64, True, None, torch.bfloat16),       # no-key rows
+    (2, 2, 2, 128, 128, 32, False, None, torch.float32),
+    (1, 4, 2, 70, 150, 64, True, 8, torch.float32),
+    (1, 4, 4, 96, 96, 128, True, None, torch.float32),
+])
+def test_flash_attention_bwd_kernel_matches_plain(cuda, case):
+    """The backward kernel's dq, dk, dv against the plain chunked backward
+    on the same CUDA tensors and the same forward output.  Tolerance per
+    element: bf16 2^-7 |want| + 2^-10 max |want| (one bf16 rounding of
+    each gradient; f32 summation order over up to Lq terms near 0); f32
+    1e-5 of max |want| (summation order)."""
+    B, Hq, Hkv, Lq, Lk, D, causal, window, dt = case
+    g = torch.Generator().manual_seed(Lq + Lk + D)
+    q = torch.randn(B, Lq, Hq, D, generator=g).to(cuda, dt).transpose(1, 2)
+    k, v = (torch.randn(B, Lk, Hkv, D, generator=g).to(cuda, dt)
+            .transpose(1, 2) for _ in range(2))
+    do = torch.randn(B, Lq, Hq, D, generator=g).to(cuda, dt).transpose(1, 2)
+    qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
+    b0 = flash_attention.bwd_launches
+    out = flash_attention(qg, kg, vg, causal=causal, window=window)
+    got = torch.autograd.grad(out, (qg, kg, vg), do)
+    assert flash_attention.bwd_launches == b0 + 1
+    want = attention_backward_chunked(q, k, v, out.detach(), do,
+                                      causal=causal, window=window)
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert a.dtype == dt and a.shape == b.shape
+        d, w = (a.float() - b.float()).abs(), b.float().abs()
+        limit = (1e-5 * w.max() if dt == torch.float32
+                 else 2.0 ** -7 * w + 2.0 ** -10 * w.max())
+        assert bool((d <= limit).all()), float(d.max())
+
+
+@pytest.mark.parametrize("b,H,L,P,N,bc", [
+    (2, 3, 100, 16, 16, torch.bfloat16),
+    (1, 8, 300, 64, 64, torch.bfloat16),
+    (1, 4, 130, 64, 128, torch.float32),
+])
+def test_ssd_scan_backward_on_gpu_matches_plain(cuda, b, H, L, P, N, bc):
+    """The scan's backward on the card (three kernel scans) against its
+    plain version (three chunked scans) on the same tensors, B/C one head
+    [b, 1, L, N] shared by all, the model's form.  Tolerance 1e-4 of each
+    gradient's max (f32 summation orders)."""
+    g = torch.Generator().manual_seed(L + N)
+    dt = torch.nn.functional.softplus(torch.randn(b, L, H, generator=g))
+    xt = (torch.randn(b, L, H, P, generator=g) * dt[..., None]).to(
+        cuda).transpose(1, 2)
+    loga = (-dt).to(cuda).transpose(1, 2)
+    Bm, Cm = ((torch.randn(b, L, N, generator=g) * 0.3).to(cuda, bc)
+              for _ in range(2))
+    dy = torch.randn(b, L, H, P, generator=g).to(cuda).transpose(1, 2)
+    ins = [t.detach().requires_grad_() for t in (xt, loga, Bm, Cm)]
+    b0 = ssd_scan.bwd_calls
+    y = ssd_scan(ins[0], ins[1], ins[2][:, None], ins[3][:, None])
+    got = torch.autograd.grad(y, ins, dy)
+    assert ssd_scan.bwd_calls == b0 + 1
+    want = ssd_scan_backward_ref(xt, loga, Bm[:, None], Cm[:, None],
+                                 y.detach(), dy)
+    want = (*want[:2], want[2][:, 0].to(bc), want[3][:, 0].to(bc))
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        err = float((a.float() - w.float()).abs().max() / w.float().abs().max())
+        assert err < (1e-4 if a.dtype == torch.float32 else 1e-2), err
+
+
+def test_train_step_on_gpu_matches_cpu(cuda):
+    """One f32 train step of reduced zamba2 at head dim 64 on the card
+    (both kernels forward and backward) against the same step on the CPU:
+    loss within 1e-4, each gradient-driven moment within 1e-3 relative
+    (Frobenius), with TF32 off."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    from repro_torch.train import adamw_init, make_train_step
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = get_config("zamba2_1p2b").reduced(head_dim=64)
+    model = build_model(cfg)
+    params = _to_f32(model.init_params(0, device="cpu"))
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab, (4, 129)))
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+    step = make_train_step(model, num_microbatches=2)
+    f0, b0 = flash_attention.launches, flash_attention.bwd_launches
+    s0, sb0 = ssd_scan.launches, ssd_scan.bwd_calls
+    _, gopt, gm = step(_to(params, cuda), adamw_init(_to(params, cuda)),
+                       _to(batch, cuda))
+    n_attn = cfg.n_layers // cfg.attn_every
+    assert flash_attention.bwd_launches - b0 == 2 * n_attn
+    assert flash_attention.launches - f0 == 2 * 2 * n_attn    # remat
+    assert ssd_scan.bwd_calls - sb0 == 2 * cfg.n_layers
+    assert ssd_scan.launches - s0 == 2 * 2 * cfg.n_layers
+    _, copt, cm = step(params, adamw_init(params), batch)
+    assert abs(float(gm["loss"]) - float(cm["loss"])) < 1e-4
+    for a, b in zip(_flat(gopt.m), _flat(copt.m)):
+        rel = float((a.cpu() - b).norm() / b.norm().clamp(min=1e-30))
+        assert rel < 1e-3, rel
+
+
+def _to_f32(tree):
+    if isinstance(tree, dict):
+        return {k: _to_f32(v) for k, v in tree.items()}
+    return tree.float()
+
+
+def _flat(tree):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _flat(tree[k])]
+    return [tree]

@@ -13,14 +13,16 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 from repro.kernels.ssd_scan import ssd_scan_pallas
 from repro.models.ssm import _ssd_chunked as j_ssd_chunked
 from repro.kernels.ssd_scan import ssd_scan_ref as j_ssd_scan_ref
 
 from repro_torch.interop import params_from_jax
-from repro_torch.kernels.ssd_scan import (ssd_chunk_parallel_ref,
+from repro_torch.kernels.ssd_scan import (SSDScan, ssd_chunk_parallel_ref,
                                           ssd_chunked_ref, ssd_scan,
+                                          ssd_scan_backward_ref,
                                           ssd_scan_ref)
 
 REL = 2e-5
@@ -119,3 +121,176 @@ def test_three_pass_decomposition_matches_jax(L, N, chunk):
         jnp.asarray(loga.transpose(0, 2, 1).reshape(b * H, L)), flat(Bj),
         flat(Cj)).reshape(b, H, L, P).transpose(0, 2, 1, 3)
     assert _rel(got.numpy(), oracle) < 1e-4
+
+
+# ------------------------------------------------------------- backward ----
+def _model_inputs(b, H, L, P, N, seed, shared=True):
+    """The model's form as numpy: xt [b, H, L, P], loga [b, H, L] (dt from
+    a softplus), B/C [b, L, N] shared by every head (or [b, H, L, N])."""
+    rng = np.random.default_rng(seed)
+    dt = np.log1p(np.exp(rng.standard_normal((b, H, L)))).astype(np.float32)
+    xt = (rng.standard_normal((b, H, L, P)) * dt[..., None]).astype(
+        np.float32)
+    loga = (-dt * 0.5).astype(np.float32)
+    bc = (b, L, N) if shared else (b, H, L, N)
+    B, C = ((rng.standard_normal(bc) * 0.3).astype(np.float32)
+            for _ in range(2))
+    dy = rng.standard_normal((b, H, L, P)).astype(np.float32)
+    return xt, loga, B, C, dy
+
+
+def _j_grads(xt, loga, B, C, dy):
+    """jax.vjp of the JAX model's chunked scan, ``_ssd_chunked`` (B/C one
+    group shared by every head), in the port's [b, H, L, ...] layout."""
+    def f(x, la, Bm, Cm):
+        y, _ = j_ssd_chunked(x.transpose(0, 2, 1, 3), la.transpose(0, 2, 1),
+                             Bm[:, :, None], Cm[:, :, None])
+        return y.transpose(0, 2, 1, 3)
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in (xt, loga, B, C)))
+    return [np.asarray(g) for g in vjp(jnp.asarray(dy))]
+
+
+def _t_grads(xt, loga, B, C, dy, fn=ssd_scan):
+    """The port's gradients through ``fn`` with B/C [b, L, N] expanded over
+    the heads (stride 0): autograd sums the per-head dB, dC."""
+    b, H, L, _ = xt.shape
+    N = B.shape[-1]
+    ins = [torch.from_numpy(a).requires_grad_() for a in (xt, loga, B, C)]
+    x, la, Bm, Cm = ins
+    Bh, Ch = (m[:, None].expand(b, H, L, N) for m in (Bm, Cm))
+    assert Bh.stride(1) == 0
+    y = fn(x, la, Bh, Ch)
+    return [g.numpy() for g in torch.autograd.grad(y, ins,
+                                                   torch.from_numpy(dy))]
+
+
+# the adjoint scans sum in another order than jax.grad's transpose of the
+# chunked scan; dloga is a reverse cumulative sum of differences over L
+BWD_REL = 1e-4
+
+
+@pytest.mark.parametrize("L", [64, 100, 256])
+def test_plain_backward_matches_jax_vjp(L):
+    """The port's backward (three chunked scans and a reverse cumsum)
+    against jax.vjp of the JAX model's chunked scan: dxt, dloga, dB, dC,
+    B/C shared by the heads as a stride-0 expand, L = 100 a ragged last
+    chunk.  Max abs error under 1e-4 of each gradient's max."""
+    arrs = _model_inputs(2, 3, L, 16, 16, L)
+    want = _j_grads(*arrs)
+    got = _t_grads(*arrs)
+    for name, g, w in zip(("dxt", "dloga", "dB", "dC"), got, want):
+        assert g.shape == w.shape, name
+        assert _rel(g, w) < BWD_REL, (name, _rel(g, w))
+
+
+@pytest.mark.parametrize("shared", [True, False])
+@pytest.mark.parametrize("L", [7, 70])
+def test_backward_matches_autograd_through_the_recurrence(L, shared):
+    """ssd_scan_backward_ref against torch autograd through the per-token
+    recurrence (ssd_scan_ref), float64, per-head and stride-0 B/C, L = 70
+    across a chunk edge."""
+    b, H, P, N = 2, 3, 16, 16
+    arrs = [a.astype(np.float64) for a in _model_inputs(b, H, L, P, N, L,
+                                                        shared)]
+    x, la, Bg, Cg = (torch.from_numpy(a).requires_grad_() for a in arrs[:4])
+    dy = torch.from_numpy(arrs[4])
+    Bh, Ch = ((m[:, None].expand(b, H, L, N) for m in (Bg, Cg)) if shared
+              else (Bg, Cg))
+    y = ssd_scan_ref(x, la, Bh, Ch)
+    want = torch.autograd.grad(y, (x, la, Bg, Cg), dy)
+    got = list(ssd_scan_backward_ref(x.detach(), la.detach(), Bh.detach(),
+                                     Ch.detach(), y.detach(), dy))
+    if shared:                      # what autograd's expand sums
+        got[2], got[3] = got[2].sum(1), got[3].sum(1)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape
+        assert float((g - w).abs().max()) < 1e-12
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_function_gradcheck_float64(shared):
+    """The autograd Function (its CPU path) passes gradcheck in float64,
+    with B/C per head and as a stride-0 expand; L = 9 with a chunk of 64
+    is one ragged chunk."""
+    b, H, L, P, N = 1, 2, 9, 3, 2
+    g = torch.Generator().manual_seed(1)
+
+    def t(*s):
+        return torch.randn(*s, generator=g, dtype=torch.float64,
+                           requires_grad=True)
+    xt, loga = t(b, H, L, P), (-torch.rand(b, H, L, generator=g,
+                                            dtype=torch.float64)
+                               ).requires_grad_()
+    if shared:
+        Bm, Cm = t(b, 1, L, N), t(b, 1, L, N)
+        assert torch.autograd.gradcheck(
+            lambda x, la, Bm, Cm: SSDScan.apply(
+                x, la, Bm.expand(b, H, L, N), Cm.expand(b, H, L, N)),
+            (xt, loga, Bm, Cm))
+    else:
+        assert torch.autograd.gradcheck(SSDScan.apply,
+                                        (xt, loga, t(b, H, L, N),
+                                         t(b, H, L, N)))
+
+
+def test_backward_in_bf16_bc_as_the_model_has_them():
+    """B/C in bf16, one head [b, 1, L, N] shared by all (the model's form):
+    the Function gives f32 dxt, dloga and bf16 dB, dC summed over the
+    heads in f32, within 1e-2 of the f32 gradients of the same values (one
+    bf16 rounding of each summed gradient, and B, C in bf16 in the dxt
+    scan)."""
+    b, H, L, P, N = 1, 4, 100, 16, 16
+    xt, loga, B, C, dy = _model_inputs(b, H, L, P, N, 9)
+    B16, C16 = (torch.from_numpy(m).bfloat16() for m in (B, C))
+    want = _t_grads(xt, loga, B16.float().numpy(), C16.float().numpy(), dy)
+    ins = [torch.from_numpy(xt).requires_grad_(),
+           torch.from_numpy(loga).requires_grad_(),
+           B16.requires_grad_(), C16.requires_grad_()]
+    y = ssd_scan(ins[0], ins[1], ins[2][:, None], ins[3][:, None])
+    got = torch.autograd.grad(y, ins, torch.from_numpy(dy))
+    assert [g.dtype for g in got] == [torch.float32, torch.float32,
+                                      torch.bfloat16, torch.bfloat16]
+    for g, w in zip(got, want):
+        assert _rel(g.float().numpy(), w) < 1e-2
+
+
+@pytest.mark.parametrize("L", [64, 100])
+def test_one_group_bc_gradients_are_summed_in_f32(L):
+    """B/C as one head [b, 1, L, N]: the backward returns dB, dC of that
+    shape, the per-head scans summed over the heads in f32 inside the
+    backward, equal to what autograd sums through a stride-0 expand of the
+    same tensors and to jax.vjp of the JAX model's chunked scan (1e-4 of
+    each gradient's max, as BWD_REL)."""
+    b, H, P, N = 2, 3, 16, 16
+    xt, loga, B, C, dy = _model_inputs(b, H, L, P, N, L + 1)
+    ins = [torch.from_numpy(a).requires_grad_() for a in (xt, loga, B, C)]
+    y = ssd_scan(ins[0], ins[1], ins[2][:, None], ins[3][:, None])
+    got = [g.numpy() for g in torch.autograd.grad(y, ins,
+                                                  torch.from_numpy(dy))]
+    through_expand = _t_grads(xt, loga, B, C, dy)
+    want = _j_grads(xt, loga, B, C, dy)
+    one = ssd_scan_backward_ref(*(torch.from_numpy(a) for a in (xt, loga)),
+                                torch.from_numpy(B)[:, None],
+                                torch.from_numpy(C)[:, None], y.detach(),
+                                torch.from_numpy(dy))
+    assert one[2].shape == one[3].shape == (b, 1, L, N)
+    for name, g, e, w in zip(("dxt", "dloga", "dB", "dC"), got,
+                             through_expand, want):
+        assert g.shape == w.shape, name
+        assert _rel(g, e) < 1e-6, (name, _rel(g, e))
+        assert _rel(g, w) < BWD_REL, (name, _rel(g, w))
+
+
+def test_function_gradcheck_float64_one_group():
+    """gradcheck of the autograd Function in float64 with B/C one head
+    [b, 1, L, N] shared by H = 3 heads (the backward sums over heads)."""
+    b, H, L, P, N = 1, 3, 9, 3, 2
+    g = torch.Generator().manual_seed(2)
+
+    def t(*s):
+        return torch.randn(*s, generator=g, dtype=torch.float64,
+                           requires_grad=True)
+    loga = (-torch.rand(b, H, L, generator=g, dtype=torch.float64)
+            ).requires_grad_()
+    assert torch.autograd.gradcheck(
+        SSDScan.apply, (t(b, H, L, P), loga, t(b, 1, L, N), t(b, 1, L, N)))
