@@ -80,9 +80,10 @@ size:
   seed in both), its admission order, served requests and deadline
   misses against the one-process run's, its tokens equal in the two
   processes (this script re-run with ``--dist-child``);
-* training: the flash-attention backward kernel and the SSD scan's
-  backward (three kernel scans) against their plain versions at the
-  training shape and others; zamba2-1.2b at full width and depth
+* training: the flash-attention backward kernels (the wgmma route for
+  bf16 at D 64 and 128) and the SSD scan's backward kernel against their
+  plain versions at the training shape and others, two calls bit for
+  bit; zamba2-1.2b at full width and depth
   trained through ``make_train_step`` (8 x 4,096 tokens from
   ``GlobalOrderPipeline`` as 2 microbatches, remat, AdamW) for 3 steps,
   every forward and backward launch counted against the model and no
@@ -175,10 +176,10 @@ CARD_CPU_TOL = 0.4
 FLASH_BWD_RTOL = 2.0 ** -7
 FLASH_BWD_ATOL_REL = 2.0 ** -10
 FLASH_BWD_F32_REL = 1e-5
-# the SSD scan's backward (three kernel scans) vs the plain backward (three
-# chunked scans), f32: summation order through the carried states, and
-# for dloga a reverse cumulative sum over L of differences; relative to
-# each gradient's max
+# the SSD scan's backward kernel vs the plain backward (three chunked
+# scans), f32: summation order through the carried states, and for dloga
+# a reverse cumulative sum over L of differences; relative to each
+# gradient's max
 SSD_BWD_REL = 1e-4
 # zamba2-1.2b at full width cut to TRAIN_CPU_LAYERS layers (one shared
 # block call), f32 weights, TRAIN_CPU_BATCH x TRAIN_CPU_TOKENS tokens: one
@@ -208,6 +209,10 @@ TRAIN_CPU_STEP_LR = 2.5
 # TRAIN_MICRO microbatches, TRAIN_STEPS steps (train_4k's global batch of
 # 256 cut to 8 for one card); path:train_loop at TRAIN_CPU_LAYERS layers
 LOOP_STEPS, LOOP_CKPT_EVERY, LOOP_FAIL_AT = 120, 40, 60
+# path:train_zamba2's peak device memory may not grow past the three-scan
+# SSD backward's (42,975,595,008 bytes on an NVIDIA H100 80GB HBM3 at
+# 700 W) plus 1 GB
+TRAIN_PEAK_BYTES = 42_975_595_008 + 1_000_000_000
 LOOP_BATCH, LOOP_SEQ = 8, 1_024
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 4_096, 2, 3
 SCAN_OPS = 20          # int ops per op: transform, ~2 composes, emission
@@ -297,15 +302,19 @@ def phase_build():
     fa.argtypes, fa.restype = [ctypes.c_int], ctypes.c_int64
     ssd = libs["ssd_scan"].repro_ssd_scan_smem
     ssd.argtypes, ssd.restype = [ctypes.c_int] * 3, ctypes.c_int64
+    ssd_bwd = libs["ssd_scan_bwd"].repro_ssd_scan_bwd_smem
+    ssd_bwd.argtypes, ssd_bwd.restype = [ctypes.c_int] * 3, ctypes.c_int64
     from repro_torch.kernels.ssd_scan.kernel import CHUNK
     dynamic = {"flash_fwd_wgmma<64>": fa(64),
                "flash_fwd_wgmma<128>": fa(128),
                f"ssd_scan (P = N = 64, chunk {CHUNK}, bf16 B/C)":
-               ssd(64, 64, 1)}
+               ssd(64, 64, 1),
+               "ssd_scan_bwd_chunk (P = N = 64, bf16 B/C)": ssd_bwd(64, 64, 1)}
     emit("build", seconds=total, kernels=kernels,
          dynamic_smem_bytes=dynamic)
     for name, rec in kernels.items():
-        if name in ("flash_attention", "flash_attention_bwd", "ssd_scan"):
+        if name in ("flash_attention", "flash_attention_bwd", "ssd_scan",
+                    "ssd_scan_bwd"):
             for f in rec["functions"]:
                 print(f"ptxas {name}: {f['function']}: {f['registers']} "
                       f"registers, {f['smem_bytes']} bytes static smem, "
@@ -313,6 +322,24 @@ def phase_build():
                       flush=True)
             for note in rec["ptxas_notices"]:
                 print(f"ptxas {name}: {note}", flush=True)
+    return kernels
+
+
+def _ptxas_of(build, library: str, pattern: str) -> dict:
+    """{kernel<template args>: {registers, spill_stores, spill_loads}} of the
+    build phase's ptxas report for the functions of ``library`` whose
+    mangled names match ``pattern``: group 1 the name, later groups its
+    template arguments (bf16 and f32 written out)."""
+    types = {"13__nv_bfloat16": "bf16", "f": "f32"}
+    out = {}
+    for f in build[library]["functions"]:
+        m = re.search(pattern, f["function"] or "")
+        if m:
+            args = [types.get(a, a) for a in m.groups()[1:] if a]
+            key = m.group(1) + (f"<{', '.join(args)}>" if args else "")
+            out[key] = {k: f[k] for k in ("registers", "spill_stores",
+                                           "spill_loads")}
+    return out
 
 
 def phase_queue_scan(torch, rng, results):
@@ -3988,6 +4015,7 @@ def _counters() -> dict:
     return {"flash_fwd": flash_attention.launches,
             "flash_fwd_tc": flash_attention.tc_launches,
             "flash_bwd": flash_attention.bwd_launches,
+            "flash_bwd_tc": flash_attention.bwd_tc_launches,
             "ssd_fwd": ssd_scan.launches, "ssd_bwd": ssd_scan.bwd_calls,
             "plain": flash_attention.plain_calls + ssd_scan.plain_calls}
 
@@ -3997,16 +4025,18 @@ def _zero_counters() -> None:
     from repro_torch.kernels.ssd_scan import ssd_scan
     flash_attention.launches = flash_attention.tc_launches = 0
     flash_attention.bwd_launches = flash_attention.plain_calls = 0
+    flash_attention.bwd_tc_launches = 0
     ssd_scan.launches = ssd_scan.bwd_calls = ssd_scan.plain_calls = 0
 
 
 def _expected_counts(cfg, forwards: int, backwards: int) -> dict:
     """Counts the model implies for ``forwards`` forward passes (remat's
     recompute counted as one more) and ``backwards`` backward passes of
-    one microbatch each, bf16 with D = 64 (the tensor-core route)."""
+    one microbatch each, bf16 with D = 64 (the tensor-core routes)."""
     n_attn = cfg.n_layers // cfg.attn_every
     return {"flash_fwd": forwards * n_attn, "flash_fwd_tc": forwards * n_attn,
             "flash_bwd": backwards * n_attn,
+            "flash_bwd_tc": backwards * n_attn,
             "ssd_fwd": forwards * cfg.n_layers,
             "ssd_bwd": backwards * cfg.n_layers, "plain": 0}
 
@@ -4045,18 +4075,26 @@ def _sdpa_bwd_ms(torch, q, k, v, do, reps: int) -> float:
 
 
 def phase_flash_attention_bwd(torch, results):
-    """The flash-attention backward kernel (three launches: dsum, dk/dv,
-    dq) against its plain version (the chunked backward) on the same
+    """The flash-attention backward kernels (three launches: dsum, dk/dv,
+    dq) against their plain version (the chunked backward) on the same
     device tensors and the same forward output, in the model's
     [B, L, H, D] layout; the first case is the training path's call.  The
-    kernel is reached through the wrapper's autograd Function once
-    (counted), then timed alone with the forward's log-sum-exp."""
+    bf16 D 64 and 128 cases must take the wgmma route (by the launcher's
+    report, in the wrapper's count and in each direct call, and by the
+    kernel names the profiler sees); each case is reached through the
+    wrapper's autograd Function once (counted), then timed alone with the
+    forward's log-sum-exp, and two calls must give the same bits.  Reports
+    the kernels' ptxas registers and spills from the build phase."""
     from repro_torch.kernels.flash_attention import (
         attention_backward_chunked, flash_attention)
     from repro_torch.kernels.flash_attention.kernel import (
-        flash_attention_bwd_kernel, flash_attention_kernel, tc_route)
+        bwd_tc_route, flash_attention_bwd_kernel, flash_attention_kernel,
+        tc_route)
     dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(3)
+    ptxas = _ptxas_of(results["build"], "flash_attention_bwd",
+                      r"(flash_bwd_(?:dot|dkdv_wgmma|dq_wgmma|dkdv|dq))I"
+                      r"(13__nv_bfloat16|f)?Li(\d+)E")
     # (case, B, Hq, Hkv, Lq, Lk, D, window, dtype, timing reps)
     cases = [("train_path: zamba2 shared block", 4, 32, 32, 4096, 4096, 64,
               None, bf16, 10),
@@ -4073,12 +4111,18 @@ def phase_flash_attention_bwd(torch, results):
                                dtype=dt).transpose(1, 2)
         q, k, v, do = rand(Lq, Hq), rand(Lk, Hkv), rand(Lk, Hkv), rand(Lq, Hq)
         qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-        b0 = flash_attention.bwd_launches
+        tc = bwd_tc_route(dt, D, Lq, Lk)
+        check(tc == (dt == bf16 and D in (64, 128)),
+              f"flash_attention_bwd {case}: bf16 at D 64 and 128 takes the "
+              f"wgmma route")
+        b0, t0 = flash_attention.bwd_launches, flash_attention.bwd_tc_launches
         out = flash_attention(qg, kg, vg, causal=True, window=window)
         got = torch.autograd.grad(out, (qg, kg, vg), do)
-        check(flash_attention.bwd_launches - b0 == 1,
+        check(flash_attention.bwd_launches - b0 == 1
+              and flash_attention.bwd_tc_launches - t0 == int(tc),
               f"flash_attention_bwd {case}: the autograd Function launched "
-              f"the backward kernel")
+              f"the backward kernels on the {'wgmma' if tc else 'mma.sync'} "
+              f"route")
         o = out.detach()
         del out, qg, kg, vg
         want = attention_backward_chunked(q, k, v, o, do, causal=True,
@@ -4098,10 +4142,22 @@ def phase_flash_attention_bwd(torch, results):
         def run():
             return flash_attention_bwd_kernel(q, k, v, o, do, lse,
                                               causal=True, window=window)
+        (first, tc_first), (second, tc_second) = run(), run()
+        check(tc_first == tc_second == tc,
+              f"flash_attention_bwd {case}: the launcher reports the "
+              f"{'wgmma' if tc else 'mma.sync'} route")
+        identical = all(torch.equal(a, b) for a, b in zip(first, second))
+        check(identical, f"flash_attention_bwd {case}: two calls give the "
+                         f"same bits")
+        del first, second
         ms = time_ms(run, reps, torch, 2)
-        # reported, not checked: the profiler here loses kernel events now
-        # and then (see _kernel_calls); the wrapper's count is the check
+        names = (["flash_bwd_dot", "flash_bwd_dkdv_wgmma",
+                  "flash_bwd_dq_wgmma"] if tc else
+                 ["flash_bwd_dot", "flash_bwd_dkdv", "flash_bwd_dq"])
         calls = _kernel_calls(torch, run)
+        check(sorted(calls) == sorted(names),
+              f"flash_attention_bwd {case}: the profile shows the route's "
+              f"kernels {names}, got {sorted(calls)}")
         plain = time_ms(lambda: attention_backward_chunked(
             q, k, v, o, do, causal=True, window=window), max(1, reps // 5),
             torch, 1)
@@ -4118,22 +4174,26 @@ def phase_flash_attention_bwd(torch, results):
                "dtype": str(dt).split(".")[-1],
                "forward_route": "flash_fwd_wgmma" if tc_route(dt, D, Lq)
                else "flash_fwd",
-               "kernel": "flash_bwd_dot, flash_bwd_dkdv, flash_bwd_dq "
-                         + ("(mma.sync m16n8k16, P and dS as bf16 hi + lo)"
-                            if dt == bf16 else "(scalar f32)"),
+               "route": "wgmma" if tc else "mma.sync / f32",
+               "kernel": ", ".join(names) + (
+                   " (wgmma from TMA rings, P and dS as bf16 hi + lo)" if tc
+                   else " (mma.sync m16n8k16, P and dS as bf16 hi + lo)"
+                   if dt == bf16 else " (scalar f32)"),
+               "ptxas": ({k: r for k, r in ptxas.items()
+                          if "wgmma" in k and k.endswith(f"<{D}>")}
+                         if tc else "the mma.sync route's, in the build line"),
                "errors": err,
                "max_abs_err": max(e["max_abs_err"] for e in err.values()),
                "tolerance": (f"|d| <= {FLASH_BWD_F32_REL} max|want|"
                              if dt == f32 else
                              f"|d| <= {FLASH_BWD_RTOL} |want| + "
                              f"{FLASH_BWD_ATOL_REL} max|want|"),
+               "repeat_bit_identical": identical,
                "ms": ms,
-               "device_ms": (sum(m for _, m in calls.values()) if calls
-                             else "not measured"),
-               "device_ms_by_kernel": ({n: m for n, (_, m) in calls.items()}
-                                       if calls else "not measured"),
-               "device_kernels": ({n: c for n, (c, _) in calls.items()}
-                                  if calls else "not measured"),
+               "device_ms": sum(m for _, m in calls.values()),
+               "device_ms_by_kernel": {n: m for n, (_, m) in calls.items()},
+               "device_kernels": {n: c for n, (c, _) in calls.items()},
+               "kernel_launches_profiled": sum(c for c, _ in calls.values()),
                "plain_ms": plain, "library_ms": lib,
                "library": "scaled_dot_product_attention forward + backward "
                           "minus its forward" if lib is not None else
@@ -4147,17 +4207,24 @@ def phase_flash_attention_bwd(torch, results):
         del q, k, v, do, o, lse
 
 
+SSD_BWD_KERNELS = ("ssd_scan_bwd_walk", "ssd_scan_bwd_chunk",
+                   "ssd_scan_bwd_finish")
+
+
 def phase_ssd_scan_bwd(torch, results):
-    """The SSD scan's backward on the card (three kernel scans with the
-    roles permuted, a reverse cumulative sum) against its plain version
-    (three chunked scans), f32, at the training path's shape: xt, loga
-    views of [b, L, H, ...] buffers, B/C [b, L, N] bf16 as one head shared
-    by all (the model's form: dB and dC are the per-head scans summed over
-    the heads in f32).  One call through the autograd Function is counted
-    first."""
+    """The SSD scan's backward kernel on the card (three launches: the
+    forward and adjoint state walks, the chunks, the cross-chunk finish)
+    through its wrapper against its plain version (three chunked
+    scans and a reverse cumulative sum), f32, at the training path's
+    shape: xt, loga, dy views of [b, L, H, ...] buffers, B/C [b, L, N] bf16
+    as one head shared by all (the model's form: dB and dC the per-head
+    gradients summed over the heads in f32).  One call through the
+    autograd Function is counted first; two calls must give the same
+    bits; the profile must show each of its three kernels launched once a
+    call and nothing else (no forward scan, no flip copy)."""
     from repro_torch.kernels.ssd_scan import (ssd_scan,
                                               ssd_scan_backward_ref)
-    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_kernel
+    from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd_kernel
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(4)
     b, H, L, P, N = 4, 64, 4096, 64, 64
@@ -4171,18 +4238,19 @@ def phase_ssd_scan_bwd(torch, results):
     dy = torch.randn(b, L, H, P, generator=gen, device=dev).transpose(1, 2)
     Bh, Ch = Bm[:, None], Cm[:, None]
     ins = [t.detach().requires_grad_() for t in (xt, loga, Bm, Cm)]
-    b0 = ssd_scan.bwd_calls
+    b0, p0 = ssd_scan.bwd_calls, ssd_scan.plain_calls
     y = ssd_scan(ins[0], ins[1], ins[2][:, None], ins[3][:, None])
     torch.autograd.grad(y, ins, dy)
-    check(ssd_scan.bwd_calls - b0 == 1,
-          "ssd_scan_bwd: the autograd Function ran the kernel backward")
+    check(ssd_scan.bwd_calls - b0 == 1 and ssd_scan.plain_calls == p0,
+          "ssd_scan_bwd: the autograd Function ran the backward kernel")
     y = y.detach()
     del ins
 
     def run():
-        return ssd_scan_backward_ref(xt, loga, Bh, Ch, y, dy,
-                                     scan=ssd_scan_kernel)
-    got = run()
+        return ssd_scan_bwd_kernel(xt, loga, Bh, Ch, y, dy)
+    got, again = run(), run()
+    identical = all(torch.equal(g, a) for g, a in zip(got, again))
+    del again
     want = ssd_scan_backward_ref(xt, loga, Bh, Ch, y, dy)
     torch.cuda.synchronize()
     names = ("dxt", "dloga", "dB", "dC")
@@ -4194,15 +4262,24 @@ def phase_ssd_scan_bwd(torch, results):
     check(all(r <= SSD_BWD_REL for r in rel.values()),
           f"ssd_scan_bwd: every gradient within {SSD_BWD_REL} of its max: "
           f"{rel}")
+    check(identical, "ssd_scan_bwd: two calls give the same bits")
     del got, want
     ms = time_ms(run, 5, torch, 1)
-    calls = _kernel_calls(torch, run)       # reported, as above
-    scans = {n: c for n, (c, _) in calls.items() if n.startswith("ssd_scan")}
+    calls = _kernel_calls(torch, run)
+    launched = {n: c for n, (c, _) in calls.items()}
+    check(launched == {n: 1.0 for n in SSD_BWD_KERNELS},
+          f"ssd_scan_bwd: the profile shows each backward kernel launched "
+          f"once a call and nothing else, got {launched}")
     plain = time_ms(lambda: ssd_scan_backward_ref(xt, loga, Bh, Ch, y, dy),
                     1, torch, 1)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    run()
+    torch.cuda.synchronize()
+    extra = torch.cuda.max_memory_allocated() - base
     # read xt, y, dy (f32), B, C (bf16, one group), loga; write dxt, dloga
-    # and dB, dC (f32, one group: the per-head scans' outputs are summed
-    # over the heads inside the function)
+    # and dB, dC (f32, one group: the per-head gradients are summed over
+    # the heads inside the function)
     n_bytes = (4 * 4 * b * H * L * P + 2 * 2 * b * L * N + 2 * 4 * b * H * L
                + 2 * 4 * b * L * N)
     flops = 3 * 4 * b * H * L * N * P       # three per-token recurrences
@@ -4211,22 +4288,20 @@ def phase_ssd_scan_bwd(torch, results):
            "P": P, "N": N,
            "B/C": "bfloat16, one group [b, 1, L, N] read with stride 0 over "
                   "heads; dB, dC summed over heads in f32",
-           "kernel": "three ssd_scan kernel calls (dxt, dB, dC) with the "
-                     "roles permuted and time reversed, plus a reverse "
-                     "cumsum (dloga)",
-           "scan_calls_per_backward": 3,
-           # three launches a scan call (ssd_scan_kernel's design)
-           "kernel_launches_per_backward": 9,
-           "kernel_launches_profiled": (sum(scans.values()) if calls
-                                        else "not measured"),
+           "kernel": "ssd_scan_bwd_walk, ssd_scan_bwd_chunk, "
+                     "ssd_scan_bwd_finish "
+                     "(csrc/ssd_scan_bwd.cu; mma.sync 3xTF32)",
+           "ptxas": _ptxas_of(results["build"], "ssd_scan_bwd",
+                              r"(ssd_scan_bwd_(?:walk|chunk|finish))"
+                              r"(?:I(13__nv_bfloat16|f))?(?:Li(\d+)E)?"),
+           "kernel_launches_per_backward": sum(launched.values()),
+           "device_kernels": launched,
            "max_abs_err": err, "rel_err": rel, "tolerance_rel": SSD_BWD_REL,
+           "repeat_bit_identical": identical,
            "ms": ms,
-           "device_ms": (sum(m for _, m in calls.values()) if calls
-                         else "not measured"),
-           "device_ms_by_kernel": ({n: m for n, (_, m) in calls.items()}
-                                   if calls else "not measured"),
-           "device_kernels": ({n: c for n, (c, _) in calls.items()}
-                              if calls else "not measured"),
+           "device_ms": sum(m for _, m in calls.values()),
+           "device_ms_by_kernel": {n: m for n, (_, m) in calls.items()},
+           "scratch_and_outputs_bytes": extra,
            "plain_ms": plain, "library_ms": None,
            "library": "none: no single PyTorch call computes the scan's "
                       "backward",
@@ -4253,7 +4328,8 @@ def _profile_train_step(torch, step_fn, params, opt, batch) -> dict:
     busy = sum(ev.self_device_time_total for ev in evs)
     by_kind = {"flash_attention forward": 0.0,
                "flash_attention backward": 0.0,
-               "ssd_scan (forward, recompute, backward scans)": 0.0,
+               "ssd_scan forward (and remat's recompute)": 0.0,
+               "ssd_scan backward": 0.0,
                "cuBLAS products": 0.0,
                "other (elementwise, reductions, copies, optimizer)": 0.0}
     calls = {}
@@ -4261,7 +4337,8 @@ def _profile_train_step(torch, step_fn, params, opt, batch) -> dict:
         k, t = ev.key, ev.self_device_time_total / 1e3
         kind = ("flash_attention forward" if "flash_fwd" in k else
                 "flash_attention backward" if "flash_bwd" in k else
-                "ssd_scan (forward, recompute, backward scans)"
+                "ssd_scan backward" if "ssd_scan_bwd" in k else
+                "ssd_scan forward (and remat's recompute)"
                 if "ssd_scan" in k else
                 "cuBLAS products" if any(w in k.lower() for w in (
                     "nvjet", "gemm", "xmma", "cutlass")) else
@@ -4322,6 +4399,9 @@ def phase_train_zamba2(torch, results, zamba):
               and m["grad_norm"] > 0 for m in metrics),
           f"train_zamba2: finite losses and grad norms > 0: {metrics}")
     check(int(opt.step) == TRAIN_STEPS, "train_zamba2: the optimizer's step")
+    check(peak <= TRAIN_PEAK_BYTES,
+          f"train_zamba2: peak device memory {peak} bytes, above "
+          f"{TRAIN_PEAK_BYTES}")
     prof = _profile_train_step(torch, step_fn, p, opt, batch_at(TRAIN_STEPS))
     step_ms = float(np.median(walls[1:]))
     rec = {"arch": cfg.name, "params": _n_params(params),
@@ -4387,8 +4467,8 @@ def phase_train_card_vs_cpu(torch, seed, results):
             torch.cuda.synchronize()
             counts = _counters()
             expect = _expected_counts(cfg, 2, 1)
-            if name == "float32":     # the scalar forward route
-                expect["flash_fwd_tc"] = 0
+            if name == "float32":     # the scalar routes
+                expect["flash_fwd_tc"] = expect["flash_bwd_tc"] = 0
             check(counts == expect, f"train_card_vs_cpu {name}: the card's "
                                     f"step launched {counts}, not {expect}")
             t0 = time.perf_counter()
@@ -4542,7 +4622,7 @@ def main() -> int:
          torch=torch.__version__, cuda=torch.version.cuda)
     rng = np.random.default_rng(args.seed)
     results = {}
-    phase_build()
+    results["build"] = phase_build()
     phase_queue_scan(torch, rng, results)
     phase_hash_route(torch, rng, results)
     phase_stack_scan(torch, rng, results)
@@ -4714,28 +4794,32 @@ def main() -> int:
          "replaces_note": "no Pallas backward: the reference differentiates "
                           "its jnp attention (_sdpa_chunked) with "
                           "jax.value_and_grad (repro/train/train_step.py:42)",
-         "path": "train_zamba2", "shape": fb["case"],
+         "path": "train_zamba2", "shape": fb["case"], "kernel": fb["kernel"],
          "launches": train["flash_bwd"],
          "launches_by_path": train_paths("flash_bwd"),
-         "kernels_per_launch": 3, "matched_plain": True,
+         "wgmma_route_launches_by_path": train_paths("flash_bwd_tc"),
+         "kernel_launches_profiled": fb["kernel_launches_profiled"],
+         "matched_plain": True,
          "max_abs_err": fb["max_abs_err"], "ms": fb["ms"],
-         "device_ms": fb["device_ms"], "plain_ms": fb["plain_ms"],
+         "device_ms": fb["device_ms"],
+         "device_ms_by_kernel": fb["device_ms_by_kernel"],
+         "ptxas": fb["ptxas"], "plain_ms": fb["plain_ms"],
          "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"],
          "library_ms": fb["library_ms"], "library": fb["library"]},
         {"name": "ssd_scan_bwd", "route": "cuda",
-         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+         "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
          "replaces": "src/repro/models/ssm.py:46",
          "replaces_note": "no Pallas backward: the reference differentiates "
-                          "_ssd_chunked with jax.value_and_grad; here three "
-                          "calls of the forward kernel "
-                          "(kernels/ssd_scan/ref.py:ssd_scan_backward_ref)",
-         "path": "train_zamba2", "shape": sb["case"],
+                          "_ssd_chunked with jax.value_and_grad",
+         "path": "train_zamba2", "shape": sb["case"], "kernel": sb["kernel"],
          "launches": train["ssd_bwd"],
          "launches_by_path": train_paths("ssd_bwd"),
-         "kernel_launches_per_call": sb["kernel_launches_per_backward"],
+         "kernel_launches_profiled": sb["kernel_launches_per_backward"],
          "matched_plain": True, "max_abs_err": max(sb["max_abs_err"].values()),
          "rel_err": sb["rel_err"], "ms": sb["ms"],
-         "device_ms": sb["device_ms"], "plain_ms": sb["plain_ms"],
+         "device_ms": sb["device_ms"],
+         "device_ms_by_kernel": sb["device_ms_by_kernel"],
+         "plain_ms": sb["plain_ms"],
          "bound_ms": sb["bound_ms"], "bound_by": sb["bound_by"],
          "library_ms": None},
     ]

@@ -32,8 +32,8 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # csrc/<name>.cu, one library each
-SOURCES = ("segscan", "hash_route", "ssd_scan", "flash_attention",
-           "flash_attention_bwd", "relaxed")
+SOURCES = ("segscan", "hash_route", "ssd_scan", "ssd_scan_bwd",
+           "flash_attention", "flash_attention_bwd", "relaxed")
 
 _LOCAL_INCLUDE = re.compile(rb'#include\s+"([\w.]+\.cuh)"')
 _libs: dict = {}   # name -> loaded ctypes.CDLL (one per process)

@@ -1,4 +1,4 @@
-// Helpers shared by the model kernels (flash_attention.cu, ssd_scan.cu).
+// Helpers shared by the model kernels (flash attention, the SSD scan).
 #pragma once
 
 #include <cstdint>
@@ -10,6 +10,10 @@ namespace repro {
 struct Strides {                 // element strides of (batch, head, position)
   int64_t b, h, l;
 };
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {

@@ -4,49 +4,74 @@
 //
 // The TPU package has no backward kernel: repro/train differentiates the
 // jnp attention (repro/models/layers.py:_sdpa_chunked) with jax.grad.  This
-// is FlashAttention-2's backward, in three launches on the caller's stream:
+// is FlashAttention's backward, in three launches on the caller's stream,
+// on one of two routes the wrapper picks (kernel.py: bwd_tc_route):
 //
 //   1. flash_bwd_dot: dsum_i = rowsum(dO_i ∘ O_i), one warp a row (f32).
-//   2. flash_bwd_dkdv: one block of 64 keys of one kv head walks the query
-//      tiles that see them, for each query head of its GQA group, and
-//      recomputes P = exp(scale·QKᵀ - lse) from the forward's per-row
-//      log-sum-exp: dV += Pᵀ dO, dS = P ∘ (dO Vᵀ - dsum), dK += dSᵀ Q.  The
-//      group's heads are summed in registers, so no float atomics.
-//   3. flash_bwd_dq: one block of 64 queries of one head walks the key tiles
-//      it sees (the forward's loop bounds): dQ += dS K.
+//   2. dk/dv: one block of keys of one kv head walks the query tiles that
+//      see them, for each query head of its GQA group, and recomputes
+//      P = exp(scale·QKᵀ - lse) from the forward's per-row log-sum-exp:
+//      dV += Pᵀ dO, dS = P ∘ (dO Vᵀ - dsum), dK += dSᵀ Q.  The group's
+//      heads are summed in registers, so no float atomics.
+//   3. dq: one block of queries of one head walks the key tiles it sees
+//      (the forward's loop bounds): dQ += dS K.
 //
 // Every result is written once by one thread, in a fixed order: a replay
 // is bit for bit the same.  A row that sees no key has lse = +inf, so its
-// P is 0 and it contributes nothing (its output was 0).  Tiles past Lq or
-// Lk load as zero and are masked, not padded.  Tensors are read through
-// (batch, head, position) strides, so the model's [B, L, H, D] layout is
-// used as it is; dq, dk, dv are written through strides too.
+// P is 0 and it contributes nothing (its output was 0).  Tensors are read
+// through (batch, head, position) strides, so the model's [B, L, H, D]
+// layout is used as it is; dq, dk, dv are written through strides too.
 //
-// bf16 (tensor cores, mma.sync m16n8k16, f32 accumulators): the four warps
-// of a block own 16 rows each.  Products whose operands are inputs (QKᵀ,
-// dO Vᵀ) are exact in f32.  P and dS are f32 and enter a product as an A
-// operand through shared memory as hi + lo bf16 parts (x = bf16(x) +
-// bf16(x - bf16(x)), as the forward's P·V does), so every product keeps
-// about f32's accuracy and the kernel matches its plain f32 version to the
-// final rounding of dq, dk, dv.  That is 1.5 times the nominal tensor-core
-// work of those products.  f32: the same blocks with scalar fmaf products,
-// each lane computing the same fragment positions an mma would.
+// P and dS are f32 and enter the products dV, dK, dQ as an A operand in
+// hi + lo bf16 parts (x = bf16(x) + bf16(x - bf16(x)), as the forward's
+// P·V does): with one bf16 part each the kernel would break the
+// per-element limit its plain f32 version is held to (2^-7 |want| +
+// 2^-10 max|want|), so every product keeps about f32's accuracy and the
+// kernel matches its plain version to the final rounding of dq, dk, dv.
+// Products whose operands are inputs (QKᵀ, dO Vᵀ) are exact in f32.
+//
+// Tensor-core route (bf16, D 64 or 128, Lq and Lk at least 64):
+// flash_bwd_dkdv_wgmma and flash_bwd_dq_wgmma, after FlashAttention-3's
+// backward (Shah et al., 2024, §3) in its deterministic two-walk form.  A
+// block has two consumer warpgroups; its fixed tiles (K and V of 128 keys;
+// Q and dO of 128 queries) are loaded once and a ring of kBwdStages
+// streamed tiles (Q, dO and their rows' lse and dsum; K and V) is kept
+// full with TMA, mbarriers signalling arrival and release, so the next
+// tiles are in flight while the current one computes.  Products run on
+// wgmma from 128-byte-swizzled shared memory.  In dk/dv a warpgroup takes
+// 64 keys and computes Sᵀ = K Qᵀ and dPᵀ = V dOᵀ, so Pᵀ and dSᵀ sit in its
+// registers as the A operand of dV += Pᵀ dO and dK += dSᵀ Q (two
+// register-A wgmmas each, hi and lo) against the Q and dO tiles read
+// MN-major; ring tiles are 32 queries, which keeps dK, dV, Sᵀ, dPᵀ and
+// both tiles' fragments in registers.  In dq a warpgroup takes 64 queries
+// as the forward does.  Both overlap inside a warpgroup as the forward
+// does: the next tile's S and dP are issued with this tile's gradient
+// products, and P and dS are computed while those run; exp is one ex2 on
+// the special-function unit.  Two walks (and not one walk that also sums
+// dQ across key blocks) keep determinism free: dQ needs no ordered
+// cross-block sum.  The cost is S and dP computed twice, 20·D flops a
+// visible pair against the function's 10·D (the hi + lo split adds 3 of
+// those products' 2·D).
+//
+// mma.sync route (bf16 D 32, f32 any D, or fewer than 64 queries or
+// keys): flash_bwd_dkdv and flash_bwd_dq, blocks of 64 with four warps of
+// 16 rows, P and dS through shared memory as hi + lo (bf16) or f32 (f32:
+// scalar fmaf at the fragment positions an mma would compute).
 //
 // What bounds it on an H100: at the training shape (B = 4, H = 32,
 // L = 4,096, D = 64, bf16, causal) the function needs 10·D flops a visible
 // query-key pair (S, dP, dV, dK, dQ: 2.5 times the forward's 4·D), 687
 // GFLOP, 0.69 ms at 989 TFLOP/s; its bytes (q, k, v, o, dO read, dq, dk,
-// dv written, lse) are 0.47 GB, 0.14 ms at 3.35 TB/s: operations.  This
-// first kernel recomputes S and dP in both walks (14·D a pair) and splits
-// P and dS (3 more products of 2·D), about twice the bound's work, loads
-// fragments with plain shared-memory loads rather than ldmatrix, and does
-// not overlap loads with products (no cp.async, TMA or wgmma).
+// dv written, lse) are 0.47 GB, 0.14 ms at 3.35 TB/s: operations.  The
+// tensor-core route does twice the bound's work (two walks, the split),
+// 1.4 ms at the peak rate.
 #include <cmath>
 #include <cstdint>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -230,12 +255,24 @@ __device__ __forceinline__ bool visible(const BwdParams& p, int qpos,
          (p.window <= 0 || kpos > qpos - p.window);
 }
 
+// dsum_i = rowsum(dO_i ∘ O_i), one warp a row, into rows of ld entries
+// (ld >= Lq; entries past Lq get 0).  With lse2 (the tensor-core route) it
+// also writes lse·log2(e) there, +inf past Lq, so the TMA ring reads whole
+// tiles of both.
 template <typename T, int D>
-__global__ void flash_bwd_dot(const BwdParams p, int rows) {
+__global__ void flash_bwd_dot(const BwdParams p, int ld, float* lse2,
+                              int rows) {
   const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
   if (row >= rows) return;
-  const int bh = row / p.Lq, qi = row - bh * p.Lq;
+  const int bh = row / ld, qi = row - bh * ld;
+  if (qi >= p.Lq) {
+    if (lane == 0) {
+      p.dsum[row] = 0.f;
+      lse2[row] = INFINITY;      // only the padded tensor-core buffers
+    }
+    return;
+  }
   const int bi = bh / p.Hq, h = bh - bi * p.Hq;
   const T* o = static_cast<const T*>(p.o) + bi * p.so.b + h * p.so.h +
                (int64_t)qi * p.so.l;
@@ -247,7 +284,11 @@ __global__ void flash_bwd_dot(const BwdParams p, int rows) {
 #pragma unroll
   for (int w = 16; w > 0; w >>= 1)
     acc += __shfl_xor_sync(0xffffffffu, acc, w);
-  if (lane == 0) p.dsum[row] = acc;
+  if (lane == 0) {
+    p.dsum[row] = acc;
+    if (lse2 != nullptr)
+      lse2[row] = p.lse[(int64_t)bh * p.Lq + qi] * 1.4426950408889634f;
+  }
 }
 
 // One block: 64 keys of kv head hk; warp w owns keys 16w .. 16w + 15.
@@ -450,7 +491,8 @@ __global__ void __launch_bounds__(kThreads) flash_bwd_dq(const BwdParams p) {
 template <typename T, int D>
 int launch(const BwdParams& p, int B, cudaStream_t stream) {
   const int rows = B * p.Hq * p.Lq;
-  flash_bwd_dot<T, D><<<(rows + 7) / 8, 256, 0, stream>>>(p, rows);
+  flash_bwd_dot<T, D><<<(rows + 7) / 8, 256, 0, stream>>>(p, p.Lq, nullptr,
+                                                          rows);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   constexpr size_t s1 = smem_dkdv<T, D>(), s2 = smem_dq<T, D>();
@@ -534,4 +576,601 @@ extern "C" int repro_flash_attention_bwd(
           aligned(v, st + 6, v16) && aligned(dout, st + 12, v16);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return is_bf16 ? dispatch<bf16>(p, D, B, s) : dispatch<float>(p, D, B, s);
+}
+
+// ------------------------------------------------- tensor-core route --
+namespace {
+
+using repro::TmaTensor;
+using repro::bulk_load;
+using repro::desc_kmajor;
+using repro::desc_mnmajor;
+using repro::encode;
+using repro::fence_regs;
+using repro::mbar_arrive;
+using repro::mbar_expect_tx;
+using repro::mbar_init;
+using repro::mbar_wait;
+using repro::smem_u32;
+using repro::tma_load;
+using repro::to_frags;
+using repro::wgmma_commit;
+using repro::wgmma_fence;
+using repro::wgmma_pv;
+using repro::wgmma_wait0;
+using repro::wgmma_wait1;
+
+constexpr int kBwdStages = 3;     // depth of the ring of streamed tiles
+constexpr int kBlockRows = 128;   // keys of a dk/dv block, queries of a dq
+                                  // block: 64 a warpgroup
+constexpr int kKeyTile = 64;      // keys a dq step takes
+constexpr float kLog2e = 1.4426950408889634f;
+
+struct TcBwdParams {
+  TmaTensor q, dout;              // boxes of 64 positions (dq's fixed tiles)
+  TmaTensor qt, dot;              // boxes of kBQ (dk/dv's ring)
+  TmaTensor k, v;                 // boxes of 64 positions
+  void *dq, *dk, *dv;
+  const float* lse2;              // [B·Hq, Lqp]: lse·log2(e), +inf past Lq
+  const float* dsum;              // [B·Hq, Lqp]: 0 past Lq
+  Strides sdq, sdk, sdv;
+  int Hq, Hkv, G, Lq, Lk, Lqp, causal, window;
+  float scale;
+};
+
+constexpr int kBQ = 32;           // queries of a dk/dv ring tile
+
+// The block's shape.  At D = 64 both kernels fit in the 168 registers a
+// thread of a three-warpgroup block gets (ptxas allots registers by the
+// launch bound; setmaxnreg does not raise that), so a producer warpgroup
+// (one thread of it) keeps the ring full on its own.  At D = 128 dK, dV
+// or dQ take 64 more registers: the block is the two consumer warpgroups
+// (255 registers a thread) and thread 0 issues the loads, each stage's
+// next tile once both warpgroups have released it.
+template <int D>
+__host__ __device__ constexpr bool producer_wg() { return D == 64; }
+template <int D>
+__host__ __device__ constexpr int bwd_threads() {
+  return producer_wg<D>() ? 384 : 256;
+}
+
+template <int D>
+constexpr size_t dkdv_smem() {
+  // alignment slack; K, V [128 x D]; the ring of (Q, dO) [BQ x D]; the
+  // ring's lse2 and dsum; the barriers
+  return 1024 + (size_t)2 * (D / 64) * kBlockRows * 128 +
+         (size_t)kBwdStages * 2 * (D / 64) * kBQ * 128 +
+         (size_t)kBwdStages * 2 * kBQ * 4 + 8 * (2 * kBwdStages + 1);
+}
+
+template <int D>
+constexpr size_t dq_smem() {
+  // alignment slack; Q, dO [128 x D]; the ring of (K, V) [64 x D]; barriers
+  return 1024 + (size_t)2 * (D / 64) * kBlockRows * 128 +
+         (size_t)kBwdStages * 2 * (D / 64) * kKeyTile * 128 +
+         8 * (2 * kBwdStages + 1);
+}
+
+// S (m64 x 8 NK) (+)= A·B from shared memory, K-major both
+template <int NK>
+__device__ __forceinline__ void wgmma_ss(float (&d)[4 * NK], uint64_t da,
+                                         uint64_t db, int scale_d);
+template <>
+__device__ __forceinline__ void wgmma_ss<4>(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  repro::wgmma_ss_n32(d, da, db, scale_d);
+}
+template <>
+__device__ __forceinline__ void wgmma_ss<8>(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  repro::wgmma_ss_n64(d, da, db, scale_d);
+}
+
+// the rows and columns of an m64 x N accumulator, each thread's two rows
+// (g, g + 8 in its warp's 16) and its columns 8 j + 2 c, 8 j + 2 c + 1
+__device__ __forceinline__ int acc_row(int i) { return 8 * ((i >> 1) & 1); }
+__device__ __forceinline__ int acc_col(int i, int c) {
+  return 8 * (i >> 2) + 2 * c + (i & 1);
+}
+
+template <int D>
+__device__ __forceinline__ void store_rows(__nv_bfloat16* out, int64_t sl,
+                                           int row0, int n,
+                                           const float (&x)[D / 2],
+                                           float scale) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = row0 + 8 * rr;
+    if (row >= n) continue;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + (int64_t)row * sl + 8 * j +
+                                         2 * ((threadIdx.x & 31) & 3)) =
+          __floats2bfloat162_rn(x[4 * j + 2 * rr] * scale,
+                                x[4 * j + 2 * rr + 1] * scale);
+  }
+}
+
+// One block: 128 keys of kv head hk, 64 a consumer warpgroup.  The
+// producer loads K and V once and streams (Q, dO, lse2, dsum) tiles of BQ
+// queries of each query head of the GQA group through the ring.
+template <int D>
+__global__ void __launch_bounds__(bwd_threads<D>(), 1)
+    flash_bwd_dkdv_wgmma(const __grid_constant__ TcBwdParams p) {
+  constexpr int NSUB = D / 64;            // 64-column boxes a row
+  constexpr int BQ = kBQ;
+  constexpr int NK = BQ / 8;              // n8 column tiles of Sᵀ
+  constexpr int NS = BQ / 2;              // Sᵀ accumulators a thread
+  constexpr int NO = D / 2;               // dK, dV accumulators a thread
+  constexpr uint32_t kKSub = kBlockRows * 128;   // one K or V box column
+  constexpr uint32_t kQSub = BQ * 128;           // one Q or dO box column
+  constexpr uint32_t kStageBytes = 2 * NSUB * kQSub;
+  constexpr uint32_t kStatBytes = 2 * BQ * 4;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* Ks = sm;                               // NSUB x [128][64]
+  uint8_t* Vs = Ks + NSUB * kKSub;
+  uint8_t* ring = Vs + NSUB * kKSub;              // stage: Q NSUB x [BQ][64], dO
+  float* stat = reinterpret_cast<float*>(ring + kBwdStages * kStageBytes);
+  uint64_t* full = reinterpret_cast<uint64_t*>(stat + kBwdStages * 2 * BQ);
+  uint64_t* empty = full + kBwdStages;
+  uint64_t* kvbar = empty + kBwdStages;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.y, bi = bh / p.Hkv, hk = bh - bi * p.Hkv;
+  const int k0 = blockIdx.x * kBlockRows, off = p.Lk - p.Lq;
+  // the queries that see a key of this block: qpos >= k0 (causal) and
+  // qpos < k_last + window
+  const int k_last = min(k0 + kBlockRows, p.Lk) - 1;
+  int q_lo = p.causal ? max(0, k0 - off) : 0;
+  const int q_hi = p.window > 0 ? min(p.Lq, k_last + p.window - off) : p.Lq;
+  q_lo = (q_lo / BQ) * BQ;
+  const int per_head = q_hi > q_lo ? (q_hi - q_lo + BQ - 1) / BQ : 0;
+  const int n_tiles = p.G * per_head;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);   // lane 0 of each consumer warp
+    }
+    mbar_init(kvbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // stage t % kBwdStages <- tile t: Q and dO of query head hk·G + t /
+  // per_head, its rows' lse2 and dsum
+  auto load_stage = [&](int t) {
+    const int st = t % kBwdStages;
+    mbar_expect_tx(&full[st], kStageBytes + kStatBytes);
+    const int hq = hk * p.G + t / per_head;
+    const int qt = q_lo + (t % per_head) * BQ;
+    uint8_t* Qs = ring + st * kStageBytes;
+    for (int s = 0; s < NSUB; ++s) {
+      tma_load(Qs + s * kQSub, p.qt, &full[st], 64 * s, hq, qt, bi);
+      tma_load(Qs + (NSUB + s) * kQSub, p.dot, &full[st], 64 * s, hq, qt,
+               bi);
+    }
+    const int64_t row = (int64_t)(bi * p.Hq + hq) * p.Lqp + qt;
+    bulk_load(stat + st * 2 * BQ, p.lse2 + row, BQ * 4, &full[st]);
+    bulk_load(stat + st * 2 * BQ + BQ, p.dsum + row, BQ * 4, &full[st]);
+  };
+  const bool loader = producer_wg<D>() ? warp == 8 && lane == 0
+                                       : threadIdx.x == 0;
+  if (loader) {
+    mbar_expect_tx(kvbar, 2 * NSUB * kKSub);
+    for (int s = 0; s < NSUB; ++s)
+      for (int half = 0; half < 2; ++half) {
+        tma_load(Ks + s * kKSub + half * 8192, p.k, kvbar, 64 * s, hk,
+                 k0 + 64 * half, bi);
+        tma_load(Vs + s * kKSub + half * 8192, p.v, kvbar, 64 * s, hk,
+                 k0 + 64 * half, bi);
+      }
+    const int first = producer_wg<D>() ? n_tiles : min(kBwdStages, n_tiles);
+    for (int t = 0; t < first; ++t) {
+      // the first round of stages passes at once
+      mbar_wait(&empty[t % kBwdStages], ((t / kBwdStages) & 1) ^ 1);
+      load_stage(t);
+    }
+  }
+  if (warp >= 8) return;          // the producer warpgroup
+  // without one, tile t's stage is refilled by thread 0 once released
+  auto release = [&](int t) {
+    if (lane == 0) mbar_arrive(&empty[t % kBwdStages]);
+    if (!producer_wg<D>() && threadIdx.x == 0 && t + kBwdStages < n_tiles) {
+      mbar_wait(&empty[t % kBwdStages], (t / kBwdStages) & 1);
+      load_stage(t + kBwdStages);
+    }
+  };
+
+  // consumers: warpgroup w takes keys [kw0, kw0 + 64); a thread holds keys
+  // kw0 + 16 wl + g and + 8 of them, Sᵀ accumulator i at query column
+  // acc_col(i)
+  const int w = warp >> 2, wl = warp & 3, g = lane >> 2, c = lane & 3;
+  const int kw0 = k0 + 64 * w;
+  const int krow = kw0 + 16 * wl + g;
+  const uint32_t k_addr = smem_u32(Ks) + w * 8192;
+  const uint32_t v_addr = smem_u32(Vs) + w * 8192;
+  const float sl2 = p.scale * kLog2e;
+  float dk[NO], dv[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dk[i] = dv[i] = 0.f;
+
+  // Sᵀ = K Qᵀ and dPᵀ = V dOᵀ for tile t, once it has arrived; committed
+  auto issue_sdp = [&](float (&s)[NS], float (&dp)[NS], int t) {
+    const int st = t % kBwdStages;
+    mbar_wait(&full[st], (t / kBwdStages) & 1);
+    const uint32_t q_addr = smem_u32(ring + st * kStageBytes);
+    const uint32_t do_addr = q_addr + NSUB * kQSub;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<NK>(s, desc_kmajor(k_addr + (kk / 4) * kKSub + (kk % 4) * 32),
+                   desc_kmajor(q_addr + (kk / 4) * kQSub + (kk % 4) * 32),
+                   kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<NK>(dp, desc_kmajor(v_addr + (kk / 4) * kKSub + (kk % 4) * 32),
+                   desc_kmajor(do_addr + (kk / 4) * kQSub + (kk % 4) * 32),
+                   kk > 0);
+    wgmma_commit();
+  };
+  // Pᵀ = exp(scale Sᵀ - lse) in s, dSᵀ = Pᵀ ∘ (dPᵀ - dsum) in dp; the masks
+  // only where the tile cuts the diagonal or the window's edge (queries
+  // past Lq have lse2 = +inf, so P = 0 there)
+  auto grad_s = [&](float (&s)[NS], float (&dp)[NS], int t) {
+    const int st = t % kBwdStages;
+    const float* ls = stat + st * 2 * BQ;
+    const float* ds = ls + BQ;
+    const int qa = q_lo + (t % per_head) * BQ + off;
+    const bool edge = (p.causal && kw0 + 63 > qa) ||
+                      (p.window > 0 && kw0 <= qa + BQ - 1 - p.window);
+#pragma unroll
+    for (int i = 0; i < NS; ++i) {
+      const int col = acc_col(i, c);
+      float pv = repro::ex2(fmaf(s[i], sl2, -ls[col]));
+      if (edge) {
+        const int kpos = krow + acc_row(i), qpos = qa + col;
+        if ((p.causal && kpos > qpos) ||
+            (p.window > 0 && kpos <= qpos - p.window))
+          pv = 0.f;
+      }
+      dp[i] = pv * (dp[i] - ds[col]);
+      s[i] = pv;
+    }
+  };
+  // dV += Pᵀ dO and dK += dSᵀ Q for the tile in stage st, Q and dO read
+  // MN-major; committed
+  auto issue_dkdv = [&](const uint32_t (&phi)[NK / 2][4],
+                        const uint32_t (&plo)[NK / 2][4],
+                        const uint32_t (&dhi)[NK / 2][4],
+                        const uint32_t (&dlo)[NK / 2][4], int st) {
+    const uint32_t q_addr = smem_u32(ring + st * kStageBytes);
+    const uint32_t do_addr = q_addr + NSUB * kQSub;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NK / 2; ++kk) {
+      const uint64_t bdo = desc_mnmajor(do_addr + kk * 2048, BQ);
+      const uint64_t bq = desc_mnmajor(q_addr + kk * 2048, BQ);
+      wgmma_pv<D>(dv, phi[kk], bdo);
+      wgmma_pv<D>(dv, plo[kk], bdo);
+      wgmma_pv<D>(dk, dhi[kk], bq);
+      wgmma_pv<D>(dk, dlo[kk], bq);
+    }
+    wgmma_commit();
+  };
+
+  // the forward's overlap: Sᵀ_t, dPᵀ_t and tile t-1's dV, dK products are
+  // issued together; Pᵀ_t and dSᵀ_t are computed while those run
+  mbar_wait(kvbar, 0);
+  if (n_tiles > 0) {
+    float s[NS], dp[NS];
+    uint32_t phi[NK / 2][4], plo[NK / 2][4], dhi[NK / 2][4], dlo[NK / 2][4];
+    issue_sdp(s, dp, 0);
+    wgmma_wait0();
+    fence_regs(s);
+    fence_regs(dp);
+    grad_s(s, dp, 0);
+    to_frags<NK>(s, phi, plo);
+    to_frags<NK>(dp, dhi, dlo);
+    for (int t = 1; t < n_tiles; ++t) {
+      issue_sdp(s, dp, t);
+      issue_dkdv(phi, plo, dhi, dlo, (t - 1) % kBwdStages);
+      wgmma_wait1();             // Sᵀ_t, dPᵀ_t done; dV, dK may still run
+      fence_regs(s);
+      fence_regs(dp);
+      grad_s(s, dp, t);
+      wgmma_wait0();
+      fence_regs(dk);
+      fence_regs(dv);
+      release(t - 1);
+      to_frags<NK>(s, phi, plo);
+      to_frags<NK>(dp, dhi, dlo);
+    }
+    issue_dkdv(phi, plo, dhi, dlo, (n_tiles - 1) % kBwdStages);
+    wgmma_wait0();
+    fence_regs(dk);
+    fence_regs(dv);
+    release(n_tiles - 1);
+  }
+
+  store_rows<D>(static_cast<__nv_bfloat16*>(p.dk) + bi * p.sdk.b +
+                    hk * p.sdk.h,
+                p.sdk.l, krow, p.Lk, dk, p.scale);
+  store_rows<D>(static_cast<__nv_bfloat16*>(p.dv) + bi * p.sdv.b +
+                    hk * p.sdv.h,
+                p.sdv.l, krow, p.Lk, dv, 1.f);
+}
+
+// One block: 128 queries of query head hq, 64 a consumer warpgroup.  The
+// producer loads Q and dO once and keeps a ring of K/V tiles of 64 keys
+// full, as the forward's does.
+template <int D>
+__global__ void __launch_bounds__(bwd_threads<D>(), 1)
+    flash_bwd_dq_wgmma(const __grid_constant__ TcBwdParams p) {
+  constexpr int NSUB = D / 64;
+  constexpr int NO = D / 2;
+  constexpr uint32_t kRowBytes = kBlockRows * D * 2;     // Q or dO
+  constexpr uint32_t kStageBytes = 2 * NSUB * kKeyTile * 128;   // K then V
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* sm = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint8_t* Qs = sm;                        // NSUB x [128][64]
+  uint8_t* dOs = Qs + kRowBytes;           // NSUB x [128][64]
+  uint8_t* KV = dOs + kRowBytes;           // stage: K NSUB x [64][64], V
+  uint64_t* full = reinterpret_cast<uint64_t*>(KV + kBwdStages * kStageBytes);
+  uint64_t* empty = full + kBwdStages;
+  uint64_t* qbar = empty + kBwdStages;
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int bh = blockIdx.y, bi = bh / p.Hq, hq = bh - bi * p.Hq;
+  const int hk = hq / p.G;
+  // heavy (late) causal tiles first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBlockRows;
+  const int off = p.Lk - p.Lq;
+  const int q_first = q0 + off;
+  const int q_last = min(q0 + kBlockRows, p.Lq) - 1 + off;
+  int k_end = p.Lk;
+  if (p.causal) k_end = min(k_end, q_last + 1);
+  int k_begin = 0;
+  if (p.window > 0) k_begin = max(0, q_first - p.window + 1);
+  k_begin = (k_begin / kKeyTile) * kKeyTile;
+  const int n_tiles =
+      k_end > k_begin ? (k_end - k_begin + kKeyTile - 1) / kKeyTile : 0;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kBwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 8);
+    }
+    mbar_init(qbar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  // stage t % kBwdStages <- tile t: K and V of keys k_begin + 64 t
+  auto load_stage = [&](int t) {
+    const int st = t % kBwdStages;
+    mbar_expect_tx(&full[st], kStageBytes);
+    uint8_t* Ks = KV + st * kStageBytes;
+    const int kt = k_begin + kKeyTile * t;
+    for (int s = 0; s < NSUB; ++s) {
+      tma_load(Ks + s * 8192, p.k, &full[st], 64 * s, hk, kt, bi);
+      tma_load(Ks + (NSUB + s) * 8192, p.v, &full[st], 64 * s, hk, kt, bi);
+    }
+  };
+  const bool loader = producer_wg<D>() ? warp == 8 && lane == 0
+                                       : threadIdx.x == 0;
+  if (loader) {
+    mbar_expect_tx(qbar, 2 * kRowBytes);
+    for (int s = 0; s < NSUB; ++s)
+      for (int half = 0; half < 2; ++half) {
+        tma_load(Qs + s * 16384 + half * 8192, p.q, qbar, 64 * s, hq,
+                 q0 + 64 * half, bi);
+        tma_load(dOs + s * 16384 + half * 8192, p.dout, qbar, 64 * s, hq,
+                 q0 + 64 * half, bi);
+      }
+    const int first = producer_wg<D>() ? n_tiles : min(kBwdStages, n_tiles);
+    for (int t = 0; t < first; ++t) {
+      mbar_wait(&empty[t % kBwdStages], ((t / kBwdStages) & 1) ^ 1);
+      load_stage(t);
+    }
+  }
+  if (warp >= 8) return;          // the producer warpgroup
+  auto release = [&](int t) {
+    if (lane == 0) mbar_arrive(&empty[t % kBwdStages]);
+    if (!producer_wg<D>() && threadIdx.x == 0 && t + kBwdStages < n_tiles) {
+      mbar_wait(&empty[t % kBwdStages], (t / kBwdStages) & 1);
+      load_stage(t + kBwdStages);
+    }
+  };
+
+  // consumers: warpgroup w takes queries [qw0, qw0 + 64); a thread holds
+  // rows qw0 + 16 wl + g and + 8; S accumulator i at key column acc_col(i)
+  const int w = warp >> 2, wl = warp & 3, g = lane >> 2, c = lane & 3;
+  const int qw0 = q0 + 64 * w;
+  const int row0 = qw0 + 16 * wl + g;
+  const int qa = qw0 + off, qb = min(qw0 + 64, p.Lq) - 1 + off;
+  const float sl2 = p.scale * kLog2e;
+  float lse2[2], dsum[2];
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    const int row = row0 + 8 * rr;
+    const int64_t i = (int64_t)bh * p.Lqp + row;
+    lse2[rr] = row < p.Lq ? p.lse2[i] : INFINITY;
+    dsum[rr] = row < p.Lq ? p.dsum[i] : 0.f;
+  }
+  const uint32_t q_addr = smem_u32(Qs) + w * 8192;
+  const uint32_t do_addr = smem_u32(dOs) + w * 8192;
+  float dq[NO];
+#pragma unroll
+  for (int i = 0; i < NO; ++i) dq[i] = 0.f;
+
+  // S = Q Kᵀ and dP = dO Vᵀ for tile t, once it has arrived; committed
+  auto issue_sdp = [&](float (&s)[32], float (&dp)[32], int t) {
+    const int st = t % kBwdStages;
+    mbar_wait(&full[st], (t / kBwdStages) & 1);
+    const uint32_t k_addr = smem_u32(KV + st * kStageBytes);
+    const uint32_t v_addr = k_addr + NSUB * 8192;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<8>(s, desc_kmajor(q_addr + (kk / 4) * 16384 + (kk % 4) * 32),
+                  desc_kmajor(k_addr + (kk / 4) * 8192 + (kk % 4) * 32),
+                  kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<8>(dp, desc_kmajor(do_addr + (kk / 4) * 16384 + (kk % 4) * 32),
+                  desc_kmajor(v_addr + (kk / 4) * 8192 + (kk % 4) * 32),
+                  kk > 0);
+    wgmma_commit();
+  };
+  // dS = P ∘ (dP - dsum) in dp, P = exp(scale S - lse); the masks where
+  // the tile cuts the diagonal, the window's edge or Lk
+  auto grad_s = [&](const float (&s)[32], float (&dp)[32], int kt) {
+    const bool edge = kt + kKeyTile > p.Lk ||
+                      (p.causal && kt + kKeyTile - 1 > qa) ||
+                      (p.window > 0 && kt <= qb - p.window);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int rr = (i >> 1) & 1;
+      float pv = repro::ex2(fmaf(s[i], sl2, -lse2[rr]));
+      if (edge) {
+        const int qpos = row0 + 8 * rr + off, kpos = kt + acc_col(i, c);
+        if (kpos >= p.Lk || (p.causal && kpos > qpos) ||
+            (p.window > 0 && kpos <= qpos - p.window))
+          pv = 0.f;
+      }
+      dp[i] = pv * (dp[i] - dsum[rr]);
+    }
+  };
+  // dQ += dS K for the tile in stage st (K read MN-major); committed
+  auto issue_dq = [&](const uint32_t (&dhi)[4][4],
+                      const uint32_t (&dlo)[4][4], int st) {
+    const uint32_t k_addr = smem_u32(KV + st * kStageBytes);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t bk = desc_mnmajor(k_addr + kk * 2048);
+      wgmma_pv<D>(dq, dhi[kk], bk);
+      wgmma_pv<D>(dq, dlo[kk], bk);
+    }
+    wgmma_commit();
+  };
+
+  // S_t, dP_t and dQ += dS_{t-1} K_{t-1} are issued together, dS_t is
+  // computed while the last product runs
+  mbar_wait(qbar, 0);
+  if (n_tiles > 0) {
+    float s[32], dp[32];
+    uint32_t dhi[4][4], dlo[4][4];
+    issue_sdp(s, dp, 0);
+    wgmma_wait0();
+    fence_regs(s);
+    fence_regs(dp);
+    grad_s(s, dp, k_begin);
+    to_frags<8>(dp, dhi, dlo);
+    for (int t = 1; t < n_tiles; ++t) {
+      issue_sdp(s, dp, t);
+      issue_dq(dhi, dlo, (t - 1) % kBwdStages);
+      wgmma_wait1();             // S_t, dP_t done; dQ may still run
+      fence_regs(s);
+      fence_regs(dp);
+      grad_s(s, dp, k_begin + kKeyTile * t);
+      wgmma_wait0();
+      fence_regs(dq);
+      release(t - 1);
+      to_frags<8>(dp, dhi, dlo);
+    }
+    issue_dq(dhi, dlo, (n_tiles - 1) % kBwdStages);
+    wgmma_wait0();
+    fence_regs(dq);
+    release(n_tiles - 1);
+  }
+  store_rows<D>(static_cast<__nv_bfloat16*>(p.dq) + bi * p.sdq.b +
+                    hq * p.sdq.h,
+                p.sdq.l, row0, p.Lq, dq, p.scale);
+}
+
+template <int D>
+int launch_tc(const BwdParams& dot, float* lse2, const TcBwdParams& p, int B,
+              cudaStream_t stream) {
+  const int rows = B * p.Hq * p.Lqp;
+  flash_bwd_dot<__nv_bfloat16, D><<<(rows + 7) / 8, 256, 0, stream>>>(
+      dot, p.Lqp, lse2, rows);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  constexpr size_t s1 = dkdv_smem<D>(), s2 = dq_smem<D>();
+  err = cudaFuncSetAttribute(flash_bwd_dkdv_wgmma<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)s1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  err = cudaFuncSetAttribute(flash_bwd_dq_wgmma<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)s2);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dkdv_wgmma<D>
+      <<<dim3((p.Lk + kBlockRows - 1) / kBlockRows, B * p.Hkv),
+         bwd_threads<D>(), s1, stream>>>(p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  flash_bwd_dq_wgmma<D>
+      <<<dim3((p.Lq + kBlockRows - 1) / kBlockRows, B * p.Hq),
+         bwd_threads<D>(), s2, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The tensor-core route: bf16, D in {64, 128}.  Tensors, strides[24] and
+// window as repro_flash_attention_bwd's, with q, k, v and dout 16-byte
+// aligned with byte strides that are multiples of 16 (TMA).  lse2 and
+// dsum are the caller's [B·Hq, Lqp] f32 scratch, Lqp = Lq rounded up to
+// a multiple of 64.  Three launches; returns the first CUDA error, 0 on
+// success (cudaErrorInvalidValue where a tensor map is refused).
+extern "C" int repro_flash_attention_bwd_tc(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, const float* lse, float* lse2, float* dsum, void* dq,
+    void* dk, void* dv, int B, int Hq, int Hkv, int Lq, int Lk, int D,
+    int causal, int window, const int64_t* st, void* stream) {
+  if (B <= 0 || Hq <= 0 || Lq <= 0 || Lk <= 0) return 0;
+  if (D != 64 && D != 128) return static_cast<int>(cudaErrorInvalidValue);
+  TcBwdParams p;
+  if (!encode(p.q, q, B, Hq, Lq, D, st) ||
+      !encode(p.dout, dout, B, Hq, Lq, D, st + 12) ||
+      !encode(p.qt, q, B, Hq, Lq, D, st, kBQ) ||
+      !encode(p.dot, dout, B, Hq, Lq, D, st + 12, kBQ) ||
+      !encode(p.k, k, B, Hkv, Lk, D, st + 3) ||
+      !encode(p.v, v, B, Hkv, Lk, D, st + 6))
+    return static_cast<int>(cudaErrorInvalidValue);
+  p.dq = dq;
+  p.dk = dk;
+  p.dv = dv;
+  p.lse2 = lse2;
+  p.dsum = dsum;
+  p.sdq = {st[15], st[16], st[17]};
+  p.sdk = {st[18], st[19], st[20]};
+  p.sdv = {st[21], st[22], st[23]};
+  p.Hq = Hq;
+  p.Hkv = Hkv;
+  p.G = Hq / Hkv;
+  p.Lq = Lq;
+  p.Lk = Lk;
+  p.Lqp = (Lq + 63) / 64 * 64;
+  p.causal = causal;
+  p.window = window;
+  p.scale = 1.0f / sqrtf(static_cast<float>(D));
+  BwdParams dot;
+  dot.o = o;
+  dot.dout = dout;
+  dot.lse = lse;
+  dot.dsum = dsum;
+  dot.so = {st[9], st[10], st[11]};
+  dot.sdo = {st[12], st[13], st[14]};
+  dot.Hq = Hq;
+  dot.Lq = Lq;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return D == 64 ? launch_tc<64>(dot, lse2, p, B, s)
+                 : launch_tc<128>(dot, lse2, p, B, s);
 }

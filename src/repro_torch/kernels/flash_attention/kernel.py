@@ -6,7 +6,8 @@ The forward replaces
 GQA fold of its wrapper; the backward has no Pallas counterpart (the
 reference differentiates its jnp attention).  The CUDA sources say what
 bounds them; this module checks the tensors, picks one of the two forward
-kernels by :func:`tc_route`, and passes pointers and strides.
+kernels by :func:`tc_route` and one of the two backward routes by
+:func:`bwd_tc_route`, and passes pointers and strides.
 """
 from __future__ import annotations
 
@@ -42,6 +43,16 @@ def tc_route(dtype: torch.dtype, D: int, Lq: int) -> bool:
     (``flash_fwd_wgmma``: bf16, D 64 or 128, at least 64 queries), False
     to the scalar f32 kernel (``flash_fwd``: f32, D 32, fewer queries)."""
     return dtype == torch.bfloat16 and D in TC_HEAD_DIMS and Lq >= TC_MIN_LQ
+
+
+def bwd_tc_route(dtype: torch.dtype, D: int, Lq: int, Lk: int) -> bool:
+    """The backward's route rule: True sends a call to the tensor-core
+    kernels (``flash_bwd_dkdv_wgmma``, ``flash_bwd_dq_wgmma``: bf16, D 64
+    or 128, at least 64 queries and 64 keys), False to the ``mma.sync``
+    and scalar f32 kernels (``flash_bwd_dkdv``, ``flash_bwd_dq``: f32,
+    D 32, fewer rows)."""
+    return (dtype == torch.bfloat16 and D in TC_HEAD_DIMS
+            and min(Lq, Lk) >= TC_MIN_LQ)
 
 
 def _check_tma(t: torch.Tensor, name: str) -> None:
@@ -136,6 +147,9 @@ def _bwd_lib():
     if fn.argtypes is None:
         fn.argtypes = [_P] * 10 + [_I] * 9 + [_P, _P]
         fn.restype = ctypes.c_int
+        tc = lib.repro_flash_attention_bwd_tc
+        tc.argtypes = [_P] * 11 + [_I] * 8 + [_P, _P]
+        tc.restype = ctypes.c_int
     return lib
 
 
@@ -143,15 +157,25 @@ def flash_attention_bwd_kernel(q, k, v, o, dout, lse, causal: bool = True,
                                window: Optional[int] = None):
     """Three launches on the current stream (``dsum = rowsum(dO ∘ O)``,
     then dk/dv over key tiles, then dq over query tiles); no host sync.
+    ``bwd_tc_route`` picks the kernels.
 
-    q, o, dout: [B, Hq, Lq, D]; k, v: [B, Hkv, Lk, D]; one dtype (bf16 or
-    f32), any strides with the head dim contiguous; lse: the forward's
-    ``[B, Hq, Lq]`` f32.  Returns (dq, dk, dv) in q's dtype, views of
-    ``[B, L, H, D]`` buffers (the model's layout).
+    q, o: [B, Hq, Lq, D]; k, v: [B, Hkv, Lk, D]; one dtype (bf16 or f32),
+    any strides with the head dim contiguous (on the tensor-core route q,
+    k, v need TMA's alignment, as the forward's); dout: shaped and typed
+    like q, any strides (a dout the kernels cannot read, such as
+    autograd's stride-0 broadcast, is copied); lse: the forward's
+    ``[B, Hq, Lq]`` f32.  Returns ``((dq, dk, dv), tensor_cores)``: the
+    gradients in q's dtype, views of ``[B, L, H, D]`` buffers (the model's
+    layout), and whether the tensor-core kernels were the ones launched.
     """
     B, Hq, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     _check(q, k, v, window, "flash_attention_bwd_kernel")
+    tc = bwd_tc_route(q.dtype, D, Lq, Lk)
+    if dout.stride(-1) != 1 or (tc and (dout.data_ptr() % 16 or any(
+            n > 1 and (s <= 0 or (s * dout.element_size()) % 16)
+            for n, s in zip(dout.shape[:3], dout.stride()[:3])))):
+        dout = dout.contiguous()
     for t, name in ((o, "o"), (dout, "dout")):
         if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
                 or t.stride(-1) != 1):
@@ -163,15 +187,31 @@ def flash_attention_bwd_kernel(q, k, v, o, dout, lse, causal: bool = True,
             or not lse.is_contiguous() or lse.device != q.device):
         raise ValueError("flash_attention_bwd_kernel: lse must be the "
                          "forward's contiguous [B, Hq, Lq] float32")
+    if tc:
+        for t, name in ((q, "q"), (k, "k"), (v, "v")):
+            _check_tma(t, name)
 
     def grad_like(t):
         return torch.empty(t.shape[0], t.shape[2], t.shape[1], D,
                            dtype=q.dtype, device=q.device).transpose(1, 2)
     dq, dk, dv = grad_like(q), grad_like(k), grad_like(v)
-    dsum = torch.empty(B, Hq, Lq, dtype=torch.float32, device=q.device)
     strides = (ctypes.c_int64 * 24)(*(s for t in (q, k, v, o, dout, dq, dk,
                                                   dv)
                                       for s in t.stride()[:3]))
+    if tc:
+        # lse·log2(e) and dsum in rows padded to 64 queries: whole TMA tiles
+        lqp = -(-Lq // TC_MIN_LQ) * TC_MIN_LQ
+        lse2 = torch.empty(B, Hq, lqp, dtype=torch.float32, device=q.device)
+        dsum = torch.empty_like(lse2)
+        err = _bwd_lib().repro_flash_attention_bwd_tc(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), lse2.data_ptr(),
+            dsum.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(), B,
+            Hq, Hkv, Lq, Lk, D, int(causal), int(window or 0),
+            ctypes.cast(strides, _P), stream_ptr(q))
+        check_launch(err, "flash_attention_bwd_kernel (tensor cores)")
+        return (dq, dk, dv), True
+    dsum = torch.empty(B, Hq, Lq, dtype=torch.float32, device=q.device)
     err = _bwd_lib().repro_flash_attention_bwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(),
@@ -179,4 +219,4 @@ def flash_attention_bwd_kernel(q, k, v, o, dout, lse, causal: bool = True,
         Hkv, Lq, Lk, D, int(causal), int(window or 0),
         ctypes.cast(strides, _P), stream_ptr(q))
     check_launch(err, "flash_attention_bwd_kernel")
-    return dq, dk, dv
+    return (dq, dk, dv), False

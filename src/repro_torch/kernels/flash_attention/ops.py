@@ -31,9 +31,10 @@ def _forward(q, k, v, causal, window, lse=None):
 
 class FlashAttention(torch.autograd.Function):
     """Attention with a hand-written backward.  On CUDA: the forward kernel
-    (either route) writing the rows' log-sum-exp, and the backward kernel
-    (``csrc/flash_attention_bwd.cu``: dsum, then dk/dv, then dq; no float
-    atomics).  On CPU: :func:`attention_chunked` and
+    (either route) writing the rows' log-sum-exp, and the backward kernels
+    (``csrc/flash_attention_bwd.cu``: dsum, then dk/dv, then dq, on the
+    wgmma route or the mma.sync/f32 one by ``kernel.bwd_tc_route``; no
+    float atomics).  On CPU: :func:`attention_chunked` and
     :func:`attention_backward_chunked`."""
 
     @staticmethod
@@ -51,8 +52,6 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if dout.stride(-1) != 1:
-            dout = dout.contiguous()
         if q.device.type != "cuda":
             flash_attention.plain_calls += 1
             grads = attention_backward_chunked(q, k, v, out, dout,
@@ -60,10 +59,11 @@ class FlashAttention(torch.autograd.Function):
                                                window=ctx.window)
         else:
             from .kernel import flash_attention_bwd_kernel
-            grads = flash_attention_bwd_kernel(q, k, v, out, dout, lse,
-                                               causal=ctx.causal,
-                                               window=ctx.window)
+            grads, tensor_cores = flash_attention_bwd_kernel(
+                q, k, v, out, dout, lse, causal=ctx.causal,
+                window=ctx.window)
             flash_attention.bwd_launches += 1
+            flash_attention.bwd_tc_launches += tensor_cores
         return (*grads, None, None)
 
 
@@ -82,8 +82,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     launches of either forward kernel, ``flash_attention.tc_launches``
     those of the tensor-core one, as the launcher reports them;
     ``flash_attention.bwd_launches`` backward calls that went to the
-    backward kernel (three launches each); ``flash_attention.plain_calls``
-    forward or backward calls that ran a plain version (CPU tensors).
+    backward kernels (three launches each),
+    ``flash_attention.bwd_tc_launches`` those on the tensor-core route
+    (``flash_bwd_dkdv_wgmma``, ``flash_bwd_dq_wgmma``), as the launcher
+    reports them;
+    ``flash_attention.plain_calls`` forward or backward calls that ran a
+    plain version (CPU tensors).
     """
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
                                     or v.requires_grad):
@@ -94,4 +98,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 flash_attention.launches = 0
 flash_attention.tc_launches = 0
 flash_attention.bwd_launches = 0
+flash_attention.bwd_tc_launches = 0
 flash_attention.plain_calls = 0

@@ -3,9 +3,9 @@
 Counterpart of ``repro/kernels/ssd_scan/ops.py:ssd_scan_pallas``.  No
 padding: the CUDA kernel masks a ragged last chunk itself.  Where a
 gradient is asked for, the call goes through :class:`SSDScan`, a
-``torch.autograd.Function`` whose backward is three more calls of the same
-kernel with the roles permuted (``ref.py:ssd_scan_backward_ref`` says
-how), so the backward adds no kernel of its own.
+``torch.autograd.Function`` whose backward is the hand-written backward
+kernel (``csrc/ssd_scan_bwd.cu``, three launches) on CUDA and the plain
+backward (``ref.py:ssd_scan_backward_ref``) on the CPU.
 """
 from __future__ import annotations
 
@@ -27,10 +27,11 @@ def _forward(xt, loga, B, C):
 
 class SSDScan(torch.autograd.Function):
     """The scan with a hand-written backward: on CUDA the forward kernel and
-    three kernel scans (dxt, dB, dC) plus a reverse cumulative sum (dloga);
-    on CPU the chunked plain version of each.  A B or C of one head is
-    shared by all: its gradient is the per-head scan's summed over the
-    heads in f32 and cast to its type once."""
+    the backward kernel (the forward and adjoint state walks, the chunks'
+    dxt, dB, dC and dloga, the cross-chunk finish); on CPU the
+    chunked plain version of each.  A B or C of one head is shared by all:
+    its gradient is the per-head one summed over the heads in f32 and cast
+    to its type once."""
 
     @staticmethod
     def forward(ctx, xt, loga, B, C):
@@ -44,9 +45,10 @@ class SSDScan(torch.autograd.Function):
         if xt.device.type != "cuda":
             ssd_scan.plain_calls += 1
             return ssd_scan_backward_ref(xt, loga, B, C, y, dy)
-        from .kernel import ssd_scan_kernel
-        grads = ssd_scan_backward_ref(xt, loga, B, C, y, dy,
-                                      scan=ssd_scan_kernel)
+        from .kernel import ssd_scan_bwd_kernel
+        if dy.stride(-1) != 1:
+            dy = dy.contiguous()
+        grads = ssd_scan_bwd_kernel(xt, loga, B, C, y, dy)
         ssd_scan.bwd_calls += 1
         return grads
 
@@ -66,9 +68,9 @@ def ssd_scan(xt: torch.Tensor, loga: torch.Tensor, B: torch.Tensor,
     gradient, the call is differentiable through :class:`SSDScan`.
     Counters: ``ssd_scan.launches`` counts forward calls that went to the
     kernel (three launches each: chunk states, state passing, outputs);
-    ``ssd_scan.bwd_calls`` backward calls on CUDA (three kernel calls
-    each); ``ssd_scan.plain_calls`` forward or backward calls that ran
-    the plain version (CPU tensors).
+    ``ssd_scan.bwd_calls`` backward calls on CUDA (three launches of the
+    backward kernel each); ``ssd_scan.plain_calls`` forward or backward
+    calls that ran the plain version (CPU tensors).
     """
     if torch.is_grad_enabled() and any(t.requires_grad
                                        for t in (xt, loga, B, C)):

@@ -343,18 +343,22 @@ def test_no_grad_call_is_the_forward_alone():
     assert flash_attention.plain_calls == n + 3
 
 
-def _bwd_kernel_emulation(q, k, v, o, do, causal, window):
-    """flash_attention_bwd.cu's bf16 arithmetic on the CPU: P from the
-    row's log-sum-exp in f32, P and dS entering their products as
-    bf16(x) + bf16(x - bf16(x)), products of bf16 values summed in f32,
-    each gradient rounded to bf16 once."""
+def _bwd_kernel_emulation(q, k, v, o, do, causal, window, split=True):
+    """flash_attention_bwd.cu's bf16 arithmetic on the CPU (both routes;
+    the tensor-core route's order of work: dk/dv over key tiles, dq over
+    query tiles, each a sum of f32 products, no cross-block sum): P from
+    the row's log-sum-exp in f32 as the kernels compute it,
+    exp2(s·(scale·log2 e) - lse·log2 e), P and dS entering their products
+    as bf16(x) + bf16(x - bf16(x)), products of bf16 values summed in f32,
+    each gradient rounded to bf16 once.  split=False: one bf16 part each
+    (FlashAttention-3's form), for the comparison."""
     B, Hq, Lq, D = q.shape
     Hkv, Lk = k.shape[1], k.shape[2]
     G = Hq // Hkv
     qf, dof, of = q.float(), do.float(), o.float()
     kf = k.float().repeat_interleave(G, 1)
     vf = v.float().repeat_interleave(G, 1)
-    s = qf @ kf.transpose(-1, -2) * D ** -0.5
+    s = qf @ kf.transpose(-1, -2)
     qpos = torch.arange(Lq)[:, None] + (Lk - Lq)
     kpos = torch.arange(Lk)[None]
     keep = torch.ones(Lq, Lk, dtype=torch.bool)
@@ -362,19 +366,23 @@ def _bwd_kernel_emulation(q, k, v, o, do, causal, window):
         keep &= kpos <= qpos
     if window is not None:
         keep &= kpos > qpos - window
-    lse = torch.logsumexp(s.masked_fill(~keep, -math.inf), -1, keepdim=True)
-    p = torch.where(keep, torch.exp(s - lse), 0.0)
+    scale = torch.tensor(D ** -0.5, dtype=torch.float32)
+    log2e = torch.tensor(math.log2(math.e), dtype=torch.float32)
+    lse = torch.logsumexp((s * scale).masked_fill(~keep, -math.inf), -1,
+                          keepdim=True)
+    p = torch.where(keep, torch.exp2(s * (scale * log2e) - lse * log2e),
+                    0.0)
 
-    def split(x):
+    def parts(x):
         hi = x.bfloat16().float()
-        return hi, (x - hi).bfloat16().float()
+        return hi, (x - hi).bfloat16().float() if split else 0.0 * hi
     dsum = (dof * of).sum(-1, keepdim=True)
     ds = p * (dof @ vf.transpose(-1, -2) - dsum)
-    ph, pl = split(p)
-    dh, dl = split(ds)
+    ph, pl = parts(p)
+    dh, dl = parts(ds)
     dv = ph.transpose(-1, -2) @ dof + pl.transpose(-1, -2) @ dof
-    dk = (dh.transpose(-1, -2) @ qf + dl.transpose(-1, -2) @ qf) * D ** -0.5
-    dq = (dh @ kf + dl @ kf) * D ** -0.5
+    dk = (dh.transpose(-1, -2) @ qf + dl.transpose(-1, -2) @ qf) * scale
+    dq = (dh @ kf + dl @ kf) * scale
 
     def fold(t):
         return t.reshape(B, Hkv, G, Lk, D).sum(2)
@@ -385,6 +393,8 @@ def _bwd_kernel_emulation(q, k, v, o, do, causal, window):
     (1, 4, 4, 512, 512, 64, None),
     (1, 8, 2, 300, 400, 128, None),
     (1, 4, 4, 512, 512, 32, 100),
+    (1, 2, 2, 1024, 1024, 64, None),              # the training shape's D
+    (1, 2, 2, 2048, 2048, 64, None),
 ])
 def test_backward_kernel_arithmetic_within_the_card_limit(case):
     """The backward kernel's split P and dS, emulated on the CPU, stay
@@ -392,7 +402,8 @@ def test_backward_kernel_arithmetic_within_the_card_limit(case):
     its plain version: |d| <= 2^-7 |want| + 2^-10 max |want| (one bf16
     rounding of each gradient, plus the f32 summation orders' difference
     over up to Lq terms, which shows where |want| is near 0).  Prints the
-    share of the limit used (-s)."""
+    share of the limit used (-s), beside the share P and dS as one bf16
+    part each would use."""
     B, Hq, Hkv, Lq, Lk, D, window = case
     g = torch.Generator().manual_seed(Lq + D)
     q, do = (torch.randn(B, Hq, Lq, D, generator=g).bfloat16()
@@ -403,8 +414,13 @@ def test_backward_kernel_arithmetic_within_the_card_limit(case):
     want = attention_backward_chunked(q, k, v, o, do, causal=True,
                                       window=window)
     got = _bwd_kernel_emulation(q, k, v, o, do, True, window)
-    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+    single = _bwd_kernel_emulation(q, k, v, o, do, True, window,
+                                   split=False)
+    for name, a, b, c in zip(("dq", "dk", "dv"), got, want, single):
         d, w = (a.float() - b.float()).abs(), b.float().abs()
-        share = float((d / (2.0 ** -7 * w + 2.0 ** -10 * w.max())).max())
-        print(f"{case} {name}: share of the limit {share}")
+        limit = 2.0 ** -7 * w + 2.0 ** -10 * w.max()
+        share = float((d / limit).max())
+        one = float(((c.float() - b.float()).abs() / limit).max())
+        print(f"{case} {name}: share of the limit {share} (one bf16 part "
+              f"each: {one})")
         assert share <= 1.0

@@ -22,7 +22,8 @@ from repro_torch.dqueue import (DevicePriorityQueue, DeviceQueue,
 from repro_torch.kernels.flash_attention import (attention_backward_chunked,
                                                  attention_chunked,
                                                  flash_attention)
-from repro_torch.kernels.flash_attention.kernel import tc_route
+from repro_torch.kernels.flash_attention.kernel import (bwd_tc_route,
+                                                        tc_route)
 from repro_torch.kernels.hash_route import hash_route, hash_route_ref
 from repro_torch.kernels.relaxed import (relaxed_deletemin,
                                          relaxed_deletemin_ref)
@@ -33,6 +34,7 @@ from repro_torch.kernels.segscan import (queue_scan, queue_scan_ref,
 from repro_torch.kernels.segscan.kernel import TILE
 from repro_torch.kernels.ssd_scan import (ssd_chunked_ref, ssd_scan,
                                           ssd_scan_backward_ref)
+from repro_torch.kernels.ssd_scan.kernel import ssd_scan_bwd_kernel
 
 pytestmark = pytest.mark.gpu
 
@@ -1011,7 +1013,8 @@ def test_hashing_and_synthetic_tokens_on_gpu_match_cpu(cuda):
 # ------------------------------------------------------------- training --
 @pytest.mark.parametrize("case", [
     # (B, Hq, Hkv, Lq, Lk, D, causal, window, dtype); the forward takes
-    # the tensor-core route where tc_route says so, the scalar one else
+    # the tensor-core route where tc_route says so, the scalar one else,
+    # and the backward the wgmma route where bwd_tc_route says so
     (1, 4, 4, 256, 256, 64, True, None, torch.bfloat16),
     (1, 8, 2, 200, 300, 128, True, None, torch.bfloat16),     # GQA, ragged
     (2, 4, 4, 300, 300, 64, True, 70, torch.bfloat16),        # window
@@ -1020,13 +1023,23 @@ def test_hashing_and_synthetic_tokens_on_gpu_match_cpu(cuda):
     (2, 2, 2, 128, 128, 32, False, None, torch.float32),
     (1, 4, 2, 70, 150, 64, True, 8, torch.float32),
     (1, 4, 4, 96, 96, 128, True, None, torch.float32),
+    # chip_smoke.py's cases at smaller sizes: the training shape's D 64,
+    # GQA at D 128, a window, ragged Lq < Lk
+    (2, 4, 4, 1024, 1024, 64, True, None, torch.bfloat16),
+    (1, 8, 2, 512, 512, 128, True, None, torch.bfloat16),
+    (1, 4, 4, 1024, 1024, 64, True, 200, torch.bfloat16),
+    (1, 4, 2, 250, 389, 128, True, None, torch.bfloat16),
+    (1, 4, 2, 64, 64, 64, True, None, torch.bfloat16),        # one tile
+    (1, 2, 2, 300, 300, 64, False, None, torch.bfloat16),     # not causal
 ])
 def test_flash_attention_bwd_kernel_matches_plain(cuda, case):
     """The backward kernel's dq, dk, dv against the plain chunked backward
     on the same CUDA tensors and the same forward output.  Tolerance per
     element: bf16 2^-7 |want| + 2^-10 max |want| (one bf16 rounding of
     each gradient; f32 summation order over up to Lq terms near 0); f32
-    1e-5 of max |want| (summation order)."""
+    1e-5 of max |want| (summation order).  The autograd Function counts
+    one backward call, on the route bwd_tc_route names, and no plain
+    call."""
     B, Hq, Hkv, Lq, Lk, D, causal, window, dt = case
     g = torch.Generator().manual_seed(Lq + Lk + D)
     q = torch.randn(B, Lq, Hq, D, generator=g).to(cuda, dt).transpose(1, 2)
@@ -1034,10 +1047,14 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, case):
             .transpose(1, 2) for _ in range(2))
     do = torch.randn(B, Lq, Hq, D, generator=g).to(cuda, dt).transpose(1, 2)
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
-    b0 = flash_attention.bwd_launches
+    b0, t0 = flash_attention.bwd_launches, flash_attention.bwd_tc_launches
+    p0 = flash_attention.plain_calls
     out = flash_attention(qg, kg, vg, causal=causal, window=window)
     got = torch.autograd.grad(out, (qg, kg, vg), do)
     assert flash_attention.bwd_launches == b0 + 1
+    assert (flash_attention.bwd_tc_launches - t0
+            == int(bwd_tc_route(dt, D, Lq, Lk)))
+    assert flash_attention.plain_calls == p0
     want = attention_backward_chunked(q, k, v, out.detach(), do,
                                       causal=causal, window=window)
     torch.cuda.synchronize()
@@ -1049,16 +1066,86 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda, case):
         assert bool((d <= limit).all()), float(d.max())
 
 
+@pytest.mark.parametrize("case", [
+    (1, 4, 4, 512, 512, 64, None),
+    (1, 8, 2, 300, 420, 128, 100),
+])
+def test_flash_attention_bwd_wgmma_route_is_deterministic(cuda, case):
+    """Two calls of the tensor-core backward on the same inputs give the
+    same bits (no atomics: a replayed train step is bit for bit)."""
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    B, Hq, Hkv, Lq, Lk, D, window = case
+    assert bwd_tc_route(torch.bfloat16, D, Lq, Lk)
+    g = torch.Generator().manual_seed(Lq * D)
+    q, do = (torch.randn(B, Lq, Hq, D, generator=g).to(cuda, torch.bfloat16)
+             .transpose(1, 2) for _ in range(2))
+    k, v = (torch.randn(B, Lk, Hkv, D, generator=g).to(cuda, torch.bfloat16)
+            .transpose(1, 2) for _ in range(2))
+    lse = torch.empty(B, Hq, Lq, dtype=torch.float32, device=cuda)
+    o, _ = flash_attention_kernel(q, k, v, window=window, lse=lse)
+    first, tc = flash_attention_bwd_kernel(q, k, v, o, do, lse,
+                                           window=window)
+    second, tc_again = flash_attention_bwd_kernel(q, k, v, o, do, lse,
+                                                  window=window)
+    assert tc and tc_again
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_tensor_core_attention_from_a_fresh_thread(cuda):
+    """The tensor-core forward and backward called from a thread that has
+    made no CUDA call yet, as autograd's backward thread calls
+    FlashAttention.backward: the driver encodes the TMA maps only with a
+    context current in the calling thread, which the launchers make
+    current.  Same bits as the same calls from this thread."""
+    import threading
+    from repro_torch.kernels.flash_attention.kernel import (
+        flash_attention_bwd_kernel, flash_attention_kernel)
+    g = torch.Generator().manual_seed(11)
+    q, k, v, do = (torch.randn(1, 256, 4, 64, generator=g)
+                   .to(cuda, torch.bfloat16).transpose(1, 2)
+                   for _ in range(4))
+
+    def both(into):
+        lse = torch.empty(1, 4, 256, dtype=torch.float32, device=cuda)
+        o, tc = flash_attention_kernel(q, k, v, lse=lse)
+        grads, bwd_tc = flash_attention_bwd_kernel(q, k, v, o, do, lse)
+        into.update(o=o, tc=tc and bwd_tc, grads=grads)
+
+    fresh = {}
+
+    def run():
+        try:
+            both(fresh)
+        except Exception as e:       # raised in the test's thread below
+            fresh["error"] = e
+    th = threading.Thread(target=run)
+    th.start()
+    th.join()
+    assert "error" not in fresh, fresh.get("error")
+    here = {}
+    both(here)
+    torch.cuda.synchronize()
+    assert fresh["tc"] and here["tc"]
+    assert torch.equal(fresh["o"], here["o"])
+    for a, b in zip(fresh["grads"], here["grads"]):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("b,H,L,P,N,bc", [
     (2, 3, 100, 16, 16, torch.bfloat16),
     (1, 8, 300, 64, 64, torch.bfloat16),
     (1, 4, 130, 64, 128, torch.float32),
+    (2, 12, 256, 64, 64, torch.bfloat16),    # two head groups
+    (1, 16, 64, 32, 32, torch.float32),      # one chunk
 ])
 def test_ssd_scan_backward_on_gpu_matches_plain(cuda, b, H, L, P, N, bc):
-    """The scan's backward on the card (three kernel scans) against its
-    plain version (three chunked scans) on the same tensors, B/C one head
-    [b, 1, L, N] shared by all, the model's form.  Tolerance 1e-4 of each
-    gradient's max (f32 summation orders)."""
+    """The scan's backward kernel on the card against its plain version
+    (three chunked scans) on the same tensors, B/C one head [b, 1, L, N]
+    shared by all, the model's form.  Tolerance 1e-4 of each gradient's
+    max (f32 summation orders).  The autograd Function counts one backward
+    call and no plain call."""
     g = torch.Generator().manual_seed(L + N)
     dt = torch.nn.functional.softplus(torch.randn(b, L, H, generator=g))
     xt = (torch.randn(b, L, H, P, generator=g) * dt[..., None]).to(
@@ -1068,10 +1155,11 @@ def test_ssd_scan_backward_on_gpu_matches_plain(cuda, b, H, L, P, N, bc):
               for _ in range(2))
     dy = torch.randn(b, L, H, P, generator=g).to(cuda).transpose(1, 2)
     ins = [t.detach().requires_grad_() for t in (xt, loga, Bm, Cm)]
-    b0 = ssd_scan.bwd_calls
+    b0, p0 = ssd_scan.bwd_calls, ssd_scan.plain_calls
     y = ssd_scan(ins[0], ins[1], ins[2][:, None], ins[3][:, None])
     got = torch.autograd.grad(y, ins, dy)
     assert ssd_scan.bwd_calls == b0 + 1
+    assert ssd_scan.plain_calls == p0
     want = ssd_scan_backward_ref(xt, loga, Bm[:, None], Cm[:, None],
                                  y.detach(), dy)
     want = (*want[:2], want[2][:, 0].to(bc), want[3][:, 0].to(bc))
@@ -1079,6 +1167,50 @@ def test_ssd_scan_backward_on_gpu_matches_plain(cuda, b, H, L, P, N, bc):
     for a, w in zip(got, want):
         err = float((a.float() - w.float()).abs().max() / w.float().abs().max())
         assert err < (1e-4 if a.dtype == torch.float32 else 1e-2), err
+
+
+@pytest.mark.parametrize("shape", ["per_head", "expanded", "one_group"])
+def test_ssd_scan_bwd_kernel_matches_plain(cuda, shape):
+    """The backward kernel alone against ssd_scan_backward_ref in f32, with
+    B/C per head [b, H, L, N], a stride-0 expand of one group (per-head
+    gradients, as the plain version gives) and one group [b, 1, L, N]
+    (gradients summed over the heads); L = 200 ends in a ragged chunk.
+    Tolerance 1e-4 of each gradient's max."""
+    b, H, L, P, N = 2, 10, 200, 32, 64
+    g = torch.Generator().manual_seed(7)
+    xt = torch.randn(b, H, L, P, generator=g).to(cuda)
+    loga = (-torch.rand(b, H, L, generator=g) * 0.5).to(cuda)
+    hb = H if shape == "per_head" else 1
+    Bm, Cm = ((torch.randn(b, hb, L, N, generator=g) * 0.3).to(cuda)
+              for _ in range(2))
+    if shape == "expanded":
+        Bm, Cm = Bm.expand(b, H, L, N), Cm.expand(b, H, L, N)
+    y = ssd_chunked_ref(xt, loga, Bm.expand(b, H, L, N),
+                        Cm.expand(b, H, L, N))
+    dy = torch.randn(b, H, L, P, generator=g).to(cuda)
+    got = ssd_scan_bwd_kernel(xt, loga, Bm, Cm, y, dy)
+    want = ssd_scan_backward_ref(xt, loga, Bm, Cm, y, dy)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and a.dtype == torch.float32
+        err = float((a - w).abs().max() / w.abs().max())
+        assert err < 1e-4, err
+
+
+def test_ssd_scan_bwd_kernel_is_deterministic(cuda):
+    """Two calls of the backward kernel give the same bits (no atomics)."""
+    b, H, L, P, N = 1, 12, 333, 64, 64
+    g = torch.Generator().manual_seed(8)
+    xt = torch.randn(b, H, L, P, generator=g).to(cuda)
+    loga = (-torch.rand(b, H, L, generator=g)).to(cuda)
+    Bm, Cm = ((torch.randn(b, 1, L, N, generator=g) * 0.3).to(
+        cuda, torch.bfloat16) for _ in range(2))
+    y = torch.randn(b, H, L, P, generator=g).to(cuda)
+    dy = torch.randn(b, H, L, P, generator=g).to(cuda)
+    first = ssd_scan_bwd_kernel(xt, loga, Bm, Cm, y, dy)
+    second = ssd_scan_bwd_kernel(xt, loga, Bm, Cm, y, dy)
+    for a, w in zip(first, second):
+        assert torch.equal(a, w)
 
 
 def test_train_step_on_gpu_matches_cpu(cuda):

@@ -20,7 +20,9 @@ from repro.models.ssm import _ssd_chunked as j_ssd_chunked
 from repro.kernels.ssd_scan import ssd_scan_ref as j_ssd_scan_ref
 
 from repro_torch.interop import params_from_jax
-from repro_torch.kernels.ssd_scan import (SSDScan, ssd_chunk_parallel_ref,
+from repro_torch.kernels.ssd_scan import (SSDScan,
+                                          ssd_backward_chunk_parallel_ref,
+                                          ssd_chunk_parallel_ref,
                                           ssd_chunked_ref, ssd_scan,
                                           ssd_scan_backward_ref,
                                           ssd_scan_ref)
@@ -294,3 +296,120 @@ def test_function_gradcheck_float64_one_group():
             ).requires_grad_()
     assert torch.autograd.gradcheck(
         SSDScan.apply, (t(b, H, L, P), loga, t(b, 1, L, N), t(b, 1, L, N)))
+
+
+# ------------------------------------- the backward kernel's passes ----
+def _chunk_parallel_grads(xt, loga, B, C, dy):
+    """ssd_backward_chunk_parallel_ref and ssd_scan_backward_ref on the same
+    inputs (numpy; B/C [b, L, N] one group passed as [b, 1, L, N], or
+    [b, H, L, N] per head), the forward's y from the chunked scan."""
+    b, H, L, _ = xt.shape
+    N = B.shape[-1]
+    x, la, Bt, Ct, d = (torch.from_numpy(a) for a in (xt, loga, B, C, dy))
+    if Bt.dim() == 3:
+        Bt, Ct = Bt[:, None], Ct[:, None]
+    y = ssd_chunked_ref(x, la, Bt.expand(b, H, L, N), Ct.expand(b, H, L, N))
+    got = ssd_backward_chunk_parallel_ref(x, la, Bt, Ct, y, d)
+    ref = ssd_scan_backward_ref(x, la, Bt, Ct, y, d)
+    return got, ref
+
+
+@pytest.mark.parametrize("L", [64, 100, 200])
+def test_chunk_parallel_backward_matches_jax_vjp(L):
+    """The backward kernel's passes in plain PyTorch (chunk states both
+    ways, the two state passes, the chunks, the cross-chunk finish) against
+    jax.vjp of the JAX model's chunked scan and against
+    ssd_scan_backward_ref: B/C one group [b, 1, L, N] shared by H = 10
+    heads (two head groups, summed in order), L = 100 and 200 ending in a
+    ragged chunk.  Max abs error under BWD_REL of each gradient's max
+    against JAX, 1e-5 against the other plain backward (two f32 orders)."""
+    arrs = _model_inputs(2, 10, L, 16, 16, L + 5)
+    want = _j_grads(*arrs)
+    got, ref = _chunk_parallel_grads(*arrs)
+    for name, g, w, r in zip(("dxt", "dloga", "dB", "dC"), got, want, ref):
+        assert g.shape == r.shape and g.dtype == torch.float32, name
+        assert _rel(g, r) < 1e-5, (name, _rel(g, r))
+        if name in ("dB", "dC"):
+            g = g[:, 0]
+        assert _rel(g, w) < BWD_REL, (name, _rel(g, w))
+
+
+@pytest.mark.parametrize("L", [64, 100, 200])
+def test_chunk_parallel_backward_per_head_bc_matches_jax_vjp(L):
+    """Per-head B/C [b, H, L, N] (per-head dB, dC): the passes against
+    jax.vjp of the reference's per-token scan (its [BH, L, ...] form,
+    which takes a B and C per head) and ssd_scan_backward_ref."""
+    b, H, P, N = 2, 3, 16, 16
+    xt, loga, B, C, dy = _model_inputs(b, H, L, P, N, L + 6, shared=False)
+
+    def flat(a):
+        return jnp.asarray(a.reshape(b * H, *a.shape[2:]))
+    _, vjp = jax.vjp(j_ssd_scan_ref, *(flat(a) for a in (xt, loga, B, C)))
+    want = [np.asarray(g).reshape(b, H, *g.shape[1:])
+            for g in vjp(flat(dy))]
+    got, ref = _chunk_parallel_grads(xt, loga, B, C, dy)
+    for name, g, w, r in zip(("dxt", "dloga", "dB", "dC"), got, want, ref):
+        assert g.shape == w.shape == r.shape, name
+        assert _rel(g, r) < 1e-5, (name, _rel(g, r))
+        assert _rel(g, w) < BWD_REL, (name, _rel(g, w))
+
+
+def test_chunk_parallel_backward_bf16_bc():
+    """B/C in bf16, one group, as the model passes them: the passes against
+    ssd_scan_backward_ref on the same bf16 values, and against jax.vjp of
+    the JAX model's chunked scan of those values in f32."""
+    b, H, L, P, N = 1, 4, 100, 16, 16
+    xt, loga, B, C, dy = _model_inputs(b, H, L, P, N, 19)
+    B16, C16 = (torch.from_numpy(m).bfloat16() for m in (B, C))
+    want = _j_grads(xt, loga, B16.float().numpy(), C16.float().numpy(), dy)
+    x, la, d = (torch.from_numpy(a) for a in (xt, loga, dy))
+    y = ssd_chunked_ref(x, la, B16[:, None].expand(b, H, L, N),
+                        C16[:, None].expand(b, H, L, N))
+    got = ssd_backward_chunk_parallel_ref(x, la, B16[:, None],
+                                          C16[:, None], y, d)
+    ref = ssd_scan_backward_ref(x, la, B16[:, None], C16[:, None], y, d)
+    for name, g, w, r in zip(("dxt", "dloga", "dB", "dC"), got, want, ref):
+        assert g.dtype == torch.float32, name
+        assert _rel(g, r) < 1e-5, (name, _rel(g, r))
+        if name in ("dB", "dC"):
+            g = g[:, 0]
+        assert _rel(g, w) < BWD_REL, (name, _rel(g, w))
+
+
+class _ChunkParallelScan(torch.autograd.Function):
+    """The chunked forward with the chunk-parallel backward (chunks of 4,
+    so a short sequence crosses several), for gradcheck."""
+
+    @staticmethod
+    def forward(ctx, xt, loga, B, C):
+        H = xt.shape[1]
+        shape = (xt.shape[0], H, *B.shape[2:])
+        y = ssd_chunked_ref(xt, loga, B.expand(shape), C.expand(shape),
+                            chunk=4)
+        ctx.save_for_backward(xt, loga, B, C, y)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        xt, loga, B, C, y = ctx.saved_tensors
+        return ssd_backward_chunk_parallel_ref(xt, loga, B, C, y, dy,
+                                               chunk=4)
+
+
+@pytest.mark.parametrize("shared", [True, False])
+def test_chunk_parallel_backward_gradcheck_float64(shared):
+    """gradcheck in float64 of the chunked scan with the chunk-parallel
+    backward: L = 11 in chunks of 4 (a ragged last chunk), 9 heads (two
+    head groups), B/C one group or per head."""
+    b, H, L, P, N = 1, 9, 11, 3, 2
+    g = torch.Generator().manual_seed(4)
+
+    def t(*s):
+        return torch.randn(*s, generator=g, dtype=torch.float64,
+                           requires_grad=True)
+    loga = (-torch.rand(b, H, L, generator=g, dtype=torch.float64)
+            ).requires_grad_()
+    hb = 1 if shared else H
+    assert torch.autograd.gradcheck(
+        _ChunkParallelScan.apply,
+        (t(b, H, L, P), loga, t(b, hb, L, N), t(b, hb, L, N)))
