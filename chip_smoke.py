@@ -90,7 +90,23 @@ size:
   plain version run, one step profiled; at 6 layers, one f32 step on
   the card against the CPU (and the bf16 step, reported); and
   ``train_loop`` for 120 steps through a failure and a restart from a
-  checkpoint, the replayed steps' losses bit for bit.
+  checkpoint, the replayed steps' losses bit for bit;
+* the moe, vlm and encdec families: flash attention forward and backward
+  held at their shapes (whisper-small's bidirectional encoder over 1,500
+  frames, its 448 x 1,500 cross-attention, 4,096 queries against 1,500
+  unmasked keys, granite-moe's G 2, llava's G 7 at D 128); granite-moe-1b
+  at full width and depth (24 layers, 32 experts, top-8) prefilling 4 x
+  4,096 tokens (the share of dropped choices reported), its f32 prefill
+  at 2 layers on the card against the CPU (chosen experts compared
+  first, every differing token reported with its margin), FIFO serving
+  of 16 requests and 3 training steps (8 x 4,096 tokens, 2
+  microbatches; the aux loss in the loss); whisper-small at full size
+  prefilling 8 x (1,500 frames, 448 tokens), 2 + 2 layers on the card
+  against the CPU, and 3 training steps; llava-next-34b at published
+  widths cut to 8 layers prefilling 2 x (2,880 vision, 1,216 text)
+  positions, its loss on the text slice, and 2 layers on the card
+  against the CPU.  Every flash launch of these paths is counted
+  against what the model implies, all on the tensor-core routes.
 
 Each is checked against a host model written here (order, ⊥ counts,
 overflow, migration counts, the exchange budget, the kernels' launch
@@ -112,6 +128,7 @@ import subprocess
 import sys
 import time
 from collections import deque
+from contextlib import contextmanager
 from pathlib import Path
 
 import numpy as np
@@ -215,6 +232,25 @@ LOOP_STEPS, LOOP_CKPT_EVERY, LOOP_FAIL_AT = 120, 40, 60
 TRAIN_PEAK_BYTES = 42_975_595_008 + 1_000_000_000
 LOOP_BATCH, LOOP_SEQ = 8, 1_024
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO, TRAIN_STEPS = 8, 4_096, 2, 3
+TRAIN_REDUCED = "train_4k's global batch of 256 cut to 8 (one card)"
+# the moe, vlm and encdec paths.  granite-moe-1b: prefill batch x tokens;
+# its card-vs-CPU check at 2 layers (full width) on MOE_CPU_TOKENS in f32
+# with TF32 off, the chosen experts compared first: a token whose top-8
+# set differs must be a near tie (its CPU margin between the 8th and 9th
+# probabilities at most MOE_FLIP_MARGIN, where f32 summation orders can
+# flip it).  whisper-small: WHISPER_PREFILL_BATCH sequences of 1,500
+# frames and WHISPER_TEXT tokens (Whisper's text context); llava-next-34b
+# cut to LLAVA_LAYERS layers, 2 sequences of 2,880 vision embeddings and
+# LLAVA_TEXT tokens (4,096 positions, the reference's train_4k split); its
+# CPU check on LLAVA_CPU = (vision, text) positions.  The card-vs-CPU
+# logits (f32, TF32 off: summation orders only) within *_CPU_TOL, about
+# three times the readings on an NVIDIA H100 80GB HBM3 at 700 W (seed 0):
+# granite-moe 5.2e-6 (max |logit| 3.0), whisper 3.7e-5 (2.4), llava
+# 6.9e-5 (7.4).
+MOE_PREFILL, MOE_CPU_TOKENS = (4, 4_096), (2, 512)
+MOE_CPU_TOL, MOE_FLIP_MARGIN = 2e-5, 1e-5
+WHISPER_PREFILL_BATCH, WHISPER_TEXT, WHISPER_CPU_TOL = 8, 448, 1e-4
+LLAVA_LAYERS, LLAVA_TEXT, LLAVA_CPU, LLAVA_CPU_TOL = 8, 1_216, (576, 448), 2e-4
 SCAN_OPS = 20          # int ops per op: transform, ~2 composes, emission
 HASH_OPS = 12          # int ops per element: splitmix32, shift, modulo
 TIER_OPS = 10          # int ops per op: key, warp match, rank, emission
@@ -2053,13 +2089,41 @@ def phase_hash_balance(torch, rng, results):
 
 
 # ------------------------------------------------------------ model zoo --
-def _visible_pairs(Lq: int, Lk: int, window) -> int:
+def _visible_pairs(Lq: int, Lk: int, window, causal: bool = True) -> int:
     """(query, key) pairs a causal (and windowed) mask keeps, queries
-    aligned to the end of the keys: the work this input needs."""
+    aligned to the end of the keys: the work this input needs (every
+    pair where nothing is masked)."""
+    if not causal and window is None:
+        return Lq * Lk
     qp = np.arange(Lq, dtype=np.int64) + (Lk - Lq)
     lo = np.zeros(Lq, np.int64) if window is None else np.maximum(
         qp - window + 1, 0)
     return int(np.clip(np.minimum(qp, Lk - 1) - lo + 1, 0, None).sum())
+
+
+def _family_flash_cases(torch, bwd: bool = False) -> list:
+    """The flash-attention shapes of the moe, vlm and encdec paths, as
+    (case, B, Hq, Hkv, Lq, Lk, D, causal, window, dtype, timing reps):
+    whisper-small's encoder (not causal, 1,500 frames: no tile multiple),
+    its cross-attention (448 text positions against 1,500 frames), the
+    train_4k split's 4,096 tokens against 1,500 frames (Lq > Lk, not
+    causal), granite-moe-1b's 16 query heads over 8 (G 2, D 64) and,
+    forward only (nothing trains it here), llava-next-34b's 56 over 8
+    (G 7, D 128)."""
+    bf16 = torch.bfloat16
+    cases = [
+        ("encoder: whisper-small, not causal, 1,500 frames", 8, 12, 12,
+         1500, 1500, 64, False, None, bf16, 10),
+        ("cross: whisper-small, 448 x 1,500, not causal", 8, 12, 12, 448,
+         1500, 64, False, None, bf16, 10),
+        ("Lq > Lk: 4,096 x 1,500, not causal", 2, 12, 12, 4096, 1500, 64,
+         False, None, bf16, 10),
+        ("gqa G 2: granite-moe-1b heads", 4, 16, 8, 4096, 4096, 64, True,
+         None, bf16, 10)]
+    if not bwd:
+        cases.append(("gqa G 7, D 128: llava-next-34b heads", 2, 56, 8,
+                      4096, 4096, 128, True, None, bf16, 5))
+    return cases
 
 
 def _flash_err(torch, got, want) -> dict:
@@ -2090,28 +2154,29 @@ def phase_flash_attention(torch, results):
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev, bf16, f32 = torch.device("cuda"), torch.bfloat16, torch.float32
     gen = torch.Generator(device=dev).manual_seed(1)
-    # (case, B, Hq, Hkv, Lq, Lk, D, window, dtype, timing reps); the first
-    # is the prefill path's call, which the kernels line reports
+    # (case, B, Hq, Hkv, Lq, Lk, D, causal, window, dtype, timing reps);
+    # the first is the prefill path's call, which the kernels line reports
     cases = [("prefill_path: zamba2 shared block", 4, 32, 32, 4096, 4096,
-              64, None, bf16, 10),
-             ("prefill_32k", 1, 32, 32, 32_768, 32_768, 64, None, bf16, 2),
-             ("gqa: llama3-8b heads", 1, 32, 8, 4096, 4096, 128, None, bf16,
-              10),
-             ("sliding window 1024", 2, 32, 32, 4096, 4096, 64, 1024, bf16,
-              10),
+              64, True, None, bf16, 10),
+             ("prefill_32k", 1, 32, 32, 32_768, 32_768, 64, True, None,
+              bf16, 2),
+             ("gqa: llama3-8b heads", 1, 32, 8, 4096, 4096, 128, True, None,
+              bf16, 10),
+             ("sliding window 1024", 2, 32, 32, 4096, 4096, 64, True, 1024,
+              bf16, 10),
              ("ragged: Lq < Lk, no multiple of 64", 2, 8, 2, 1000, 1500,
-              128, None, bf16, 10),
-             ("prefill_path in f32", 4, 32, 32, 4096, 4096, 64, None, f32,
-              3)]
+              128, True, None, bf16, 10),
+             ("prefill_path in f32", 4, 32, 32, 4096, 4096, 64, True, None,
+              f32, 3)] + _family_flash_cases(torch)
     launches0 = flash_attention.launches
-    for case, B, Hq, Hkv, Lq, Lk, D, window, dt, reps in cases:
+    for case, B, Hq, Hkv, Lq, Lk, D, causal, window, dt, reps in cases:
         q = torch.randn(B, Lq, Hq, D, generator=gen, device=dev,
                         dtype=dt).transpose(1, 2)
         k, v = (torch.randn(B, Lk, Hkv, D, generator=gen, device=dev,
                             dtype=dt).transpose(1, 2) for _ in range(2))
         tc0 = flash_attention.tc_launches
-        got = flash_attention(q, k, v, causal=True, window=window)
-        want = attention_chunked(q, k, v, causal=True, window=window)
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = attention_chunked(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         tc = flash_attention.tc_launches - tc0
         check(tc == int(tc_route(dt, D, Lq)),
@@ -2119,7 +2184,7 @@ def phase_flash_attention(torch, results):
               f"rule's kernel")
         # the kernel the device ran, by name, from the profiler's trace
         ran = _by_kernel(torch, lambda: flash_attention(
-            q, k, v, causal=True, window=window))
+            q, k, v, causal=causal, window=window))
         if ran != "not measured":
             check(set(ran) == {"flash_fwd_wgmma" if tc else "flash_fwd"},
                   f"flash_attention {case}: the device ran {sorted(ran)}")
@@ -2131,17 +2196,19 @@ def phase_flash_attention(torch, results):
               f"the plain one: {err}")
         del got, want
         w = 1 if reps < 10 else 3
-        ms = time_ms(lambda: flash_attention(q, k, v, causal=True,
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
                                              window=window), reps, torch, w)
-        plain = time_ms(lambda: attention_chunked(q, k, v, causal=True,
+        plain = time_ms(lambda: attention_chunked(q, k, v, causal=causal,
                                                   window=window),
                         max(1, reps // 5), torch, 1)
         lib = None
-        if window is None and Lq == Lk:
-            lib = time_ms(lambda: sdpa(q, k, v, is_causal=True,
+        # SDPA aligns a causal mask to the start of the keys: the same
+        # function where Lq == Lk, or where nothing is masked
+        if window is None and (Lq == Lk or not causal):
+            lib = time_ms(lambda: sdpa(q, k, v, is_causal=causal,
                                        enable_gqa=Hq != Hkv),
                           reps, torch, w)
-        pairs = B * Hq * _visible_pairs(Lq, Lk, window)
+        pairs = B * Hq * _visible_pairs(Lq, Lk, window, causal)
         size = q.element_size()
         n_bytes = size * D * (2 * B * Hq * Lq + 2 * B * Hkv * Lk)
         peak = BF16_FLOPS if dt == bf16 else F32_FLOPS
@@ -2152,7 +2219,9 @@ def phase_flash_attention(torch, results):
                else "flash_fwd (scalar f32)",
                "device_kernels": sorted(ran) if isinstance(ran, dict)
                else ran,
-               "dtype": str(dt).split(".")[-1], "causal": True, **err,
+               "device_ms": sum(ran.values()) if isinstance(ran, dict)
+               else ran,
+               "dtype": str(dt).split(".")[-1], "causal": causal, **err,
                "tolerance": (f"|d| <= {FLASH_RTOL} |want| + {FLASH_ATOL}"
                              if dt == bf16 else f"|d| <= {FLASH_F32_TOL}"),
                "ms": ms, "plain_ms": plain, "library_ms": lib,
@@ -2318,15 +2387,15 @@ def _n_params(tree) -> int:
     return tree.numel()
 
 
-def _profile_prefill(torch, model, params, tokens) -> dict:
-    """One prefill under torch.profiler: device time by operator and the
-    device's busy share of the wall time."""
+def _profile_prefill(torch, fn) -> dict:
+    """One prefill (``fn()``) under torch.profiler: device time by kind of
+    kernel and the device's busy share of the wall time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        model.prefill(params, tokens)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     evs = prof.key_averages()
@@ -2336,13 +2405,16 @@ def _profile_prefill(torch, model, params, tokens) -> dict:
                       for ev in evs if ev.device_type == DeviceType.CUDA
                       and ev.self_device_time_total > 0), reverse=True)
     by_kind = {"ssd_scan": 0.0, "flash_attention": 0.0, "cuBLAS products":
-               0.0, "other (elementwise, copies, norms)": 0.0}
+               0.0, "gathers and scatters (embedding, MoE dispatch, "
+               "combine)": 0.0, "other (elementwise, copies, norms)": 0.0}
     flash_calls = {"flash_fwd_wgmma": 0, "flash_fwd": 0}
     for t, k, c in kernels:
         kind = ("ssd_scan" if "ssd_scan" in k else
                 "flash_attention" if "flash_fwd" in k else
                 "cuBLAS products" if any(w in k.lower() for w in (
                     "nvjet", "gemm", "xmma", "cutlass")) else
+                "gathers and scatters (embedding, MoE dispatch, combine)"
+                if "index" in k.lower() else
                 "other (elementwise, copies, norms)")
         by_kind[kind] += t / 1e3
         if kind == "flash_attention":
@@ -2436,7 +2508,7 @@ def phase_prefill_zamba2(torch, seed, results):
           "prefill logits [4, 32000] f32")
     check(bool(torch.isfinite(logits).all()), "prefill logits finite")
     peak = torch.cuda.max_memory_allocated()
-    prof = _profile_prefill(torch, model, params, tokens)
+    prof = _profile_prefill(torch, lambda: model.prefill(params, tokens))
     if prof["flash_kernel_calls"] != "not measured":
         check(prof["flash_kernel_calls"] == {"flash_fwd_wgmma": n_attn,
                                              "flash_fwd": 0},
@@ -2566,15 +2638,7 @@ def phase_serve_zamba2(torch, rng, results, zamba, telemetry=False):
           f"all {len(reqs)} requests served with 16 tokens each")
     check(all(r.start_step > resize_step for r in reqs if r.rid in pending),
           "requests queued at the resize started after it")
-    starts = [r.start_step for r in reqs]
-    check(starts == sorted(starts), "admission follows enqueue order")
-    for s in range(1, eng.step_no + 1):          # host FIFO admission model
-        busy = sum(0 <= r.start_step < s <= r.finish_step for r in reqs)
-        queued = sum(r.enqueue_step < s and not 0 <= r.start_step < s
-                     for r in reqs)
-        check(sum(r.start_step == s for r in reqs)
-              == min(slots - busy, queued),
-              f"step {s}: FIFO fills min(free slots, queued)")
+    _check_fifo_admission(eng, reqs, slots, "serve_zamba2")
     steps = eng.step_no - 1
     tokens = sum(len(r.out) for r in reqs)
     rec = {"arch": cfg.name, "slots": slots, "max_seq": max_seq,
@@ -2619,6 +2683,21 @@ def phase_serve_zamba2(torch, rng, results, zamba, telemetry=False):
     results[name] = rec
     emit(f"path:{name}", **rec)
 
+
+
+def _check_fifo_admission(eng, reqs, slots: int, what: str) -> None:
+    """Admission against the host FIFO model: requests start in enqueue
+    order, and each step starts min(free slots, queued) of them."""
+    starts = [r.start_step for r in reqs]
+    check(starts == sorted(starts), f"{what}: admission follows enqueue "
+                                    f"order")
+    for s in range(1, eng.step_no + 1):
+        busy = sum(0 <= r.start_step < s <= r.finish_step for r in reqs)
+        queued = sum(r.enqueue_step < s and not 0 <= r.start_step < s
+                     for r in reqs)
+        check(sum(r.start_step == s for r in reqs)
+              == min(slots - busy, queued),
+              f"{what} step {s}: FIFO fills min(free slots, queued)")
 
 
 def _rid_payload(ids: np.ndarray) -> np.ndarray:
@@ -4056,7 +4135,8 @@ def _grad_err(torch, got, want, f32: bool) -> dict:
     return out
 
 
-def _sdpa_bwd_ms(torch, q, k, v, do, reps: int) -> float:
+def _sdpa_bwd_ms(torch, q, k, v, do, reps: int, causal: bool = True
+                 ) -> float:
     """scaled_dot_product_attention's forward plus backward, minus its
     forward, by CUDA events: the yardstick beside the backward kernel (the
     port never calls it)."""
@@ -4065,12 +4145,12 @@ def _sdpa_bwd_ms(torch, q, k, v, do, reps: int) -> float:
     qg, kg, vg = (t.detach().requires_grad_() for t in (q, k, v))
 
     def both():
-        out = sdpa(qg, kg, vg, is_causal=True, enable_gqa=gqa)
+        out = sdpa(qg, kg, vg, is_causal=causal, enable_gqa=gqa)
         torch.autograd.grad(out, (qg, kg, vg), do)
 
     def fwd():
         with torch.no_grad():
-            sdpa(q, k, v, is_causal=True, enable_gqa=gqa)
+            sdpa(q, k, v, is_causal=causal, enable_gqa=gqa)
     return time_ms(both, reps, torch, 2) - time_ms(fwd, reps, torch, 2)
 
 
@@ -4095,17 +4175,18 @@ def phase_flash_attention_bwd(torch, results):
     ptxas = _ptxas_of(results["build"], "flash_attention_bwd",
                       r"(flash_bwd_(?:dot|dkdv_wgmma|dq_wgmma|dkdv|dq))I"
                       r"(13__nv_bfloat16|f)?Li(\d+)E")
-    # (case, B, Hq, Hkv, Lq, Lk, D, window, dtype, timing reps)
+    # (case, B, Hq, Hkv, Lq, Lk, D, causal, window, dtype, timing reps)
     cases = [("train_path: zamba2 shared block", 4, 32, 32, 4096, 4096, 64,
-              None, bf16, 10),
-             ("gqa: llama3-8b heads", 1, 32, 8, 4096, 4096, 128, None, bf16,
-              5),
-             ("sliding window 1024", 2, 32, 32, 4096, 4096, 64, 1024, bf16,
-              5),
+              True, None, bf16, 10),
+             ("gqa: llama3-8b heads", 1, 32, 8, 4096, 4096, 128, True, None,
+              bf16, 5),
+             ("sliding window 1024", 2, 32, 32, 4096, 4096, 64, True, 1024,
+              bf16, 5),
              ("ragged: Lq < Lk, no multiple of 64", 2, 8, 2, 1000, 1500, 128,
-              None, bf16, 10),
-             ("f32, D 32", 2, 8, 8, 1000, 1000, 32, None, f32, 5)]
-    for case, B, Hq, Hkv, Lq, Lk, D, window, dt, reps in cases:
+              True, None, bf16, 10),
+             ("f32, D 32", 2, 8, 8, 1000, 1000, 32, True, None, f32, 5)
+             ] + _family_flash_cases(torch, bwd=True)
+    for case, B, Hq, Hkv, Lq, Lk, D, causal, window, dt, reps in cases:
         def rand(L, H):
             return torch.randn(B, L, H, D, generator=gen, device=dev,
                                dtype=dt).transpose(1, 2)
@@ -4116,7 +4197,7 @@ def phase_flash_attention_bwd(torch, results):
               f"flash_attention_bwd {case}: bf16 at D 64 and 128 takes the "
               f"wgmma route")
         b0, t0 = flash_attention.bwd_launches, flash_attention.bwd_tc_launches
-        out = flash_attention(qg, kg, vg, causal=True, window=window)
+        out = flash_attention(qg, kg, vg, causal=causal, window=window)
         got = torch.autograd.grad(out, (qg, kg, vg), do)
         check(flash_attention.bwd_launches - b0 == 1
               and flash_attention.bwd_tc_launches - t0 == int(tc),
@@ -4125,7 +4206,7 @@ def phase_flash_attention_bwd(torch, results):
               f"route")
         o = out.detach()
         del out, qg, kg, vg
-        want = attention_backward_chunked(q, k, v, o, do, causal=True,
+        want = attention_backward_chunked(q, k, v, o, do, causal=causal,
                                           window=window)
         torch.cuda.synchronize()
         err = _grad_err(torch, got, want, dt == f32)
@@ -4137,11 +4218,12 @@ def phase_flash_attention_bwd(torch, results):
               f"of the plain backward: {err}")
         del got, want
         lse = torch.empty(B, Hq, Lq, dtype=f32, device=dev)
-        flash_attention_kernel(q, k, v, causal=True, window=window, lse=lse)
+        flash_attention_kernel(q, k, v, causal=causal, window=window,
+                               lse=lse)
 
         def run():
             return flash_attention_bwd_kernel(q, k, v, o, do, lse,
-                                              causal=True, window=window)
+                                              causal=causal, window=window)
         (first, tc_first), (second, tc_second) = run(), run()
         check(tc_first == tc_second == tc,
               f"flash_attention_bwd {case}: the launcher reports the "
@@ -4159,18 +4241,18 @@ def phase_flash_attention_bwd(torch, results):
               f"flash_attention_bwd {case}: the profile shows the route's "
               f"kernels {names}, got {sorted(calls)}")
         plain = time_ms(lambda: attention_backward_chunked(
-            q, k, v, o, do, causal=True, window=window), max(1, reps // 5),
+            q, k, v, o, do, causal=causal, window=window), max(1, reps // 5),
             torch, 1)
-        lib = (_sdpa_bwd_ms(torch, q, k, v, do, reps)
-               if window is None and Lq == Lk else None)
-        pairs = B * Hq * _visible_pairs(Lq, Lk, window)
+        lib = (_sdpa_bwd_ms(torch, q, k, v, do, reps, causal)
+               if window is None and (Lq == Lk or not causal) else None)
+        pairs = B * Hq * _visible_pairs(Lq, Lk, window, causal)
         size = q.element_size()
         n_bytes = (size * D * (4 * B * Hq * Lq + 4 * B * Hkv * Lk)
                    + 4 * B * Hq * Lq)
         peak = BF16_FLOPS if dt == bf16 else F32_FLOPS
         b_ms, b_by = bound(n_bytes, 10 * D * pairs, peak)
         rec = {"case": case, "B": B, "Hq": Hq, "Hkv": Hkv, "Lq": Lq,
-               "Lk": Lk, "D": D, "window": window, "causal": True,
+               "Lk": Lk, "D": D, "window": window, "causal": causal,
                "dtype": str(dt).split(".")[-1],
                "forward_route": "flash_fwd_wgmma" if tc_route(dt, D, Lq)
                else "flash_fwd",
@@ -4408,7 +4490,7 @@ def phase_train_zamba2(torch, results, zamba):
            "layers": cfg.n_layers,
            "global_batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
            "microbatches": TRAIN_MICRO, "remat": True, "steps": TRAIN_STEPS,
-           "reduced": "train_4k's global batch of 256 cut to 8 (one card)",
+           "reduced": TRAIN_REDUCED,
            "launches": counts, "expected_launches": expect,
            "metrics": metrics, "step_wall_ms": walls,
            "step_ms_median_after_first": step_ms,
@@ -4429,6 +4511,20 @@ def _train_step_parts(torch, model, params, batch):
     lr = cosine_lr(opt.step)
     new, opt, gnorm = adamw_update(params, grads, opt, lr)
     return loss, grads, new, gnorm, lr, opt.m
+
+
+@contextmanager
+def _tf32_off(torch):
+    """TF32 off for cuBLAS and cuDNN inside the block (restored after)."""
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = flags[0]
+        torch.backends.cudnn.allow_tf32 = flags[1]
 
 
 def _flat(tree, prefix=""):
@@ -4454,12 +4550,8 @@ def phase_train_card_vs_cpu(torch, seed, results):
     toks = torch.randint(0, cfg.vocab, (TRAIN_CPU_BATCH, TRAIN_CPU_TOKENS + 1),
                          generator=gen, device="cuda")
     batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
-    flags = (torch.backends.cuda.matmul.allow_tf32,
-             torch.backends.cudnn.allow_tf32)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     out = {}
-    try:
+    with _tf32_off(torch):
         for name, p in (("float32", _cast(params, torch.float32)),
                         ("bfloat16", params)):
             _zero_counters()
@@ -4502,9 +4594,6 @@ def phase_train_card_vs_cpu(torch, seed, results):
                 "first_moment_worst_leaf": worst_m,
                 "launches": counts, "cpu_seconds": cpu_s}
             del card, cpu
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = flags[0]
-        torch.backends.cudnn.allow_tf32 = flags[1]
     rec = {"arch": cfg.name, "layers": cfg.n_layers,
            "attention_calls": cfg.n_layers // cfg.attn_every,
            "batch": TRAIN_CPU_BATCH, "tokens": TRAIN_CPU_TOKENS,
@@ -4594,6 +4683,446 @@ def phase_train_loop(torch, results):
     shutil.rmtree(ckpt, ignore_errors=True)
 
 
+# ------------------------------------------------ moe, vlm, encdec paths --
+def _family_model(torch, arch: str, seed: int, **over):
+    """(cfg, model, params) of ``arch`` (its fields replaced by ``over``)
+    with random bf16 weights from ``seed``, on the card."""
+    from dataclasses import replace
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = replace(get_config(arch), **over)
+    model = build_model(cfg)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return cfg, model, model.init_params(gen, device="cuda")
+
+
+class _RouteLog:
+    """Records the router's decisions of every MoE layer while active (the
+    transformer's ``moe_ffn`` wrapped: ``moe.route`` is run again on the
+    same input, outside any timed call): per layer the chosen experts, the
+    kept choices, and each token's margin between its k-th and (k+1)-th
+    probabilities."""
+
+    def __init__(self, torch):
+        self.torch, self.layers = torch, []
+
+    def __enter__(self):
+        from repro_torch.models import moe as MOE
+        from repro_torch.models import transformer as TF
+        real, torch, layers = TF.moe_ffn, self.torch, self.layers
+
+        def moe_ffn(p, x, cfg, capacity_factor=None):
+            _, idx, pos, C, _ = MOE.route(p, x, cfg, capacity_factor)
+            probs = torch.softmax(x.float() @ p["router"].float(), -1)
+            top = torch.topk(probs, cfg.top_k + 1, dim=-1).values
+            layers.append({"experts": idx.sort(-1).values, "kept": pos < C,
+                           "margin": top[..., -2] - top[..., -1]})
+            return real(p, x, cfg, capacity_factor)
+        self._real, TF.moe_ffn = real, moe_ffn
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as TF
+        TF.moe_ffn = self._real
+
+
+def _timed_prefill(torch, fn) -> tuple:
+    """(logits, wall ms, device ms by CUDA events, counts) of one call of
+    ``fn`` with the kernels' counts set to 0 just before it."""
+    torch.cuda.synchronize()
+    _zero_counters()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return out, wall, start.elapsed_time(end), _counters()
+
+
+def _family_card_vs_cpu(torch, cfg, model, params, inputs: dict,
+                        routes: bool = False) -> dict:
+    """The f32 prefill (weights cast from ``params``) on the card, TF32
+    off, against the same prefill on the CPU: max |Δlogit|, and with
+    ``routes`` every MoE token whose chosen experts differ (with its
+    margins on both sides)."""
+    p32 = _cast(params, torch.float32)
+    with _tf32_off(torch):
+        _zero_counters()
+        with _RouteLog(torch) as card_log:
+            card = model.prefill(p32, **inputs).cpu()
+        counts = _counters()
+    cpu_p, cpu_in = _to(p32, "cpu"), _to(inputs, "cpu")
+    del p32
+    t0 = time.perf_counter()
+    with _RouteLog(torch) as cpu_log:
+        cpu = model.prefill(cpu_p, **cpu_in)
+    cpu_s = time.perf_counter() - t0
+    del cpu_p
+    check(bool(torch.isfinite(card).all()), f"{cfg.name} card vs CPU: "
+                                            f"finite logits")
+    rec = {"layers": cfg.n_layers, "dtype": "float32", "tf32": False,
+           "max_abs_logit_diff": float((card - cpu).abs().max()),
+           "logit_absmax": float(cpu.abs().max()),
+           "argmax_equal": bool((card.argmax(-1) == cpu.argmax(-1)).all()),
+           "launches": counts, "cpu_seconds": cpu_s}
+    if routes:
+        flips, margins = [], []
+        for layer, (a, b) in enumerate(zip(card_log.layers, cpu_log.layers)):
+            differ = (a["experts"].cpu() != b["experts"]).any(-1)
+            margins.append(float(b["margin"].min()))
+            for row, tok in differ.nonzero().tolist():
+                flips.append({"layer": layer, "row": row, "token": tok,
+                              "margin_card": float(a["margin"][row, tok]),
+                              "margin_cpu": float(b["margin"][row, tok])})
+        rec.update(routed_tokens=sum(int(x["experts"].shape[0]
+                                         * x["experts"].shape[1])
+                                     for x in cpu_log.layers),
+                   expert_set_flips=flips,
+                   smallest_margin_by_layer=margins,
+                   kept_equal=all(bool((a["kept"].cpu() == b["kept"]).all())
+                                  for a, b in zip(card_log.layers,
+                                                  cpu_log.layers)))
+    return rec
+
+
+def phase_prefill_granite_moe(torch, seed, results):
+    """granite-moe-1b-a400m at full width and depth (24 layers, 32 experts,
+    top-8, capacity factor 1.25; random weights from the seed): the
+    prefill of 4 x 4,096 tokens, its 24 flash calls all on the
+    tensor-core route, the profile by kernel and the share of (token,
+    choice) pairs the capacity drops; then, cut to 2 layers, the f32
+    prefill on the card against the CPU, chosen experts first."""
+    from repro_torch.models.moe import capacity
+    cfg, model, params = _family_model(torch, "granite_moe_1b", seed + 20)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 21)
+    B, S = MOE_PREFILL
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device="cuda")
+    model.prefill(params, tokens[:1, :256])              # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    logits, wall, dev_ms, counts = _timed_prefill(
+        torch, lambda: model.prefill(params, tokens))
+    peak = torch.cuda.max_memory_allocated()
+    n = cfg.n_layers
+    expect = {**_no_launches(), "flash_fwd": n, "flash_fwd_tc": n}
+    check(counts == expect, f"prefill_granite_moe: launched {counts}, the "
+                            f"model implies {expect}")
+    check(logits.shape == (B, cfg.vocab) and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()),
+          "prefill_granite_moe: finite f32 logits [4, vocab]")
+    prof = _profile_prefill(torch, lambda: model.prefill(params, tokens))
+    if prof["flash_kernel_calls"] != "not measured":
+        check(prof["flash_kernel_calls"] == {"flash_fwd_wgmma": n,
+                                             "flash_fwd": 0},
+              f"prefill_granite_moe: the device ran "
+              f"{prof['flash_kernel_calls']}")
+    with _RouteLog(torch) as log:
+        model.prefill(params, tokens)
+    kept = torch.stack([x["kept"] for x in log.layers])   # [L, B, S, K]
+    drop_by_layer = (1 - kept.float().mean((1, 2, 3))).tolist()
+    card_cpu = _family_card_vs_cpu(
+        torch, *_family_model(torch, "granite_moe_1b", seed + 22,
+                              n_layers=2),
+        {"tokens": torch.randint(0, cfg.vocab, MOE_CPU_TOKENS, generator=gen,
+                                 device="cuda")}, routes=True)
+    rec = {"arch": cfg.name, "params": _n_params(params), "layers": n,
+           "experts": cfg.n_experts, "top_k": cfg.top_k,
+           "capacity_factor": cfg.capacity_factor,
+           "capacity_per_expert_per_row": capacity(cfg, S),
+           "batch": B, "seq": S, "launches": counts, "wall_ms": wall,
+           "device_ms": dev_ms, "tokens_per_s": B * S / wall * 1e3,
+           "max_memory_allocated": peak,
+           "dropped_share": float(1 - kept.float().mean()),
+           "dropped_share_by_layer": drop_by_layer, "profile": prof,
+           "card_vs_cpu": {**card_cpu, "batch": MOE_CPU_TOKENS[0],
+                           "tokens": MOE_CPU_TOKENS[1],
+                           "tolerance": MOE_CPU_TOL,
+                           "flip_margin_limit": MOE_FLIP_MARGIN}}
+    results["prefill_granite_moe"] = rec
+    emit("path:prefill_granite_moe", **rec)
+    check(all(f["margin_cpu"] <= MOE_FLIP_MARGIN
+              for f in card_cpu["expert_set_flips"]),
+          f"prefill_granite_moe card vs CPU: every token whose experts "
+          f"differ is a near tie: {card_cpu['expert_set_flips']}")
+    check(card_cpu["max_abs_logit_diff"] <= MOE_CPU_TOL,
+          f"prefill_granite_moe card vs CPU: max |Δlogit| "
+          f"{card_cpu['max_abs_logit_diff']} within {MOE_CPU_TOL}")
+    return cfg, model, params
+
+
+def phase_serve_granite_moe(torch, rng, results, bundle):
+    """ServeEngine in FIFO mode serving granite-moe-1b (full size): 8
+    slots, 16 requests of 16-64-token prompts and 16 new tokens each (as
+    the zamba2 paths draw them), decoded through ``decode_fn`` (at S = 1
+    the capacity is 1 and no choice drops); FIFO admission against the
+    host model of path:serve_zamba2."""
+    from repro_torch.kernels.segscan import queue_scan
+    from repro_torch.serve import ServeEngine
+    cfg, model, params = bundle
+    slots = 8
+    eng = ServeEngine(model, params, 8, max_slots=slots, max_seq=256,
+                      flight_k=100_000, device="cuda")
+    reqs = _zamba2_requests(rng, cfg, 16)
+    eng.step()                                   # warm-up: an idle step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counters()
+    queue_scan.launches = 0
+    t0 = time.perf_counter()
+    eng.submit(reqs)
+    check(eng.run_until_drained(max_steps=2000), "served to the end")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = {**_counters(), "queue_scan": queue_scan.launches}
+    check(counts["queue_scan"] > 0 and counts["plain"] == 0
+          and counts["flash_fwd"] == 0,
+          f"serve_granite_moe: the queue waves went through the queue-scan "
+          f"kernel and decode ran no flash call: {counts}")
+    check(all(r.done and len(r.out) == 16 for r in reqs),
+          "serve_granite_moe: every request served with 16 tokens")
+    _check_fifo_admission(eng, reqs, slots, "serve_granite_moe")
+    rec = {"arch": cfg.name, "slots": slots, **_serve_record(
+        eng, reqs, wall, eng.step_no - 1, counts,
+        torch.cuda.max_memory_allocated()),
+        "prompt_lens": [len(r.prompt) for r in reqs],
+        "fifo_admission": "ok"}
+    results["serve_granite_moe"] = rec
+    emit("path:serve_granite_moe", **rec)
+
+
+def _no_launches() -> dict:
+    return {"flash_fwd": 0, "flash_fwd_tc": 0, "flash_bwd": 0,
+            "flash_bwd_tc": 0, "ssd_fwd": 0, "ssd_bwd": 0, "plain": 0}
+
+
+def _train_family(torch, results, name, bundle, batch_at, attn_calls,
+                  extra=None):
+    """``make_train_step`` over ``bundle``'s model: TRAIN_STEPS steps of
+    ``batch_at(step)`` as TRAIN_MICRO microbatches, remat, AdamW; every
+    flash launch counted against ``attn_calls`` attention calls a forward
+    (remat runs each forward twice), no plain version; one more step
+    profiled."""
+    from repro_torch.train import adamw_init, make_train_step
+    cfg, model, params = bundle
+    step_fn = make_train_step(model, num_microbatches=TRAIN_MICRO)
+    opt = adamw_init(params)
+    batches = [batch_at(s) for s in range(TRAIN_STEPS + 1)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, metrics, p = [], [], params
+    _zero_counters()
+    for s in range(TRAIN_STEPS):
+        t0 = time.perf_counter()
+        p, opt, m = step_fn(p, opt, batches[s])
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        metrics.append({k: float(v) for k, v in m.items()})
+    counts = _counters()
+    peak = torch.cuda.max_memory_allocated()
+    passes = TRAIN_STEPS * TRAIN_MICRO
+    n = attn_calls * passes
+    expect = {**_no_launches(), "flash_fwd": 2 * n, "flash_fwd_tc": 2 * n,
+              "flash_bwd": n, "flash_bwd_tc": n}
+    check(counts == expect, f"{name}: {TRAIN_STEPS} steps of {TRAIN_MICRO} "
+                            f"microbatches launched {counts}, the model "
+                            f"implies {expect}")
+    check(all(np.isfinite(m["loss"]) and np.isfinite(m["grad_norm"])
+              and m["grad_norm"] > 0 for m in metrics),
+          f"{name}: finite losses and grad norms > 0: {metrics}")
+    check(int(opt.step) == TRAIN_STEPS, f"{name}: the optimizer's step")
+    prof = _profile_train_step(torch, step_fn, p, opt, batches[-1])
+    step_ms = float(np.median(walls[1:]))
+    tokens = batches[0]["tokens"].numel()
+    rec = {"arch": cfg.name, "params": _n_params(params),
+           "layers": cfg.n_layers, "global_batch": TRAIN_BATCH,
+           "seq": batches[0]["tokens"].shape[1], "microbatches": TRAIN_MICRO,
+           "remat": True, "steps": TRAIN_STEPS, "launches": counts,
+           "expected_launches": expect, "metrics": metrics,
+           "step_wall_ms": walls, "step_ms_median_after_first": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "max_memory_allocated": peak, "profile": prof, **(extra or {})}
+    results[name] = rec
+    emit(f"path:{name}", **rec)
+    return rec
+
+
+def phase_train_granite_moe(torch, results, bundle):
+    """granite-moe-1b at full width and depth (the prefill phase's
+    weights) trained through ``make_train_step``: 8 x 4,096 tokens from
+    ``GlobalOrderPipeline`` as 2 microbatches, remat, AdamW, 3 steps; the
+    aux loss > 0 and in the loss (NLL + 0.01 aux, one microbatch without
+    grad)."""
+    from repro_torch.data import GlobalOrderPipeline
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.layers import chunked_xent
+    cfg, model, params = bundle
+    pipe = GlobalOrderPipeline(TRAIN_SEQ, cfg.vocab, TRAIN_BATCH,
+                               device="cuda")
+
+    def batch_at(s):
+        return {k: v for k, v in pipe.batch_at_step(s).items()
+                if k != "sample_indices"}
+    mb = {k: v[:TRAIN_BATCH // TRAIN_MICRO] for k, v in batch_at(0).items()}
+    with torch.no_grad():
+        h, aux = TF.forward_aux(params, cfg, mb["tokens"], remat=False)
+        nll = chunked_xent(h, params["unembed"], mb["targets"])
+        loss = model.loss_fn(params, mb, remat=False)
+    del h
+    aux, nll, loss = float(aux), float(nll), float(loss)
+    check(aux > 0 and abs(loss - (nll + 0.01 * aux)) <= 1e-6 * abs(loss),
+          f"train_granite_moe: the loss {loss} is the NLL {nll} + 0.01 x "
+          f"aux {aux}, aux > 0")
+    _train_family(torch, results, "train_granite_moe", bundle, batch_at,
+                  cfg.n_layers, extra={"reduced": TRAIN_REDUCED,
+                                       "aux_first_microbatch": aux,
+                                       "nll_first_microbatch": nll,
+                                       "loss_first_microbatch": loss})
+
+
+def phase_prefill_whisper_small(torch, seed, results):
+    """whisper-small at full width and depth (12 encoder and 12 decoder
+    layers; random weights from the seed): the prefill of 8 sequences of
+    1,500 stub frames and 448 decoder tokens (Whisper's text context):
+    36 flash calls, 12 bidirectional over the frames, 12 causal over the
+    tokens, 12 cross-attention, all on the tensor-core route; then, cut to
+    2 + 2 layers, the f32 prefill on the card against the CPU."""
+    cfg, model, params = _family_model(torch, "whisper_small", seed + 30)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 31)
+    B, T, S = WHISPER_PREFILL_BATCH, cfg.enc_seq, WHISPER_TEXT
+    frames = torch.randn(B, T, cfg.d_model, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device="cuda")
+    model.prefill(params, tokens[:1], frames=frames[:1])   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    logits, wall, dev_ms, counts = _timed_prefill(
+        torch, lambda: model.prefill(params, tokens, frames=frames))
+    peak = torch.cuda.max_memory_allocated()
+    n = cfg.enc_layers + 2 * cfg.n_layers
+    expect = {**_no_launches(), "flash_fwd": n, "flash_fwd_tc": n}
+    check(counts == expect, f"prefill_whisper_small: launched {counts}, "
+                            f"the model implies {expect}")
+    check(logits.shape == (B, cfg.vocab) and bool(torch.isfinite(
+        logits).all()), "prefill_whisper_small: finite logits [8, vocab]")
+    prof = _profile_prefill(torch, lambda: model.prefill(params, tokens,
+                                                         frames=frames))
+    if prof["flash_kernel_calls"] != "not measured":
+        check(prof["flash_kernel_calls"] == {"flash_fwd_wgmma": n,
+                                             "flash_fwd": 0},
+              f"prefill_whisper_small: the device ran "
+              f"{prof['flash_kernel_calls']}")
+    cpu_b = 2
+    card_cpu = _family_card_vs_cpu(
+        torch, *_family_model(torch, "whisper_small", seed + 32,
+                              n_layers=2, enc_layers=2),
+        {"tokens": tokens[:cpu_b], "frames": frames[:cpu_b]})
+    rec = {"arch": cfg.name, "params": _n_params(params),
+           "layers": {"encoder": cfg.enc_layers, "decoder": cfg.n_layers},
+           "batch": B, "frames": T, "text": S, "launches": counts,
+           "wall_ms": wall, "device_ms": dev_ms,
+           "tokens_per_s": B * S / wall * 1e3,
+           "frames_per_s": B * T / wall * 1e3,
+           "max_memory_allocated": peak, "profile": prof,
+           "card_vs_cpu": {**card_cpu, "batch": cpu_b,
+                           "tolerance": WHISPER_CPU_TOL}}
+    results["prefill_whisper_small"] = rec
+    emit("path:prefill_whisper_small", **rec)
+    check(card_cpu["max_abs_logit_diff"] <= WHISPER_CPU_TOL,
+          f"prefill_whisper_small card vs CPU: max |Δlogit| "
+          f"{card_cpu['max_abs_logit_diff']} within {WHISPER_CPU_TOL}")
+    return cfg, model, params
+
+
+def phase_train_whisper_small(torch, results, bundle):
+    """whisper-small at full size trained through ``make_train_step``: 8
+    sequences of 448 tokens (``GlobalOrderPipeline``) against 1,500 stub
+    frames each (drawn as the training loop draws them), 2
+    microbatches, remat, AdamW, 3 steps."""
+    from repro_torch.data import GlobalOrderPipeline
+    from repro_torch.launch.train import stub_inputs
+    cfg, model, params = bundle
+    pipe = GlobalOrderPipeline(WHISPER_TEXT, cfg.vocab, TRAIN_BATCH,
+                               device="cuda")
+
+    def batch_at(s):
+        batch = {k: v for k, v in pipe.batch_at_step(s).items()
+                 if k != "sample_indices"}
+        return {**batch, **stub_inputs(cfg, s, TRAIN_BATCH, "cuda")}
+    _train_family(torch, results, "train_whisper_small", bundle, batch_at,
+                  cfg.enc_layers + 2 * cfg.n_layers,
+                  extra={"frames": cfg.enc_seq, "reduced": TRAIN_REDUCED
+                         + f"; {WHISPER_TEXT} decoder tokens, Whisper's "
+                           f"text context, in place of 4,096"})
+
+
+def phase_prefill_llava_next_34b(torch, seed, results):
+    """llava-next-34b at published widths, its depth cut from 60 to
+    LLAVA_LAYERS layers (random weights from the seed): the prefill of 2
+    sequences of 2,880 stub vision embeddings and 1,216 text tokens (the
+    reference's train_4k split), LLAVA_LAYERS flash calls on the
+    tensor-core route at D 128, G 7; the loss on the text slice; then, cut
+    to 2 layers, the f32 prefill on the card against the CPU."""
+    from repro_torch.models import transformer as TF
+    from repro_torch.models.layers import chunked_xent
+    cfg, model, params = _family_model(torch, "llava_next_34b", seed + 40,
+                                       n_layers=LLAVA_LAYERS)
+    gen = torch.Generator(device="cuda").manual_seed(seed + 41)
+    B, V, S = 2, cfg.n_vision_tokens, LLAVA_TEXT
+    vis = torch.randn(B, V, cfg.d_model, generator=gen, device="cuda",
+                      dtype=torch.bfloat16)
+    tokens = torch.randint(0, cfg.vocab, (B, S + 1), generator=gen,
+                           device="cuda")
+    batch = {"tokens": tokens[:, :-1], "targets": tokens[:, 1:],
+             "vision_embeds": vis}
+    model.prefill(params, batch["tokens"][:1, :64], vision_embeds=vis[:1])
+    torch.cuda.reset_peak_memory_stats()
+    logits, wall, dev_ms, counts = _timed_prefill(
+        torch, lambda: model.prefill(params, batch["tokens"],
+                                     vision_embeds=vis))
+    peak = torch.cuda.max_memory_allocated()
+    n = cfg.n_layers
+    expect = {**_no_launches(), "flash_fwd": n, "flash_fwd_tc": n}
+    check(counts == expect, f"prefill_llava_next_34b: launched {counts}, "
+                            f"the model implies {expect}")
+    check(logits.shape == (B, cfg.vocab) and bool(torch.isfinite(
+        logits).all()), "prefill_llava_next_34b: finite logits [2, vocab]")
+    prof = _profile_prefill(torch, lambda: model.prefill(
+        params, batch["tokens"], vision_embeds=vis))
+    with torch.no_grad():
+        loss = float(model.loss_fn(params, batch, remat=False))
+        h = TF.forward(params, cfg, batch["tokens"], vis, remat=False)
+        text = float(chunked_xent(h[:, V:], params["unembed"],
+                                  batch["targets"]))
+    del h
+    check(np.isfinite(loss) and loss == text,
+          f"prefill_llava_next_34b: the loss {loss} is the NLL of the text "
+          f"slice {text}")
+    card_cpu = _family_card_vs_cpu(
+        torch, *_family_model(torch, "llava_next_34b", seed + 42,
+                              n_layers=2),
+        {"tokens": batch["tokens"][:1, :LLAVA_CPU[1]],
+         "vision_embeds": vis[:1, :LLAVA_CPU[0]]})
+    rec = {"arch": cfg.name, "params": _n_params(params), "layers": n,
+           "reduced": f"depth 60 -> {n} layers (full depth is 68.7 GB of "
+                      f"bf16 weights)",
+           "batch": B, "vision_tokens": V, "text_tokens": S,
+           "launches": counts, "wall_ms": wall, "device_ms": dev_ms,
+           "tokens_per_s": B * (V + S) / wall * 1e3,
+           "max_memory_allocated": peak, "profile": prof,
+           "text_slice_loss": loss,
+           "card_vs_cpu": {**card_cpu, "vision_tokens": LLAVA_CPU[0],
+                           "text_tokens": LLAVA_CPU[1],
+                           "tolerance": LLAVA_CPU_TOL}}
+    results["prefill_llava_next_34b"] = rec
+    emit("path:prefill_llava_next_34b", **rec)
+    check(card_cpu["max_abs_logit_diff"] <= LLAVA_CPU_TOL,
+          f"prefill_llava_next_34b card vs CPU: max |Δlogit| "
+          f"{card_cpu['max_abs_logit_diff']} within {LLAVA_CPU_TOL}")
+
+
 def main() -> int:
     global CARD
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4661,6 +5190,15 @@ def main() -> int:
     phase_train_zamba2(torch, results, zamba)
     phase_train_card_vs_cpu(torch, args.seed, results)
     phase_train_loop(torch, results)
+    moe = phase_prefill_granite_moe(torch, args.seed, results)
+    phase_serve_granite_moe(torch, rng, results, moe)
+    phase_train_granite_moe(torch, results, moe)
+    del moe
+    whisper = phase_prefill_whisper_small(torch, args.seed, results)
+    phase_train_whisper_small(torch, results, whisper)
+    del whisper
+    torch.cuda.empty_cache()
+    phase_prefill_llava_next_34b(torch, args.seed, results)
     hb = results["hash_balance"]
 
     def scan_row(name, n, path, launches, replaces, **extra):
@@ -4763,23 +5301,48 @@ def main() -> int:
 
     def model_row(name, path_launches, replaces, key):
         r = results[name][0]                     # the prefill path's shape
+        by_path = {"prefill_zamba2": path_launches, **train_paths(key)}
+        if key == "flash_fwd":
+            by_path.update(family_paths(key))
         return {"name": name, "route": "cuda",
                 "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                "replaces": replaces, "path": "prefill_zamba2",
-                "shape": r["case"], "launches": path_launches,
-                "launches_by_path": {"prefill_zamba2": path_launches,
-                                     **train_paths(key)},
-                "matched_plain": True, "max_abs_err": r["max_abs_err"],
+                "replaces": replaces, "path": ", ".join(
+                    k for k, n in by_path.items() if n),
+                "shape": r["case"], "launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "matched_plain": True, "max_abs_err": max(
+                    c["max_abs_err"] for c in results[name]),
                 "ms": r["ms"], "plain_ms": r["plain_ms"],
                 "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-                "library_ms": r["library_ms"]}
+                "library_ms": r["library_ms"], **shapes_of(name)}
 
     def train_paths(key):
         return {"train_zamba2": train[key],
                 "train_card_vs_cpu": sum(cpu_runs[d]["launches"][key]
                                          for d in ("float32", "bfloat16")),
                 "train_loop": loop[key]}
+
+    def family_paths(key):
+        """A model kernel's launches on the moe, vlm and encdec paths
+        (each counted from 0 just before its run)."""
+        paths = {"train_granite_moe": results["train_granite_moe"],
+                 "train_whisper_small": results["train_whisper_small"]}
+        if key == "flash_fwd":
+            paths = {"prefill_granite_moe": results["prefill_granite_moe"],
+                     "prefill_whisper_small": results[
+                         "prefill_whisper_small"],
+                     "prefill_llava_next_34b": results[
+                         "prefill_llava_next_34b"], **paths}
+        return {k: r["launches"][key] for k, r in paths.items()}
+
+    def shapes_of(name):
+        """Every shape the kernel's phase held and timed."""
+        keys = ("ms", "device_ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "max_abs_err")
+        return {"by_shape": {c["case"]: {k: c.get(k) for k in keys}
+                             for c in results[name]}}
     fb, sb = results["flash_attention_bwd"][0], results["ssd_scan_bwd"]
+    bwd_paths = {**train_paths("flash_bwd"), **family_paths("flash_bwd")}
     kernels += [
         model_row("flash_attention", pre["flash_attention_launches"],
                   "src/repro/kernels/flash_attention/kernel.py:84",
@@ -4794,10 +5357,13 @@ def main() -> int:
          "replaces_note": "no Pallas backward: the reference differentiates "
                           "its jnp attention (_sdpa_chunked) with "
                           "jax.value_and_grad (repro/train/train_step.py:42)",
-         "path": "train_zamba2", "shape": fb["case"], "kernel": fb["kernel"],
-         "launches": train["flash_bwd"],
-         "launches_by_path": train_paths("flash_bwd"),
-         "wgmma_route_launches_by_path": train_paths("flash_bwd_tc"),
+         "path": "train_zamba2, train_card_vs_cpu, train_loop, "
+                 "train_granite_moe, train_whisper_small",
+         "shape": fb["case"], "kernel": fb["kernel"],
+         "launches": sum(bwd_paths.values()),
+         "launches_by_path": bwd_paths,
+         "wgmma_route_launches_by_path": {
+             **train_paths("flash_bwd_tc"), **family_paths("flash_bwd_tc")},
          "kernel_launches_profiled": fb["kernel_launches_profiled"],
          "matched_plain": True,
          "max_abs_err": fb["max_abs_err"], "ms": fb["ms"],
@@ -4805,7 +5371,8 @@ def main() -> int:
          "device_ms_by_kernel": fb["device_ms_by_kernel"],
          "ptxas": fb["ptxas"], "plain_ms": fb["plain_ms"],
          "bound_ms": fb["bound_ms"], "bound_by": fb["bound_by"],
-         "library_ms": fb["library_ms"], "library": fb["library"]},
+         "library_ms": fb["library_ms"], "library": fb["library"],
+         **shapes_of("flash_attention_bwd")},
         {"name": "ssd_scan_bwd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
          "replaces": "src/repro/models/ssm.py:46",

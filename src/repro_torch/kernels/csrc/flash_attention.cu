@@ -12,7 +12,9 @@
 //
 // Masks come from absolute positions, queries aligned to the END of the
 // keys (off = Lk - Lq): causal keeps kpos <= qpos, a window keeps
-// kpos > qpos - window.  Key tiles that the mask empties for the whole
+// kpos > qpos - window.  Without either (causal = 0, window <= 0) off is
+// never read and any Lq meets any Lk: the encoder's self-attention,
+// cross-attention and Lq > Lk.  Key tiles that the mask empties for the whole
 // query tile are never visited (the loop bounds), which halves causal
 // work and leaves O(window) keys per query tile.  A ragged edge (Lq or Lk
 // not a tile multiple) is masked here, not padded.  A row that sees no key

@@ -1,6 +1,8 @@
 // Flash attention backward: dq, dk, dv of flash_attention.cu's forward,
 // for its masks (causal with queries aligned to the end of the keys, a
-// sliding window, any Lq <= Lk, GQA), bf16 or f32, D in {32, 64, 128}.
+// sliding window, or none), any Lq and Lk (unmasked: the encoder's
+// self-attention, cross-attention, Lq > Lk; causal with Lq > Lk: the
+// first Lq - Lk rows see no key), GQA, bf16 or f32, D in {32, 64, 128}.
 //
 // The TPU package has no backward kernel: repro/train differentiates the
 // jnp attention (repro/models/layers.py:_sdpa_chunked) with jax.grad.  This

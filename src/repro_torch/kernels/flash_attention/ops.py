@@ -72,8 +72,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     window: Optional[int] = None) -> torch.Tensor:
     """q: [B, Hq, Lq, D]; k/v: [B, Hkv, Lk, D]; Hq % Hkv == 0 (GQA).
 
-    Returns [B, Hq, Lq, D] in q's dtype.  Queries align to the end of the
-    keys; any Lq <= Lk is taken (no block multiple).  A CUDA tensor goes
+    Returns [B, Hq, Lq, D] in q's dtype.  Any Lq and Lk are taken (no
+    block multiple).  Queries align to the end of the keys (query i sits
+    at position Lk - Lq + i) for the masks: ``causal`` keeps keys at or
+    before it, ``window`` the last ``window`` of those.  With
+    ``causal=False`` and no window nothing is masked and Lq and Lk are
+    free of each other (the encoder's self-attention, cross-attention,
+    Lq > Lk); a causal Lq > Lk leaves the first Lq - Lk queries with no
+    key, and their rows are 0.  A CUDA tensor goes
     to a CUDA kernel, which raises if it cannot be built or launched; a
     CPU tensor goes to the plain version.  When grad mode is on and an
     input requires a gradient, the call is differentiable through

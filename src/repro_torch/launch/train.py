@@ -10,13 +10,18 @@ step, so a replayed step sees the same batch), with AdamW through
 :func:`make_train_step`, checkpoints ``{"params", "opt"}`` in the
 reference's on-disk format every ``ckpt_every`` steps, and recovers from
 injected failures by restarting from the latest checkpoint
-(:func:`run_with_restarts`).  It runs on CUDA unless ``device="cpu"``.
+(:func:`run_with_restarts`).  The encdec family's frames and the vlm
+family's vision embeddings are drawn as the reference draws them
+(``numpy.random.default_rng(step)``, standard normal, rounded to bf16),
+so both packages train on the same inputs.  It runs on CUDA unless
+``device="cpu"``.
 """
 from __future__ import annotations
 
 import argparse
 import time
 
+import numpy as np
 import torch
 
 from ..configs import ArchConfig, get_config
@@ -26,6 +31,24 @@ from ..kernels.backend import resolve_device
 from ..models import build_model
 from ..train import adamw_init, make_train_step
 from ..tree import tree_map
+
+
+def stub_inputs(cfg, step: int, global_batch: int, device) -> dict:
+    """The stub modality inputs of ``step``, as the reference's loop draws
+    them (``repro/launch/train.py:47-56``): ``frames`` [B, enc_seq, d]
+    for encdec, ``vision_embeds`` [B, n_vision_tokens, d] for vlm,
+    ``default_rng(step).standard_normal`` rounded to bf16 (through f32,
+    as the reference's conversion rounds), on ``device``; {} for the
+    other families."""
+    key, n = {"encdec": ("frames", cfg.enc_seq),
+              "vlm": ("vision_embeds", cfg.n_vision_tokens)}.get(
+        cfg.family, (None, 0))
+    if key is None:
+        return {}
+    x = np.random.default_rng(step).standard_normal(
+        (global_batch, n, cfg.d_model))
+    return {key: torch.from_numpy(x.astype(np.float32)).to(
+        device=device, dtype=torch.bfloat16)}
 
 
 def train_loop(arch, *, reduced: bool = True, steps: int = 50,
@@ -42,11 +65,6 @@ def train_loop(arch, *, reduced: bool = True, steps: int = 50,
     cfg = arch if isinstance(arch, ArchConfig) else get_config(arch)
     if reduced and not isinstance(arch, ArchConfig):
         cfg = cfg.reduced()
-    if cfg.family in ("encdec", "vlm"):
-        # the reference feeds random frames / vision embeddings here
-        raise NotImplementedError(
-            f"the {cfg.family} family's inputs are not ported yet "
-            f"(ROADMAP.md, queue 1 item 9)")
     dev = resolve_device(device)
     model = build_model(cfg)
     pipe = GlobalOrderPipeline(seq_len, cfg.vocab, global_batch, device=dev)
@@ -64,6 +82,7 @@ def train_loop(arch, *, reduced: bool = True, steps: int = 50,
         state = tree_map(lambda t: t.to(dev), state)
         batch = pipe.batch_at_step(step)
         batch = {k: v for k, v in batch.items() if k != "sample_indices"}
+        batch.update(stub_inputs(cfg, step, global_batch, dev))
         p, opt, metrics = train_step(state["params"], state["opt"], batch)
         loss = float(metrics["loss"])
         losses.append((step, loss))

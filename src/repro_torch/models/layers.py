@@ -8,10 +8,14 @@ axes (the layer axis) without changing a parameter's fan-in.
 Prefill and training attention run through the flash-attention wrapper:
 the CUDA kernels on a CUDA tensor (forward, and the backward kernel where
 a gradient is asked for), the query-chunked plain versions on a CPU one.
-Decode keeps the reference's ring-buffer cache and its masks in plain
-torch (on the TPU too this was left to XLA): the cache is updated in
-place, one row per batch element at that row's own position.  The loss,
-:func:`chunked_xent`, never holds more than one chunk's logits.
+That covers causal self-attention, the encoder's bidirectional
+self-attention and cross-attention (:func:`cross_attention`, both with
+``causal=False``).  Decode keeps the reference's ring-buffer cache and its
+masks in plain torch (on the TPU too this was left to XLA): the cache is
+updated in place, one row per batch element at that row's own position;
+a decode step's cross-attention (one query against the encoder's keys)
+is plain torch too.  The loss, :func:`chunked_xent`, never holds more
+than one chunk's logits.
 """
 from __future__ import annotations
 
@@ -28,13 +32,15 @@ BF16 = torch.bfloat16
 
 
 # ---------------------------------------------------------------- inits ----
-def dense_init(gen: torch.Generator, shape, device, scale=None, lead=()):
-    """Normal x fan_in^-0.5 (or ``scale``) in bf16, as ``_dense_init``;
-    fan_in is ``shape[-2]`` (``shape[-1]`` for a vector)."""
+def dense_init(gen: torch.Generator, shape, device, scale=None, lead=(),
+               dtype=BF16):
+    """Normal x fan_in^-0.5 (or ``scale``) in ``dtype`` (bf16 unless asked),
+    as ``_dense_init``; fan_in is ``shape[-2]`` (``shape[-1]`` for a
+    vector)."""
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else fan_in ** -0.5
     return torch.randn(tuple(lead) + tuple(shape), generator=gen,
-                       device=device, dtype=BF16) * scale
+                       device=device, dtype=dtype) * scale
 
 
 def ones_init(shape, device, lead=(), dtype=BF16):
@@ -61,6 +67,19 @@ def rope(x, positions, theta: float = 1e6):
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
 
 
+def sinusoidal_pos(S: int, d: int, device=None, dtype=BF16):
+    """[S, d] positions (``layers.py:61-67``): sin on even columns, cos on
+    odd ones, frequencies exp(-9.21034 k / d), computed in f32 and
+    rounded to ``dtype`` (bf16, as the reference's)."""
+    pos = torch.arange(S, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32,
+                                 device=device) * (-9.21034 / d))
+    pe = torch.zeros(S, d, dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div[: d - d // 2])
+    return pe.to(dtype)
+
+
 # ------------------------------------------------------------- attention ---
 def init_attention(gen, cfg, device, lead=()):
     d, hd, H, KV = cfg.d_model, cfg.hd, cfg.n_heads, cfg.n_kv_heads
@@ -72,9 +91,12 @@ def init_attention(gen, cfg, device, lead=()):
 
 def attention(p, x, cfg, positions, causal: bool = True,
               window: Optional[int] = None, cache=None, cache_index=None):
-    """x: [B, S, d].  Returns [B, S, d].
+    """Self-attention (the reference's ``attention`` without
+    ``cross_kv``; :func:`cross_attention` is the rest).  x: [B, S, d].
+    Returns [B, S, d].
 
-    Without ``cache`` (prefill) the positions are ``arange(S)`` and the
+    Without ``cache`` (prefill, training, the encoder with
+    ``causal=False``) the positions are ``arange(S)`` and the
     flash-attention wrapper computes the attention.  With ``cache``
     (decode, S == 1): ``cache = {"k", "v"}`` of ``[B, KV, eff, hd]`` is a
     ring buffer (slot = position % eff) written in place at each row's
@@ -108,13 +130,43 @@ def attention(p, x, cfg, positions, causal: bool = True,
         m = m & (tpos[:, None, :] <= spos[:, :, None])
     if window is not None:
         m = m & (tpos[:, None, :] > spos[:, :, None] - window)
-    G = H // KV
-    qg = q.view(B, S, KV, G, hd).float()
+    return _attend_plain(q, kc, vc, m[:, None, None]) @ p["wo"]
+
+
+def _attend_plain(q, kc, vc, mask=None):
+    """Plain attention of q [B, S, H, hd] over kc, vc [B, KV, T, hd] in
+    f32 (GQA: query head h reads kv head h // (H // KV)); ``mask``
+    broadcasts against the scores [B, KV, G, S, T].  Returns
+    [B, S, H·hd] in q's type."""
+    B, S, H, hd = q.shape
+    KV = kc.shape[1]
+    qg = q.view(B, S, KV, H // KV, hd).float()
     s = torch.einsum("bskgd,bktd->bkgst", qg, kc.float()) * hd ** -0.5
-    s = torch.where(m[:, None, None], s, NEG_INF)
+    if mask is not None:
+        s = torch.where(mask, s, NEG_INF)
     pr = torch.softmax(s, -1)
     out = torch.einsum("bkgst,bktd->bskgd", pr, vc.float()).to(q.dtype)
-    return out.reshape(B, S, H * hd) @ p["wo"]
+    return out.reshape(B, S, H * hd)
+
+
+def cross_attention(p, x, cfg, cross_kv, decode: bool = False):
+    """The reference's ``attention(..., cross_kv=(k, v))``: queries of x
+    [B, S, d] against precomputed keys and values [B, T, KV, hd], with no
+    rope on either side and no mask.  The flash-attention wrapper takes it
+    with ``causal=False`` (any S against any T); a decode step
+    (``decode``, S = 1) runs it in plain torch, as decode's
+    self-attention.  Returns [B, S, d]."""
+    B, S, _ = x.shape
+    H, hd = cfg.n_heads, cfg.hd
+    q = (x @ p["wq"]).view(B, S, H, hd)
+    k, v = cross_kv
+    if decode:
+        out = _attend_plain(q, k.transpose(1, 2), v.transpose(1, 2))
+    else:
+        out = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
+                              v.transpose(1, 2), causal=False)
+        out = out.transpose(1, 2).reshape(B, S, H * hd)
+    return out @ p["wo"]
 
 
 # ----------------------------------------------------------------- mlp -----

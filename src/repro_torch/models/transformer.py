@@ -1,4 +1,4 @@
-"""Decoder-only LM for the dense, ssm and hybrid families.
+"""Decoder-only LM for the dense, moe, ssm, hybrid and vlm families.
 
 Counterpart of ``repro/models/transformer.py``.  Layers are STACKED on a
 leading axis, as in the reference, and run by a Python loop (the
@@ -8,10 +8,13 @@ in the backward instead of keeping its activations, as the reference's
 ``jax.checkpoint`` around its scan bodies; so is the hybrid's shared
 block.  Hybrid (Zamba2-style) models run the Mamba layers in segments of
 ``attn_every`` with ONE shared attention+FFN block after each full
-segment.  The decode cache is updated in place: ``decode_step`` returns
-the same dict it was given.  Activations take the parameters' type (bf16
-as initialised, like the reference; a float32 copy of the weights runs
-the same code in float32).  ``moe`` and ``vlm`` are not ported yet.
+segment.  ``moe`` blocks replace the MLP by :func:`moe.moe_ffn`, whose
+auxiliary loss the forward sums over the layers; ``vlm`` is the dense
+stack with stub vision embeddings placed ahead of the tokens.  The decode
+cache is updated in place: ``decode_step`` returns the same dict it was
+given.  Activations take the parameters' type (bf16 as initialised, like
+the reference; a float32 copy of the weights runs the same code in
+float32).
 """
 from __future__ import annotations
 
@@ -21,15 +24,10 @@ import torch
 import torch.nn.functional as F
 
 from . import layers as L
+from .moe import init_moe, moe_ffn
 from .ssm import init_mamba2, init_mamba_state, mamba2_block
 
-_NOT_PORTED = ("the {} family is not ported yet (ROADMAP.md, queue 1 "
-               "item 9)")
-
-
-def _check_family(cfg):
-    if cfg.family not in ("dense", "ssm", "hybrid"):
-        raise NotImplementedError(_NOT_PORTED.format(cfg.family))
+ATTN_FAMILIES = ("dense", "moe", "vlm")
 
 
 def _layer(tree, i: int):
@@ -42,19 +40,25 @@ def _layer(tree, i: int):
 # ------------------------------------------------------------------ init ---
 def _init_block(gen, cfg, device, lead):
     d = cfg.d_model
-    if cfg.family == "dense":
-        return {"ln1": L.ones_init((d,), device, lead),
-                "attn": L.init_attention(gen, cfg, device, lead),
-                "ln2": L.ones_init((d,), device, lead),
-                "mlp": L.init_mlp(gen, cfg, device, lead)}
+    if cfg.family in ATTN_FAMILIES:
+        p = {"ln1": L.ones_init((d,), device, lead),
+             "attn": L.init_attention(gen, cfg, device, lead),
+             "ln2": L.ones_init((d,), device, lead)}
+        if cfg.family == "moe":
+            p["moe"] = init_moe(gen, cfg, device, lead)
+        else:
+            p["mlp"] = L.init_mlp(gen, cfg, device, lead)
+        return p
+    if cfg.family not in ("ssm", "hybrid"):
+        raise ValueError(f"not a decoder-only family: {cfg.family}")
     return {"ln1": L.ones_init((d,), device, lead),
             "mamba": init_mamba2(gen, cfg, device, lead)}
 
 
 def init_lm(gen: torch.Generator, cfg, device) -> Dict[str, Any]:
     """Random parameters of the reference's shapes and scales, bf16 apart
-    from the Mamba blocks' f32 ``A_log``, ``D`` and ``dt_bias``."""
-    _check_family(cfg)
+    from the Mamba blocks' f32 ``A_log``, ``D`` and ``dt_bias`` and the
+    MoE router (f32)."""
     d = cfg.d_model
     p: Dict[str, Any] = {
         "embed": L.dense_init(gen, (cfg.vocab, d), device, scale=0.02),
@@ -73,12 +77,18 @@ def init_lm(gen: torch.Generator, cfg, device) -> Dict[str, Any]:
 
 # --------------------------------------------------------------- forward ---
 def _attn_block(p, h, cfg, positions, cache=None, cache_index=None):
+    """(h, aux): the block's output and its MoE auxiliary loss (0 for an
+    MLP block)."""
     x = L.rms_norm(h, p["ln1"], cfg.norm_eps)
     h = h + L.attention(p["attn"], x, cfg, positions, causal=True,
                         window=cfg.window, cache=cache,
                         cache_index=cache_index)
     x = L.rms_norm(h, p["ln2"], cfg.norm_eps)
-    return h + L.mlp(p["mlp"], x)
+    if "moe" in p:
+        y, aux = moe_ffn(p["moe"], x, cfg)
+    else:
+        y, aux = L.mlp(p["mlp"], x), h.new_zeros((), dtype=torch.float32)
+    return h + y, aux
 
 
 def _mamba_layer(p, h, cfg, cache=None, i=None):
@@ -98,20 +108,32 @@ def _cache_index(cache_index, B: int, device) -> torch.Tensor:
     return ci.expand(B) if ci.dim() == 0 else ci
 
 
-def forward(params, cfg, tokens, cache=None, cache_index=None,
-            remat: bool = True):
-    """tokens: [B, S] int.  Returns the final-normed hidden [B, S, d].
+def forward(params, cfg, tokens, vision_embeds=None, cache=None,
+            cache_index=None, remat: bool = True):
+    """tokens: [B, S] int.  Returns the final-normed hidden [B, S', d];
+    :func:`forward_aux` also returns the summed MoE auxiliary loss."""
+    return forward_aux(params, cfg, tokens, vision_embeds, cache,
+                       cache_index, remat)[0]
 
-    Without ``cache`` this is the prefill or the training forward
-    (positions ``arange(S)``; the attention and SSD kernels run here);
-    ``remat`` checkpoints each layer body when grad mode is on.  With
-    ``cache`` (see :func:`init_cache`) it is one decode step at
+
+def forward_aux(params, cfg, tokens, vision_embeds=None, cache=None,
+                cache_index=None, remat: bool = True):
+    """The reference's ``forward``: ``(hidden [B, S', d], aux)``, aux the
+    f32 sum over the layers of the MoE auxiliary loss (0 without MoE).
+
+    ``vision_embeds`` [B, n_vis, d] (vlm prefill and training) go ahead of
+    the tokens' embeddings, S' = n_vis + S, with positions over the whole
+    sequence.  Without ``cache`` this is the prefill or the training
+    forward (positions ``arange(S')``; the attention and SSD kernels run
+    here); ``remat`` checkpoints each layer body when grad mode is on.
+    With ``cache`` (see :func:`init_cache`) it is one decode step at
     ``cache_index`` (a scalar or one position per row, ``[B]``), and
     ``cache`` is updated in place.
     """
-    _check_family(cfg)
     # a gather whose backward sums rows without float atomics
     h = F.embedding(tokens, params["embed"])
+    if vision_embeds is not None:
+        h = torch.cat([vision_embeds.to(h.dtype), h], 1)
     B, S, _ = h.shape
     ar = torch.arange(S, device=h.device)
     ci = None
@@ -122,18 +144,20 @@ def forward(params, cfg, tokens, cache=None, cache_index=None,
         ci = _cache_index(cache_index, B, h.device)
         positions = ci[:, None] + ar
     layers = params["layers"]
+    aux = h.new_zeros((), dtype=torch.float32)
 
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         for i in range(cfg.n_layers):
             c = None if cache is None else {"k": cache["k"][i],
                                             "v": cache["v"][i]}
-            h = L.remat_call(remat, _attn_block, _layer(layers, i), h,
-                             cfg, positions, c, ci)
+            h, a = L.remat_call(remat, _attn_block, _layer(layers, i), h,
+                                cfg, positions, c, ci)
+            aux = aux + a
     elif cfg.family == "ssm":
         for i in range(cfg.n_layers):
             h = L.remat_call(remat, _mamba_layer, _layer(layers, i), h,
                              cfg, cache, i)
-    else:   # hybrid: segments of attn_every Mamba layers + the shared block
+    elif cfg.family == "hybrid":   # attn_every Mamba layers + shared block
         k = cfg.attn_every
         for s in range(-(-cfg.n_layers // k)):
             lo, hi = s * k, min((s + 1) * k, cfg.n_layers)
@@ -143,9 +167,12 @@ def forward(params, cfg, tokens, cache=None, cache_index=None,
             if hi == (s + 1) * k:   # a full segment: the shared block
                 c = None if cache is None else {"k": cache["shared_k"][s],
                                                 "v": cache["shared_v"][s]}
-                h = L.remat_call(remat, _attn_block, params["shared"], h,
-                                 cfg, positions, c, ci)
-    return L.rms_norm(h, params["final_ln"], cfg.norm_eps)
+                h, a = L.remat_call(remat, _attn_block, params["shared"],
+                                    h, cfg, positions, c, ci)
+                aux = aux + a
+    else:
+        raise ValueError(f"not a decoder-only family: {cfg.family}")
+    return L.rms_norm(h, params["final_ln"], cfg.norm_eps), aux
 
 
 def _logits(params, cfg, h):
@@ -154,26 +181,30 @@ def _logits(params, cfg, h):
     return (h[:, -1] @ w.to(h.dtype)).float()
 
 
-def prefill(params, cfg, tokens):
+def prefill(params, cfg, tokens, vision_embeds=None):
     """The dry-run's prefill (``repro/launch/dryrun.py:109-121``): the
-    forward over the whole prompt, then the last token's logits
-    ``[B, V]`` in f32."""
-    return _logits(params, cfg, forward(params, cfg, tokens, remat=False))
+    forward over the whole prompt (vision embeddings first, for vlm),
+    then the last position's logits ``[B, V]`` in f32."""
+    return _logits(params, cfg, forward(params, cfg, tokens, vision_embeds,
+                                        remat=False))
 
 
 # ------------------------------------------------------------------ loss ---
 def lm_loss(params, cfg, batch, remat: bool = True):
     """Training loss (``transformer.py:216``): batch ``tokens`` and
-    ``targets`` [B, S] (``valid`` [B, S] bool optional).  The mean NLL of
-    :func:`layers.chunked_xent` plus 0.01 times the auxiliary loss, which
-    is 0 here (it is the MoE router's, and ``moe`` is not ported).  The
-    unembedding is rounded to bf16 whatever the weights' type, as the
-    reference's, and enters the product in ``h``'s type."""
-    h = forward(params, cfg, batch["tokens"], remat=remat)
+    ``targets`` [B, S] (``valid`` [B, S] bool optional; ``vision_embeds``
+    [B, n_vis, d] for vlm, whose positions take no loss).  The mean NLL of
+    :func:`layers.chunked_xent` on the text positions plus 0.01 times the
+    auxiliary loss (the MoE routers', summed over the layers; 0
+    otherwise).  The unembedding is rounded to bf16 whatever the weights'
+    type, as the reference's, and enters the product in ``h``'s type."""
+    ve = batch.get("vision_embeds")
+    h, aux = forward_aux(params, cfg, batch["tokens"], ve, remat=remat)
+    if ve is not None:
+        h = h[:, ve.shape[1]:]          # the loss on text positions only
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     nll = L.chunked_xent(h, w.to(L.BF16).to(h.dtype), batch["targets"],
                          batch.get("valid"))
-    aux = 0.0
     return nll + 0.01 * aux
 
 
@@ -181,12 +212,13 @@ def lm_loss(params, cfg, batch, remat: bool = True):
 def init_cache(cfg, batch: int, max_seq: int, device, dtype=L.BF16):
     """Decode cache of zeros.  Sliding-window attention caps the ring at
     the window (decode never reads past it)."""
-    _check_family(cfg)
     eff = min(max_seq, cfg.window) if cfg.window else max_seq
-    if cfg.family == "dense":
+    if cfg.family in ATTN_FAMILIES:
         shape = (cfg.n_layers, batch, cfg.n_kv_heads, eff, cfg.hd)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
+    if cfg.family not in ("ssm", "hybrid"):
+        raise ValueError(f"not a decoder-only family: {cfg.family}")
     st = init_mamba_state(cfg, batch, device, dtype)
     cache = {n: torch.zeros((cfg.n_layers,) + t.shape, dtype=t.dtype,
                             device=device) for n, t in st.items()}

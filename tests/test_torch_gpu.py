@@ -42,10 +42,16 @@ pytestmark = pytest.mark.gpu
 # twice the largest reading on an NVIDIA H100 80GB HBM3 at 700 W (the test
 # prints them; run with -s): zamba2 0.0088, mamba2 0.0039, llama3 0.0042;
 # at head dim 64 (the tensor-core flash route) zamba2 0.0068, llama3
-# 0.0098
+# 0.0098; granite-moe-1b 0.0059, llava-next-34b 0.0059 and whisper-small
+# 0.0078 (test_encdec_on_gpu_matches_cpu)
 GPU_CPU_LOGIT_TOL = {"zamba2_1p2b": 0.02, "mamba2_130m": 0.01,
                      "llama3_8b": 0.01, "zamba2_1p2b-d64": 0.02,
-                     "llama3_8b-d64": 0.02}
+                     "llama3_8b-d64": 0.02, "granite_moe_1b-d64": 0.012,
+                     "llava_next_34b-d64": 0.012, "whisper_small-d64": 0.016}
+# test_encdec_on_gpu_matches_cpu's bf16 loss and gradients (relative
+# Frobenius error of the worst leaf), card against CPU, about twice the
+# readings on the same card: 5.3e-5 and 0.0129 (dec_layers/cross_attn/wk)
+ENCDEC_LOSS_TOL, ENCDEC_GRAD_REL = 1.1e-4, 0.026
 
 
 @pytest.fixture
@@ -475,6 +481,15 @@ def test_elastic_priority_300_tiers_on_gpu_matches_cpu(cuda):
     (1, 4, 4, 64, 64, 128, True, 16, torch.bfloat16),
     (1, 2, 1, 130, 200, 64, False, None, torch.bfloat16),
     (1, 4, 4, 40, 40, 64, True, None, torch.bfloat16),      # scalar route
+    # the moe, vlm and encdec families' shapes, cut in length: whisper's
+    # encoder (not causal, 1,500 keys: no tile multiple), its
+    # cross-attention (448 queries against 1,500 keys), Lq > Lk unmasked,
+    # llava's 56 query heads over 8 at D 128 (G 7), granite-moe's G 2
+    (1, 4, 4, 1500, 1500, 64, False, None, torch.bfloat16),
+    (2, 4, 4, 448, 1500, 64, False, None, torch.bfloat16),
+    (1, 4, 4, 1000, 300, 64, False, None, torch.bfloat16),
+    (1, 14, 2, 300, 300, 128, True, None, torch.bfloat16),
+    (1, 16, 8, 256, 256, 64, True, None, torch.bfloat16),
 ])
 def test_flash_attention_kernel_matches_plain(cuda, case):
     """The kernel against its plain version on the same CUDA tensors, q in
@@ -550,6 +565,8 @@ def _to(tree, dev):
     # head dim 64: the bf16 prefill takes the tensor-core flash kernel
     pytest.param("zamba2_1p2b", 64, id="zamba2_1p2b-d64"),
     pytest.param("llama3_8b", 64, id="llama3_8b-d64"),
+    pytest.param("granite_moe_1b", 64, id="granite_moe_1b-d64"),
+    pytest.param("llava_next_34b", 64, id="llava_next_34b-d64"),
 ])
 def test_model_on_gpu_matches_cpu(cuda, request, arch, head_dim):
     """A reduced model on the card (both kernels) against the same model
@@ -570,8 +587,8 @@ def test_model_on_gpu_matches_cpu(cuda, request, arch, head_dim):
     tc0 = flash_attention.tc_launches
     got = model.prefill(gparams, toks.to(cuda))
     n_attn = {"hybrid": cfg.n_layers // max(cfg.attn_every, 1),
-              "ssm": 0, "dense": cfg.n_layers}[cfg.family]
-    n_ssd = 0 if cfg.family == "dense" else cfg.n_layers
+              "ssm": 0}.get(cfg.family, cfg.n_layers)
+    n_ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
     assert flash_attention.launches - f0 == n_attn
     assert flash_attention.tc_launches - tc0 == (n_attn if head_dim == 64
                                                  else 0)
@@ -588,6 +605,70 @@ def test_model_on_gpu_matches_cpu(cuda, request, arch, head_dim):
         gaps.append(float((gl.cpu() - cl).abs().max()))
     print(f"{case}: max |Δlogit| card vs CPU, prefill then decode: {gaps}")
     assert max(gaps) < GPU_CPU_LOGIT_TOL[case], gaps
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree)
+                for x in _named_leaves(tree[k], f"{prefix}/{k}")]
+    return [(prefix, tree)]
+
+
+def test_encdec_on_gpu_matches_cpu(cuda):
+    """Reduced whisper-small at head dim 64 on the card against the CPU:
+    the prefill (encoder: bidirectional flash over 100 frames; decoder:
+    causal flash and cross-attention flash, all on the tensor-core
+    route), a training step's loss and gradients (the backward kernels,
+    cross-attention's dk and dv over every frame), and four decode steps
+    against the same encoder states."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    cfg = get_config("whisper_small").reduced(head_dim=64, enc_seq=100)
+    model = build_model(cfg)
+    params = model.init_params(0, device="cpu")
+    gparams = _to(params, cuda)
+    g = torch.Generator().manual_seed(0)
+    frames = torch.randn(2, cfg.enc_seq, cfg.d_model, generator=g)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 81)))
+    tc0 = flash_attention.tc_launches
+    got = model.prefill(gparams, toks[:, :80].to(cuda),
+                        frames=frames.to(cuda))
+    n_attn = cfg.enc_layers + 2 * cfg.n_layers
+    assert flash_attention.tc_launches - tc0 == n_attn
+    want = model.prefill(params, toks[:, :80], frames=frames)
+    gaps = [float((got.cpu() - want).abs().max())]
+    genc, cenc = model.encode(gparams, frames.to(cuda)), model.encode(
+        params, frames)
+    gc = model.init_cache(2, 8, device=cuda)
+    cc = model.init_cache(2, 8, device="cpu")
+    for t in range(4):
+        gl, gc = model.decode_fn(gparams, gc, toks[:, t:t + 1].to(cuda), t,
+                                 enc_out=genc)
+        cl, cc = model.decode_fn(params, cc, toks[:, t:t + 1], t,
+                                 enc_out=cenc)
+        gaps.append(float((gl.cpu() - cl).abs().max()))
+    from repro_torch.train.train_step import value_and_grad
+    b0 = flash_attention.bwd_tc_launches
+    runs = []
+    for p, dev in ((gparams, cuda), (params, "cpu")):
+        batch = {"frames": frames.to(dev), "tokens": toks[:, :80].to(dev),
+                 "targets": toks[:, 1:].to(dev)}
+        runs.append(value_and_grad(model, p, batch))
+        if dev == cuda:
+            assert flash_attention.bwd_tc_launches - b0 == n_attn
+    loss_gap = abs(float(runs[0][0]) - float(runs[1][0]))
+    rel = {k: float((a.float().cpu() - b.float()).norm()
+                    / b.float().norm())
+           for (k, a), (_, b) in zip(_named_leaves(runs[0][1]),
+                                     _named_leaves(runs[1][1]))}
+    worst = max(rel, key=rel.get)
+    print(f"whisper_small-d64: max |Δlogit| card vs CPU, prefill then "
+          f"decode: {gaps}; loss gap {loss_gap}; worst gradient {worst} "
+          f"{rel[worst]}")
+    assert max(gaps) < GPU_CPU_LOGIT_TOL["whisper_small-d64"], gaps
+    assert loss_gap < ENCDEC_LOSS_TOL
+    assert rel[worst] < ENCDEC_GRAD_REL, worst
 
 
 # ------------------------------------------------------------------ Seap --
@@ -1031,6 +1112,13 @@ def test_hashing_and_synthetic_tokens_on_gpu_match_cpu(cuda):
     (1, 4, 2, 250, 389, 128, True, None, torch.bfloat16),
     (1, 4, 2, 64, 64, 64, True, None, torch.bfloat16),        # one tile
     (1, 2, 2, 300, 300, 64, False, None, torch.bfloat16),     # not causal
+    # the moe, vlm and encdec families' shapes, cut in length (as in the
+    # forward's cases): dk and dv over every one of the 1,500 keys
+    (1, 4, 4, 1500, 1500, 64, False, None, torch.bfloat16),
+    (2, 4, 4, 448, 1500, 64, False, None, torch.bfloat16),
+    (1, 4, 4, 1000, 300, 64, False, None, torch.bfloat16),
+    (1, 14, 2, 300, 300, 128, True, None, torch.bfloat16),
+    (1, 16, 8, 512, 512, 64, True, None, torch.bfloat16),
 ])
 def test_flash_attention_bwd_kernel_matches_plain(cuda, case):
     """The backward kernel's dq, dk, dv against the plain chunked backward

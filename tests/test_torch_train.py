@@ -155,17 +155,6 @@ def test_loss_masks_invalid_positions():
     assert abs(got - want) < LOSS_TOL["llama3_8b"]
 
 
-def test_unported_families_raise():
-    for arch in ("granite_moe_1b", "llava_next_34b", "whisper_small"):
-        model = build_model(get_config(arch).reduced())
-        with pytest.raises(NotImplementedError, match="item 9"):
-            model.loss_fn({}, {"tokens": torch.zeros(1, 4, dtype=torch.int64),
-                               "targets": torch.zeros(1, 4,
-                                                      dtype=torch.int64)})
-        with pytest.raises(NotImplementedError, match="item 9"):
-            train_loop(arch, steps=1, device="cpu")
-
-
 @pytest.mark.parametrize("step", [0, 99, 100, 5_000, 10_000])
 def test_cosine_lr_matches_jax(step):
     got = float(cosine_lr(torch.tensor(step, dtype=torch.int32)))
