@@ -80,6 +80,19 @@ size:
   seed in both), its admission order, served requests and deadline
   misses against the one-process run's, its tokens equal in the two
   processes (this script re-run with ``--dist-child``);
+* wavecheck in torch terms (``repro_torch.analysis.run_all``) at the
+  queue cells' full width, 64 shards x 1,024 ops and bursts of 16: the 43
+  wave programs of the four disciplines (steps, sequential and pipelined
+  bursts, the metrics ring, the ladder widths 256 and 512; the priority
+  programs with relaxation 1), the seed wave, two ``SimRuntime`` twins
+  and the four migrations, each call's exchanges and gathers counted at
+  the runtime seam against its budget, its store held in place and a
+  migration's old store released; the rebuild bounce at 64 shards on a
+  pool of 80 (JOIN 16, LEAVE 16) rebuilding nothing the second time; the
+  int32 and AST lints; then the four remaining examples on the card,
+  the queue examples' lines against the same runs on the CPU, beside
+  ``python -m repro_torch.analysis --all`` and ``--selftest`` at 8
+  shards;
 * training: the flash-attention backward kernels (the wgmma route for
   bf16 at D 64 and 128) and the SSD scan's backward kernel against their
   plain versions at the training shape and others, two calls bit for
@@ -4042,6 +4055,207 @@ def phase_distributed(torch, seed: int, results):
         emit(f"path:distributed_{kind}", **rec)
 
 
+# ----------------------------------------------------- wavecheck, examples --
+# the queue cells' full width (PERF.md section 4): 64 shards x 1,024 ops a
+# shard (the ladder {256, 512, 1,024}: 43 programs), bursts of 8 (cut from
+# the cells' 16 to halve the CPU replay of the narrower bursts; PERF.md 6)
+WAVECHECK_SIZES = {"n_shards": 64, "L": 1_024, "W": 4, "K": 8,
+                   "n_prios": 4, "n_buckets": 8, "slot_depth": 4,
+                   "caps": {"queue": 65_536, "stack": 32_768,
+                            "priority": 16_384, "seap": 16_384},
+                   "relaxation": 1, "repeats": 3}
+# the rebuild bounce at 64 shards on a pool of 80, JOIN 16 and LEAVE 16
+WAVECHECK_BOUNCE = {"n_shards": 64, "pool": 80, "grow_by": 16,
+                    "cap": 65_536, "W": 4, "L": 1_024, "K_a": 16, "K_b": 8}
+WAVECHECK_PROGRAMS = 43
+EXAMPLES = ("observability", "priority_serving", "seap_deadlines",
+            "serve_queue")
+
+
+def _cli(args) -> subprocess.Popen:
+    """A Python subprocess of the repository, one torch CPU thread: up to
+    seven run together on the machine's cores."""
+    return subprocess.Popen([sys.executable, *args], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True,
+                            env={**os.environ, "PYTHONPATH": str(SRC),
+                                 "OMP_NUM_THREADS": "1"})
+
+
+def _wait(proc, timeout: int, what: str):
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise AssertionError(f"check failed: {what} ran over {timeout} s")
+    check(proc.returncode == 0,
+          f"{what} exited {proc.returncode}: {err[-3000:]}")
+    return out, err
+
+
+def phase_wavecheck(torch, results):
+    """wavecheck in torch terms (``repro_torch.analysis.run_all``) at the
+    queue cells' full width: every wave program of the four disciplines
+    (the priority programs with relaxation 1, so the relaxed kernel runs),
+    the seed wave, the SimRuntime twins and the four migrations, each call
+    counted through the runtime seam against its budget (2 exchanges a
+    step, K + 1 a pipelined burst, 2K a sequential one, 5 the seed wave, 1
+    a migration, no gather on one process), its store held in place, and
+    the rebuild bounce (64 shards on a pool of 80, JOIN 16, LEAVE 16)
+    rebuilding nothing the second time; the last call of each of the 16
+    narrower-wave programs (``[compact:w256]``, ``[compact:w512]``: waves
+    of 16,384 and 32,768 ops) replayed on the CPU from the same state and
+    ops, every output and state field equal (the junk slot aside).  Zero
+    violations; each queue kernel launched.  Then ``python -m
+    repro_torch.analysis --all`` and ``--selftest`` at 8 shards on the
+    card, two subprocesses side by side (``path:wavecheck_cli``)."""
+    from repro_torch.analysis import run_all
+    from repro_torch.analysis.seam import KERNELS, kernel_launches
+    from repro_torch.dqueue.wave_engine import bucket_ladder
+    from repro_torch.kernels.relaxed import relaxed_deletemin
+    from repro_torch.kernels.segscan import (queue_scan, stack_scan,
+                                             tiered_queue_scan)
+    sz = WAVECHECK_SIZES
+    for fn in (queue_scan, stack_scan, tiered_queue_scan, relaxed_deletemin):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    rep = run_all(device="cuda", recompile=WAVECHECK_BOUNCE, **sz)
+    wall_s = time.perf_counter() - t0
+    launches = kernel_launches()
+    check(rep["passed"], f"path:wavecheck: {rep['n_violations']} "
+                         f"violations: {rep['violations'][:4]}")
+    progs = rep["programs"]
+    check(len(progs) == WAVECHECK_PROGRAMS,
+          f"path:wavecheck: {len(progs)} programs, not "
+          f"{WAVECHECK_PROGRAMS}")
+    K = sz["K"]
+    for name, p in progs.items():
+        ex = p["collectives"]["exchange"]
+        want = (5 if "legacy" in name else 1 if "migration" in name
+                else K + 1 if "run_waves[pipe" in name
+                else 2 * K if "run_waves[seq]" in name else 2)
+        check(ex == want and p["collectives"]["gather"] == 0,
+              f"path:wavecheck {name}: {p['collectives']}, want {want} "
+              f"exchanges and no gather")
+    rg = rep["recompile_guard"]
+    check(rg["warm_rebuilds"] > 0 and rg["second_bounce_rebuilds"] == 0,
+          f"path:wavecheck: rebuild bounce {rg}")
+    check(all(launches[k] > 0 for k in KERNELS),
+          f"path:wavecheck launched every queue kernel: {launches}")
+    narrow = bucket_ladder(sz["L"])[:-1]          # 256, 512 at full width
+    replayed = {n: p["cpu_replay"] for n, p in progs.items()
+                if "cpu_replay" in p}
+    check(len(replayed) == 4 * 2 * len(narrow)
+          and set(replayed.values()) == {"equal"}
+          and all("compact:" in n for n in replayed),
+          f"path:wavecheck: the narrower waves equal to the CPU's: "
+          f"{replayed}")
+    full = f"w{sz['L']}"
+    ladder = {kind: {
+        "step_ms": {**{f"w{w}": progs[f"{kind}.step[compact:w{w}]"][
+            "wall_ms"] for w in narrow},
+            full: progs[f"{kind}.step"]["wall_ms"]},
+        "pipelined_burst_ms": {**{
+            f"w{w}": progs[f"{kind}.run_waves[pipe,compact:w{w}]"][
+                "wall_ms"] for w in narrow},
+            full: progs[f"{kind}.run_waves[pipe]"]["wall_ms"]}}
+        for kind in ("queue", "stack", "priority", "seap")}
+    rec = {"sizes": {**sz, "bounce": WAVECHECK_BOUNCE},
+           "programs": {n: {"exchange": p["collectives"]["exchange"],
+                            "gather": p["collectives"]["gather"],
+                            "launches": p["launches"],
+                            "wall_ms": p["wall_ms"],
+                            "held": p["held"],
+                            "donated_leaves": p["donated_leaves"],
+                            **{k: p[k] for k in ("cpu_replay_ms",)
+                               if k in p}}
+                        for n, p in progs.items()},
+           "ladder_wall_ms": ladder,
+           "recompile_guard": rg,
+           "int32_overflow": rep["int32_overflow"],
+           "repo_ast_files": len(rep["repo_ast"]["files_checked"]),
+           "cpu_replayed": sorted(replayed),
+           "launches": launches, "wall_s": wall_s}
+    results["wavecheck"] = rec
+    emit("path:wavecheck", **rec)
+
+    # the CLI at the reference's shape and the mutation self-test: 35
+    # programs with no violation, at least 3 rule families tripped,
+    # collective_budget and donation among them
+    t0 = time.perf_counter()
+    procs = {k: _cli(["-m", "repro_torch.analysis", f"--{k}", "--device",
+                      "cuda", "--shards", "8"]) for k in ("all", "selftest")}
+    cli = {k: _wait(p, 600, f"python -m repro_torch.analysis --{k}")
+           for k, p in procs.items()}
+    rep8 = json.loads(cli["all"][0])
+    check(rep8["passed"] and len(rep8["programs"]) == 35
+          and rep8["device"].startswith("cuda"),
+          f"wavecheck --all at 8 shards on the card: "
+          f"{rep8['violations'][:4]}, {len(rep8['programs'])} programs")
+    st = json.loads(cli["selftest"][0])
+    check(st["passed"] and st["n_tripped"] >= 3
+          and {"collective_budget", "donation"} <= set(st["tripped_rules"]),
+          f"wavecheck --selftest on the card: {st['tripped_rules']}")
+    rec = {"all_8_shards": cli["all"][1].strip().splitlines()[-1],
+           "selftest": cli["selftest"][1].strip().splitlines()[-1],
+           "selftest_tripped": st["tripped_rules"],
+           "programs_8_shards": len(rep8["programs"]),
+           "wall_s": time.perf_counter() - t0}
+    results["wavecheck_cli"] = rec
+    emit("path:wavecheck_cli", **rec)
+
+
+def phase_examples(torch, results):
+    """The port's four examples on the card (``examples/torch_*.py``, the
+    default device), all started together with the three queue examples
+    again on the CPU (``--device cpu``), each with a timeout; each must
+    exit 0, and every line a queue example prints on the card must be
+    the CPU run's but the two that carry a wall time or a path
+    ("[device]", "[trace]"): served orders and tiers, relaxed serves, the
+    Seap directory's boundaries, EDF start steps, metrics rows, the
+    overflow ramp.  ``serve_queue`` draws its random weights on the
+    device, so its tokens differ by device: it must serve all 10
+    requests in FIFO admission order.  The observability example's trace
+    goes under ``build/``."""
+    t0 = time.perf_counter()
+    (ROOT / "build").mkdir(exist_ok=True)
+    procs = {}
+    for name in EXAMPLES:
+        script = str(ROOT / "examples" / f"torch_{name}.py")
+        card, cpu = [script], [script, "--device", "cpu"]
+        if name == "observability":
+            trace = ROOT / "build" / "wavescope_trace"
+            card += ["--trace", f"{trace}_card.json"]
+            cpu += ["--trace", f"{trace}_cpu.json"]
+        procs[name, "card"] = _cli(card)
+        if name != "serve_queue":
+            procs[name, "cpu"] = _cli(cpu)
+    outs = {(name, where): _wait(p, 300, f"examples/torch_{name}.py on the "
+                                         f"{where}")[0]
+            for (name, where), p in procs.items()}
+    rec = {}
+    for name in EXAMPLES:
+        out = outs[name, "card"]
+        rec[name] = {"lines": len(out.splitlines()),
+                     "last": out.strip().splitlines()[-1]}
+        if name == "serve_queue":
+            check("served 10/10 requests" in out and "on cuda" in out
+                  and "order preserved: True" in out,
+                  f"examples/torch_serve_queue.py on the card: {out}")
+            continue
+        card, cpu = ([ln for ln in o.splitlines()
+                      if not ln.lstrip().startswith(("[device]", "[trace]"))]
+                     for o in (out, outs[name, "cpu"]))
+        check(card == cpu and len(card) >= 8,
+              f"examples/torch_{name}.py: the card's lines are the CPU's: "
+              f"{[a for a, b in zip(card, cpu) if a != b][:3]}")
+        rec[name]["lines_equal_to_cpu"] = len(card)
+    rec["wall_s"] = time.perf_counter() - t0
+    results["examples"] = rec
+    emit("path:examples", **rec)
+
+
 def phase_distributed_serve(torch, seed: int, results):
     """The EDF engine of ``path:serve_edf_zamba2`` in two processes on the
     card (4 of its 8 queue shards each; zamba2-1.2b from the same seed in
@@ -5175,6 +5389,8 @@ def main() -> int:
     phase_workqueue(torch, rng, results)
     phase_sim_runtime(torch, rng, results)
     phase_distributed(torch, args.seed, results)
+    phase_wavecheck(torch, results)
+    phase_examples(torch, results)
     phase_profile(torch, rng, results)
     phase_scan_device_split(torch, rng, results)
     phase_hash_balance(torch, rng, results)
@@ -5231,7 +5447,8 @@ def main() -> int:
             "tiered_queue_scan"],
         **{p: two(p, "tiered_queue_scan") for p in (
             "distributed_priority", "distributed_relaxed",
-            "distributed_seap", "distributed_serve_edf_zamba2")}}
+            "distributed_seap", "distributed_serve_edf_zamba2")},
+        "wavecheck": results["wavecheck"]["launches"]["tiered_queue_scan"]}
     # the FIFO, stack and hash-route kernels' launches on each path that
     # runs them
     replay = {mode: r["launches"]
@@ -5241,11 +5458,13 @@ def main() -> int:
         "workqueue": results["workqueue"]["queue_scan_launches"],
         "sim_runtime": results["sim_runtime"]["queue_scan_launches"],
         "distributed_fifo": two("distributed_fifo", "queue_scan"),
-        "protocol_replay": replay["queue"]["queue_scan"]}
+        "protocol_replay": replay["queue"]["queue_scan"],
+        "wavecheck": results["wavecheck"]["launches"]["queue_scan"]}
     lifo_paths = {
         "elastic_lifo": results["elastic_lifo"]["stack_scan_launches"],
         "distributed_lifo": two("distributed_lifo", "stack_scan"),
-        "protocol_replay": replay["stack"]["stack_scan"]}
+        "protocol_replay": replay["stack"]["stack_scan"],
+        "wavecheck": results["wavecheck"]["launches"]["stack_scan"]}
     hash_paths = {
         "hash_balance": hb["hash_route_launches"],
         "relaxed_priority": results["relaxed_priority"][
@@ -5257,7 +5476,8 @@ def main() -> int:
         "elastic_relaxed_priority": results["elastic_relaxed_priority"][
             "relaxed_deletemin_launches"],
         "distributed_relaxed": two("distributed_relaxed",
-                                   "relaxed_deletemin")}
+                                   "relaxed_deletemin"),
+        "wavecheck": results["wavecheck"]["launches"]["relaxed_deletemin"]}
     kernels = [
         scan_row("queue_scan", 65_536, ", ".join(fifo_paths),
                  sum(fifo_paths.values()),

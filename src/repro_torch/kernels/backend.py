@@ -82,6 +82,7 @@ def build(names=SOURCES) -> dict:
     Returns ``{name: {"seconds": float, "ptxas": str, "cached": bool}}``;
     ``ptxas`` is the compiler's per-kernel register and shared-memory
     report.  Raises with the compiler's output when a build fails.
+    ``build.compiled`` counts the libraries compiled (not found built).
     """
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     out, procs = {}, {}
@@ -101,9 +102,13 @@ def build(names=SOURCES) -> dict:
             raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
                                f"(exit {proc.returncode}):\n{log}")
         os.replace(tmp, path)
+        build.compiled += 1
         out[name] = {"seconds": time.perf_counter() - t0, "ptxas": log,
                      "cached": False}
     return out
+
+
+build.compiled = 0
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -1344,3 +1344,59 @@ def _flat(tree):
     if isinstance(tree, dict):
         return [x for k in sorted(tree) for x in _flat(tree[k])]
     return [tree]
+
+
+def test_wavecheck_run_all_on_gpu(cuda):
+    """wavecheck at the reference's shape on the card: every program
+    within its budget, held in place, rebuild-free the second time, each
+    wave program's step launching its discipline's scan once, and the 8
+    narrower-wave programs equal to their replay on the CPU."""
+    from repro_torch.analysis import run_all
+    rep = run_all(device="cuda", n_shards=8)
+    assert rep["passed"], rep["violations"]
+    progs = rep["programs"]
+    assert len(progs) == 35
+    scan = {"queue": "queue_scan", "stack": "stack_scan",
+            "priority": "tiered_queue_scan", "seap": "tiered_queue_scan"}
+    for kind, kernel in scan.items():
+        launches = progs[f"{kind}.step"]["launches"]
+        assert launches[kernel] == 1, (kind, launches)
+        assert sum(launches.values()) == 1, (kind, launches)
+        burst = progs[f"{kind}.run_waves[pipe]"]["launches"]
+        assert burst[kernel] == rep["sizes"]["K"], (kind, burst)
+    replayed = {n: p["cpu_replay"] for n, p in progs.items()
+                if "cpu_replay" in p}
+    assert len(replayed) == 8 and set(replayed.values()) == {"equal"}, \
+        replayed
+
+
+@pytest.mark.parametrize("kind", ["queue", "stack", "priority", "seap"])
+def test_state_held_in_place_after_pipelined_burst_on_gpu(cuda, kind):
+    """The store tensors of every discipline's state keep their storage
+    through a pipelined burst on the card (the port's donation)."""
+    from repro_torch.analysis.programs import STORE_FIELDS
+    n_sh, L, K = 8, 16, 4
+    make = {"queue": lambda: DeviceQueue(n_sh, cap=64, payload_width=2,
+                                         ops_per_shard=L, device="cuda"),
+            "stack": lambda: DeviceStack(n_sh, cap=64, payload_width=2,
+                                         ops_per_shard=L, device="cuda"),
+            "priority": lambda: DevicePriorityQueue(
+                n_sh, n_prios=3, cap=64, payload_width=2, ops_per_shard=L,
+                relaxation=1, device="cuda"),
+            "seap": lambda: DeviceSeapQueue(n_sh, n_buckets=4, cap=64,
+                                            payload_width=2,
+                                            ops_per_shard=L, device="cuda")}
+    q = make[kind]()
+    state = q.init_state()
+    before = {f: getattr(state, f).untyped_storage().data_ptr()
+              for f in STORE_FIELDS[kind]}
+    rng = np.random.default_rng(7)
+    n = n_sh * L
+    ops = [rng.random((K, n)) < 0.6, rng.random((K, n)) < 0.9]
+    if kind in ("priority", "seap"):
+        ops.append(rng.integers(0, 3, (K, n)).astype(np.int32))
+    ops.append(rng.integers(0, 99, (K, n, 2)).astype(np.int32))
+    state = q.run_waves(state, *(torch.from_numpy(x).cuda() for x in ops))[0]
+    after = {f: getattr(state, f).untyped_storage().data_ptr()
+             for f in STORE_FIELDS[kind]}
+    assert after == before, (kind, before, after)
