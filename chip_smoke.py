@@ -9,7 +9,9 @@ stated tolerance, and beside ``scaled_dot_product_attention``).  The
 single-pass FIFO, stack and tiered scans are also held at their tile's
 edges, at 2^24 + 1 ops and over 2,000 back-to-back calls, and must run
 one kernel per call by the profiler's kernel names (the tiered scan one
-per group of 256 tiers, by the profiler and by its wrapper's count); the
+per group of 256 tiers, by the profiler and by its wrapper's count), as
+must the hash route at the migrations' sizes (1 to 65,536 positions,
+each twice in a row) and at 2^24; the
 four queue kernels report their device ms per call from the
 profiler beside the wrapper's CUDA-event ms, which at one wave is mostly
 the host's.  Then it drives the port through its entry points at full
@@ -49,9 +51,11 @@ size:
   them; and the tier engine (4 tiers, relaxation 1) serving 16;
 * the relaxed tier resolution: its kernel against the plain host loop
   bit for bit (full waves at 4, 300 and 1,000 tiers, all ⊥, heads that
-  wrap at INT32_MAX), and the 64-shard priority queue with relaxation 1
-  at full width (one relaxed launch a wave) to a backlog above 1,000,000
-  through a LEAVE and a JOIN, beside the strict path's waves/s;
+  wrap at INT32_MAX mid-pass, 100 shards), its clock build's passes and
+  events against the walk model's and its cycles a step, and the
+  64-shard priority queue with relaxation 1 at full width (one relaxed
+  launch a wave) to a backlog above 1,000,000 through a LEAVE and a
+  JOIN, beside the strict path's waves/s;
 * Wavescope: the FIFO, priority and Seap queues at full size with the
   metrics ring, every row against the checked outputs, waves/s with the
   ring on and off in turns; ``python -m repro_torch.obs --smoke``; the
@@ -460,16 +464,26 @@ def phase_hash_route(torch, rng, results):
                "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
         results[("hash_route", n, n_shards)] = rec
         emit("kernel:hash_route", **rec)
-    # one launch's floor: the kernel at n = 1 and n = 1,024 beside the
-    # bytes bound, to set the migration's reading (n up to 65,536) against;
-    # their device ms come with the profiled phases (phase_scan_device_split)
+    # the migrations' sizes: n = 1 and 1,024 (one launch's floor), 39,102
+    # (hash_balance's live set at seed 0) and 65,536 (the largest a path
+    # migrates), each against its plain version twice in a row (anything
+    # a call left behind would show in the second) and timed beside the
+    # bytes bound; their device ms come with the profiled phases
+    # (phase_scan_device_split)
     floor = {}
     for n in HASH_FLOOR_N:
         p = pos[:n].clone()
-        va = torch.ones(n, dtype=torch.bool, device=dev)
+        va = valid[:n].clone()
+        want = hash_route_ref(p, va, 64)
+        for _ in range(2):
+            got = hash_route(p, va, 64)
+            torch.cuda.synchronize()
+            check(all(torch.equal(a, b) for a, b in zip(got, want)),
+                  f"hash_route n={n} n_shards=64 identical to plain")
         b_ms, b_by = bound(9 * n + 4 * 64, HASH_OPS * n)
         floor[n] = {"ms": time_ms(lambda: hash_route(p, va, 64), 100, torch),
-                    "bound_ms": b_ms, "bound_by": b_by}
+                    "bound_ms": b_ms, "bound_by": b_by,
+                    "max_abs_err": max_abs_err(got, want)}
     results["hash_route_floor"] = floor
 
 
@@ -482,7 +496,7 @@ def _time_pair(torch, kernel, plain):
 # and at 2^24 + 1 (a ragged last tile at full size) beside the sizes they
 # are timed at: one wave and 2^24.
 TIMED_N = (65_536, 16_777_216)
-HASH_FLOOR_N = (1, 1_024)       # hash_route's one-launch floor
+HASH_FLOOR_N = (1, 1_024, 39_102, 65_536)   # hash_route at migrations' n
 
 
 def _scan_sizes():
@@ -2038,7 +2052,7 @@ def phase_scan_device_split(torch, rng, results):
                                .astype(np.int32)).to(dev)
         valid = torch.from_numpy(rng.random(r["n"]) < 0.9).to(dev)
         split = _device_split(torch, lambda: hash_route(pos, valid, n_shards),
-                              "hash_route")
+                              "hash_route", {"hash_route": 1})
         r.update(split)
         out[f"hash_route n={r['n']} n_shards={n_shards}"] = split
     floor = results["hash_route_floor"]
@@ -2046,7 +2060,8 @@ def phase_scan_device_split(torch, rng, results):
         p = torch.arange(n, dtype=torch.int32, device=dev)
         va = torch.ones(n, dtype=torch.bool, device=dev)
         floor[n].update(_device_split(torch, lambda: hash_route(p, va, 64),
-                                      "hash_route"))
+                                      f"hash_route n={n}",
+                                      {"hash_route": 1}))
     emit("kernel:device_split", **out)
     emit("kernel:hash_route_floor", n_shards=64, by_n=floor)
 
@@ -2091,7 +2106,7 @@ def phase_hash_balance(torch, rng, results):
     ms = time_ms(lambda: hash_route(pos_d, valid_d, 6), 100, torch)
     plain = time_ms(lambda: hash_route_ref(pos_d, valid_d, 6), 20, torch)
     dev_split = _device_split(torch, lambda: hash_route(pos_d, valid_d, 6),
-                              "hash_route")
+                              "hash_route", {"hash_route": 1})
     b_ms, b_by = bound(9 * n + 24, HASH_OPS * n)
     rec = {"n_shards": "8->6", "n": n, "hash_balance": hb,
            "hash_route_launches": launches, "identical": identical,
@@ -2313,10 +2328,12 @@ def _kernel_calls(torch, fn, reps: int = 3, tries: int = 5) -> dict:
     (after one warm-up call); {} where the profiler sees no device time.
     The profiler on the card's machine loses kernel events now and then:
     most often a session's first kernel, so each session starts with a
-    lead-in kernel (``spin_kernel``, left out of the result); at times
-    others, so a session whose launches per call are not whole numbers
-    (or that saw none) runs again, up to ``tries`` sessions, and the one
-    that saw the most kernels is returned."""
+    lead-in kernel (``spin_kernel``, left out of the result); late in a
+    long run, a session's last call (all its kernels, in five sessions
+    in a row), so each session ends with a ~10 ms spin kernel too; at
+    times others, so a session whose launches per call are not whole
+    numbers (or that saw none) runs again, up to ``tries`` sessions, and
+    the one that saw the most kernels is returned."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -2328,6 +2345,7 @@ def _kernel_calls(torch, fn, reps: int = 3, tries: int = 5) -> dict:
             torch.cuda.synchronize()
             for _ in range(reps):
                 fn()
+            torch.cuda._sleep(20_000_000)
             torch.cuda.synchronize()
         out = {}
         for ev in prof.key_averages():
@@ -2916,14 +2934,13 @@ def phase_serve_edf_zamba2(torch, rng, results, zamba):
 
 
 # ------------------------------------------- the relaxed tier resolution --
-# One dependent step of a warp's walk over a wave's dequeues: about eight
-# dependent integer and warp-vote instructions (a ballot, its first lane,
-# a second ballot, its first lane, one lane's update) at about 5 cycles
-# each.  An estimate from the instruction chain, not a measurement; at the
-# H100's 1.98 GHz boost clock.  The latency bound of one such step a
-# dequeue is the sequential resolution's; the kernel takes 32 dequeues a
-# step where they all take p*, so its own chain is one step a batch plus
-# one a relaxed serve (``latency_bound_batched_ms``).
+# One dependent step of the walk, as estimated before the card was asked:
+# about eight dependent integer and warp-vote instructions at about 5
+# cycles each, at the H100's 1.98 GHz boost clock.  The latency bounds
+# below multiply it by the walk's steps (one a dequeue for a sequential
+# resolution; the kernel's own passes and events, counted by its clock
+# build, for the event-driven walk); the clock build's cycles a step are
+# reported beside it.
 RELAXED_STEP_CYCLES = 40
 SM_CLOCK_HZ = 1.98e9
 
@@ -2945,20 +2962,27 @@ def _relaxed_case(rng, n, P, n_shards, kind, backlog=300_000):
 
 def phase_relaxed_kernel(torch, rng, results):
     """The relaxed kernel against its plain version, bit for bit: one
-    full wave (65,536 ops, 64 shards) at P = 4 with relaxation 1 and 2, P
-    = 300 with relaxation 2, every tier empty (all ⊥), heads at INT32_MAX
-    that wrap (on 64 shards and on 48, which do not divide 2^32), and past
-    the register window (P = 1,000; relaxation 40).
-    Timed by CUDA events beside the plain host loop; the profiler's
-    device ms follows in ``phase_scan_device_split``."""
+    full wave (65,536 ops, 64 shards, shard-major as the priority path
+    sends it) at P = 4 with relaxation 1 and 2, P = 300 with relaxation 2,
+    every tier empty (all ⊥), heads at INT32_MAX that wrap mid-step (on 64
+    shards and on 48, which do not divide 2^32), a relaxation wider than
+    a warp over 1,000 tiers, and 100 shards (the owner table in shared
+    memory).  Per case: the dequeues, relaxed serves, the walk model's
+    passes and events (``relaxed_walk_model``), the clock build's count of
+    the same and its cycles a step, CUDA-event ms beside the plain host
+    loop; the profiler's device ms follows in ``phase_scan_device_split``."""
     from repro_torch.kernels.relaxed import (relaxed_deletemin,
-                                             relaxed_deletemin_ref)
+                                             relaxed_deletemin_ref,
+                                             relaxed_walk_model)
+    from repro_torch.kernels.relaxed.kernel import (STATS,
+                                                    relaxed_deletemin_kernel)
     dev = torch.device("cuda")
     n = 65_536
     cases = [("p4_k1", 4, 1, "mixed", 64), ("p4_k2", 4, 2, "mixed", 64),
              ("p300_k2", 300, 2, "mixed", 64), ("empty", 4, 1, "empty", 64),
              ("edge", 4, 2, "edge", 64), ("edge_48", 4, 2, "edge", 48),
-             ("p1000_k40", 1000, 40, "mixed", 64)]
+             ("p1000_k40", 1000, 40, "mixed", 64),
+             ("w100_k2", 4, 2, "mixed", 100)]
     for name, P, k, kind, N in cases:
         host = _relaxed_case(rng, n, P, N, kind)
         args = [torch.from_numpy(x).to(dev) for x in host]
@@ -2970,11 +2994,33 @@ def phase_relaxed_kernel(torch, rng, results):
               f"relaxed_deletemin {name} bit-identical to its plain version")
         check(relaxed_deletemin.launches == launches0 + 1,
               "one launch a call")
+        *_, model = relaxed_walk_model(*(torch.from_numpy(x) for x in host),
+                                       P, k, N)
+        # the clock build: the same outputs, its steps and cycles
+        stats = torch.zeros(STATS, dtype=torch.int64, device=dev)
+        clocked = relaxed_deletemin_kernel(*args, P, k, N, stats=stats)
+        torch.cuda.synchronize()
+        check(all(torch.equal(a, b) for a, b in zip(clocked, want)),
+              f"relaxed_deletemin {name}: the clock build agrees")
+        steps, relaxed, dry, cycles, wait, wb_cycles, walked, _ = (
+            stats.tolist())
+        check((steps, relaxed, dry, walked) == (
+            model["steps"], model["relaxed"], model["dry"],
+            model["dequeues"]),
+              f"relaxed_deletemin {name}: the clock build walked the "
+              f"model's passes and events")
         n_deq = int(host[0].sum())
+        chain = steps + relaxed + dry
         rec = {"case": name, "n": n, "n_prios": P, "relaxation": k,
                "n_shards": N, "dequeues": n_deq, "bit_identical": True,
                "max_abs_err": max_abs_err(got, want),
                "served": int(got[2].sum()), "relaxed": int(got[4]),
+               "dry_events": dry, "passes": steps, "chain_steps": chain,
+               "model_chain_steps": model["chain_steps"],
+               "walk_cycles": cycles, "walk_wait_cycles": wait,
+               "write_back_cycles": wb_cycles,
+               "cycles_per_step": (cycles - wait) / max(chain, 1),
+               "step_cycles_estimate": RELAXED_STEP_CYCLES,
                "launches": relaxed_deletemin.launches - launches0}
         if kind == "empty":
             check(not got[2].any(), "every dequeue of the empty tiers is ⊥")
@@ -2986,12 +3032,14 @@ def phase_relaxed_kernel(torch, rng, results):
         # bytes: flags, shards, three outputs per op; two int32 inputs and
         # one output per tier; ops: the walk's integer work per dequeue
         b_ms, b_by = bound(14 * n + 12 * P + 4, 20 * n_deq * (k + 1))
+        # latency bounds at the 40-cycle estimate, not measured: kept in
+        # this record only, beside the measured steps and cycles a step
         step_ms = RELAXED_STEP_CYCLES / SM_CLOCK_HZ * 1e3
-        batched = (-(-n_deq // 32) + rec["relaxed"]) * step_ms
         rec.update(ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=b_by,
-                   latency_bound_ms=n_deq * step_ms,
-                   latency_bound_batched_ms=batched,
-                   binds="latency" if batched > b_ms else b_by)
+                   latency_bound_ms_at_estimate=chain * step_ms,
+                   latency_bound_sequential_ms_at_estimate=n_deq * step_ms,
+                   binds_at_estimate=("latency" if chain * step_ms > b_ms
+                                      else b_by))
         results[("relaxed_deletemin", name)] = rec
         emit("kernel:relaxed_deletemin", **rec)
 
@@ -5498,9 +5546,10 @@ def main() -> int:
          "device_ms": hb["device_ms"], "device_kernels": hb["device_kernels"],
          "plain_ms": hb["plain_ms"], "bound_ms": hb["bound_ms"],
          "bound_by": hb["bound_by"], "library_ms": None,
-         "floor_by_n": {str(n): {k: r[k] for k in ("ms", "device_ms",
-                                                   "bound_ms")}
-                        for n, r in results["hash_route_floor"].items()}},
+         "by_n": {str(n): {k: r[k] for k in ("ms", "device_ms", "bound_ms")}
+                  for n, r in [*results["hash_route_floor"].items(),
+                               (16_777_216, results[
+                                   ("hash_route", 16_777_216, 64)])]}},
         scan_row("stack_scan", 65_536, ", ".join(lifo_paths),
                  sum(lifo_paths.values()),
                  "src/repro/kernels/segscan/kernel.py:303",
@@ -5629,9 +5678,8 @@ def main() -> int:
         "device_kernels": rel.get("device_kernels", "not measured"),
         "plain_ms": rel["plain_ms"], "bound_ms": rel["bound_ms"],
         "bound_by": rel["bound_by"],
-        "latency_bound_ms": rel["latency_bound_ms"],
-        "latency_bound_batched_ms": rel["latency_bound_batched_ms"],
-        "binds": rel["binds"],
+        "chain_steps": rel["chain_steps"],
+        "cycles_per_step": rel["cycles_per_step"],
         "library_ms": None,
         "ms_by_case": {k: r["ms"] for k, r in cases.items()},
         "device_ms_by_case": {k: r.get("device_ms", "not measured")

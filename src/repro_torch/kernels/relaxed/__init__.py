@@ -1,5 +1,5 @@
 from .ops import relaxed_deletemin
-from .ref import relaxed_deletemin_ref, relaxed_window_model
+from .ref import relaxed_deletemin_ref, relaxed_walk_model
 
 __all__ = ["relaxed_deletemin", "relaxed_deletemin_ref",
-           "relaxed_window_model"]
+           "relaxed_walk_model"]

@@ -62,110 +62,155 @@ def relaxed_deletemin_ref(deq: torch.Tensor, shard_of: torch.Tensor,
     return t, put(pos), t >= 0, put(taken), put(n_relaxed)
 
 
-WINDOW = 32                      # tiers warp 0 holds in registers
+LANES = 32                       # a walker warp
+LANE_DEQ = 8                     # dequeues a lane tests in a pass
+WALK = LANES * LANE_DEQ          # dequeues a warp tests; relaxed.cu's kWalk
+WALKERS = 4                      # walker warps; relaxed.cu's kWalkers
+WINDOW = WALKERS * WALK          # dequeues a window; relaxed.cu's kWindow
+INT32_MAX = 2 ** 31 - 1
 
 
-def relaxed_window_model(deq: torch.Tensor, shard_of: torch.Tensor,
-                         avail: torch.Tensor, firsts: torch.Tensor,
-                         n_prios: int, relaxation: int, n_shards: int):
-    """The CUDA kernel's walk, step for step, in plain Python: 32 tiers
-    held "in lanes" (remaining size, head, and the head's floor modulo
-    n_shards, taken again whenever the head moves: a +1 step of it would
-    be wrong where the int32 head wraps and n_shards does not divide
-    2^32),
-    the window written back and moved up when ``[p*, p* + k]`` leaves it,
-    a batch of up to 32 dequeues resolved at once where they all take p*
-    (each would: p* keeps elements for it, and its shard owns p*'s head
-    or no tier below p* in the window), one dequeue at a time otherwise,
-    and the tiers past the window searched in "shared memory" when ``k >
-    31``.  Its outputs must equal :func:`relaxed_deletemin_ref`'s; the
-    tests hold it against the plain loop, so the kernel's bracketing is
-    checked where there is no card.  Same signature and outputs."""
+def modulo_recip(n: int) -> int:
+    """``modulo.cuh``'s reciprocal of ``n``: floor((2^32 - 1) / n)."""
+    return 0xFFFFFFFF // n
+
+
+def fast_mod(x: int, n: int, m: int) -> int:
+    """``FastMod::of``: uint32 ``x`` mod ``n`` from the reciprocal ``m``,
+    a high product, a multiply-subtract and one compare and subtract."""
+    r = x - ((x * m) >> 32) * n
+    return r - n if r >= n else r
+
+
+def fast_floor_mod(h: int, n: int, m: int) -> int:
+    """``FastMod::floor_of``: the floor modulo of int32 ``h``, as
+    ``jnp.mod``, without a division."""
+    return fast_mod(h, n, m) if h >= 0 else n - 1 - fast_mod(-(h + 1), n, m)
+
+
+def relaxed_walk_model(deq: torch.Tensor, shard_of: torch.Tensor,
+                       avail: torch.Tensor, firsts: torch.Tensor,
+                       n_prios: int, relaxation: int, n_shards: int):
+    """The CUDA kernel's event-driven walk, pass for pass, in plain Python.
+
+    Tier state (remaining size, head, the head's floor modulo n_shards by
+    the kernel's reciprocal) in "shared memory", p*'s in "registers", and
+    ``low``: the shards that own a head in ``(p*, p* + k]``, rebuilt only
+    at an event.  The wave's dequeues go window by window, ``WINDOW`` at a
+    time (fewer at the end).  A pass of the test over the window's
+    unresolved part (the kernel's four walker warps, eight tests a lane,
+    a minimum over the warps) finds the first dequeue that stops p*'s
+    run: its run position ``u``
+    reaches ``rem[p*]``, or its shard is in ``low`` and does not own
+    ``head[p*] + u`` (``(hmod[p*] + u) mod n`` stepped 32 at a time,
+    unless the run can cross the int32 wrap: then the floor modulo of each
+    wrapped head).  The dequeues before it take p*.  The stopping dequeue
+    is an event: p* ran dry (the next non-empty tier becomes p*; the
+    dequeue is tested again) or a relaxed serve (the lowest tier in the
+    window whose head its shard owns).  Each event is followed by another
+    pass over the rest of the window.
+
+    Returns :func:`relaxed_deletemin_ref`'s five outputs and a dict of the
+    chain: ``steps`` (passes, the all-⊥ ones after every tier ran dry
+    included), ``relaxed`` and ``dry`` events, ``chain_steps`` (their sum)
+    and ``dequeues``.  The tests hold the outputs against the plain loop,
+    so the kernel's walk is checked where there is no card; the kernel's
+    clock build reports the same counts on the card."""
     dev = deq.device
     n, P, k = deq.shape[0], n_prios, min(relaxation, n_prios)
+    m = modulo_recip(n_shards)
+    spread = n_shards * -(-WINDOW // n_shards)    # >= WINDOW, multiple of n
+    c32 = fast_mod(LANES, n_shards, m)
     avail_h, firsts_h = avail.tolist(), firsts.tolist()
     shard_h = shard_of.tolist()
-    s_rem = list(avail_h)
-    s_head = list(firsts_h)
-    s_hmod = [f % n_shards for f in firsts_h]
+    rem, head = list(avail_h), list(firsts_h)
+    hmod = [fast_floor_mod(f, n_shards, m) for f in firsts_h]
+    ring = torch.nonzero(deq.cpu()).flatten().tolist()   # producers' order
+    total = len(ring)
     tier = [-1] * n
     pos = [BOTTOM] * n
-    n_rel, base = 0, 0
+    steps = dry = n_rel = 0
 
-    def load(b):
-        return ([s_rem[b + j] if b + j < P else 0 for j in range(WINDOW)],
-                [s_head[b + j] if b + j < P else 0 for j in range(WINDOW)],
-                [s_hmod[b + j] if b + j < P else 0 for j in range(WINDOW)])
-    rem, head, hmod = load(0)
-    d_list = torch.nonzero(deq.cpu()).flatten().tolist()
-    m, d = len(d_list), 0
-    while d < m:
-        ne = [r > 0 for r in rem]
-        f = ne.index(True) if any(ne) else WINDOW
-        hi = min(base + f + k, P - 1)
-        if f == WINDOW or (f > 0 and hi > base + WINDOW - 1):
-            for j in range(WINDOW):            # write back, move up
-                if base + j < P:
-                    s_rem[base + j], s_head[base + j] = rem[j], head[j]
-                    s_hmod[base + j] = hmod[j]
-            base += f
-            if base >= P:
-                break                          # ⊥ from here on
-            rem, head, hmod = load(base)
-            continue
-        if hi <= base + WINDOW - 1:
-            # the batch: dequeue d + j takes p* unless it stops the batch
-            jb = WINDOW
-            for j in range(WINDOW):
-                if d + j >= m or j >= rem[f]:
-                    jb = j
+    def next_tier(c):
+        while c < P and rem[c] <= 0:
+            c += 1
+        return c
+
+    def window(p):
+        hi = min(p + k, P - 1)
+        return hi, {hmod[c] for c in range(p + 1, hi + 1) if rem[c] > 0}
+
+    def owner(t, t0, head_p, hm_p, wraps):
+        """The owner of p*'s head at run position t - t0, as the kernel's
+        warp t // WALK, lane t % 32 takes it."""
+        if wraps:
+            return fast_floor_mod(_i32(head_p + t - t0), n_shards, m)
+        tq, lane, e = t - t % WALK, t % LANES, t % WALK // LANES
+        h = fast_mod((hm_p + tq + lane - t0 + spread) % 2 ** 32, n_shards,
+                     m)
+        h += e * c32
+        for mult in (4, 2, 1):
+            h = h - mult * n_shards if h >= mult * n_shards else h
+        return h
+
+    ps = next_tier(0)
+    rem_p = head_p = hm_p = hi = 0
+    low = set()
+    if ps < P:
+        rem_p, head_p, hm_p = rem[ps], head[ps], hmod[ps]
+        hi, low = window(ps)
+    d = 0
+    while True:
+        lim = min(WINDOW, total - d)
+        if lim == 0:
+            break
+        t0 = 0
+        while t0 < lim:
+            steps += 1
+            if ps == P:                # every tier ran dry: ⊥ stays
+                break
+            lim2 = min(lim, t0 + rem_p)
+            wraps = head_p > INT32_MAX - (WINDOW - 1)
+            jb = lim
+            for t in range(t0, lim):   # the first dequeue that stops
+                s = shard_h[ring[d + t]]
+                if t >= lim2 or (s in low and
+                                 owner(t, t0, head_p, hm_p, wraps) != s):
+                    jb = t
                     break
-                s_j = shard_h[d_list[d + j]]
-                lower = any(rem[c] > 0 and hmod[c] == s_j
-                            for c in range(f + 1, hi - base + 1))
-                if lower and _i32(head[f] + j) % n_shards != s_j:
-                    jb = j
-                    break
-            for j in range(jb):
-                tier[d_list[d + j]] = base + f
-                pos[d_list[d + j]] = _i32(head[f] + j)
-            rem[f] -= jb
-            head[f] = _i32(head[f] + jb)
-            hmod[f] = head[f] % n_shards
-            d += jb
-            if jb:
-                continue
-        # one dequeue: a relaxed serve, or a window wider than the lanes
-        i, s = d_list[d], shard_h[d_list[d]]
-        loc = [ne[j] and j >= f and base + j <= hi and hmod[j] == s
-               for j in range(WINDOW)]
-        ql = loc.index(True) if any(loc) else f
-        served_past = None
-        if not any(loc) and hi > base + WINDOW - 1:
-            for c in range(base + WINDOW, hi + 1):
-                if s_rem[c] > 0 and s_hmod[c] == s:
-                    served_past = c
-                    break
-        if served_past is not None:
-            c = served_past
-            tier[i], pos[i] = c, s_head[c]
-            s_rem[c] -= 1
-            s_head[c] = _i32(s_head[c] + 1)
-            s_hmod[c] = s_head[c] % n_shards
-            n_rel += 1
-        else:
-            tier[i], pos[i] = base + ql, head[ql]
-            rem[ql] -= 1
-            head[ql] = _i32(head[ql] + 1)
-            hmod[ql] = head[ql] % n_shards
-            n_rel += ql != f
-        d += 1
-    for j in range(WINDOW):
-        if base + j < P:
-            s_rem[base + j] = rem[j]
-    taken = [_i32(a - r) for a, r in zip(avail_h, s_rem)]
+            for t in range(t0, jb):
+                tier[ring[d + t]] = ps
+                pos[ring[d + t]] = _i32(head_p + t - t0)
+            rem_p -= jb - t0
+            head_p = _i32(head_p + jb - t0)
+            hm_p = fast_floor_mod(head_p, n_shards, m)
+            t0 = jb
+            if rem_p == 0:             # event: p* ran dry
+                rem[ps] = 0
+                dry += 1
+                ps = next_tier(ps + 1)
+                if ps < P:
+                    rem_p, head_p, hm_p = rem[ps], head[ps], hmod[ps]
+                    hi, low = window(ps)
+            elif jb < lim:             # event: a relaxed serve
+                i = ring[d + jb]
+                q = next(c for c in range(ps + 1, hi + 1)
+                         if rem[c] > 0 and hmod[c] == shard_h[i])
+                tier[i], pos[i] = q, head[q]
+                rem[q] -= 1
+                head[q] = _i32(head[q] + 1)
+                hmod[q] = fast_floor_mod(head[q], n_shards, m)
+                t0 += 1
+                n_rel += 1
+                hi, low = window(ps)
+        d += lim
+    if ps < P:
+        rem[ps] = rem_p
+    taken = [_i32(a - r) for a, r in zip(avail_h, rem)]
 
     def put(x):
         return torch.tensor(x, dtype=torch.int32, device=dev)
     t = put(tier)
-    return t, put(pos), t >= 0, put(taken), put(n_rel)
+    stats = {"steps": steps, "relaxed": n_rel, "dry": dry,
+             "chain_steps": steps + n_rel + dry, "dequeues": total}
+    return t, put(pos), t >= 0, put(taken), put(n_rel), stats

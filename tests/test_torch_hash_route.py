@@ -64,3 +64,24 @@ def test_hash_route_is_plain_on_cpu_tensors():
     assert hash_route.launches == before
     assert all(torch.equal(a, b) for a, b in zip(out, ref))
 
+
+def test_hash_route_grid_matches_the_cuda_source():
+    """The launcher's constants are hash_route.cu's, and its grid, all one
+    cluster: the least power of two that covers n at VEC elements a
+    thread, at most MAX_CLUSTER."""
+    import re
+    from pathlib import Path
+    from repro_torch.kernels.hash_route import kernel
+    src = (Path(kernel.__file__).parents[1] / "csrc" / "hash_route.cu"
+           ).read_text()
+    for name, value in (("kThreads", kernel.THREADS), ("kVec", kernel.VEC),
+                        ("kMaxCluster", kernel.MAX_CLUSTER)):
+        assert int(re.search(rf"{name} = (\d+);", src).group(1)) == value
+    assert kernel.MAX_SHARDS * 4 <= 48 * 1024   # no opt-in above 48 KB
+    per_block = kernel.THREADS * kernel.VEC
+    assert kernel.grid_blocks(1) == 1
+    assert kernel.grid_blocks(per_block) == 1
+    assert kernel.grid_blocks(per_block + 1) == 2
+    assert kernel.grid_blocks(39_102) == 16
+    assert kernel.grid_blocks(65_536) == 65_536 // per_block
+    assert kernel.grid_blocks(1 << 24) == kernel.MAX_CLUSTER

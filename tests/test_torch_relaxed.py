@@ -10,10 +10,14 @@ waves whose every dequeue finds the tiers empty (all ⊥), heads near
 INT32_MAX that wrap inside the wave, and one shard (every head local).
 At 64 and 300 tiers both sides take their tiered-sweep hook for the
 enqueues (the reference's Pallas sweep in interpret mode), as their
-queues do.  A plain model of the CUDA kernel's windowed walk
-(``relaxed_window_model``) is held against the plain loop where the
-window moves, past 32 tiers and with a relaxation wider than it.  Every
-output is an integer: the tolerance is zero.
+queues do.  A plain model of the CUDA kernel's event-driven walk
+(``relaxed_walk_model``: windows of 1,024 dequeues tested by four warps,
+a pass after each relaxed serve and each tier that runs dry, owners by a
+reciprocal) is held
+against the plain loop past 32 tiers, with a relaxation wider than a
+warp, across the int32 wrap at shard counts that do not divide 2^32, and
+on shard-major waves at the cells' size (65,536 ops over 64 shards).
+Every output is an integer: the tolerance is zero.
 """
 import functools
 import re
@@ -30,7 +34,9 @@ from repro.kernels.segscan import make_tier_scan as j_make_tier_scan
 from repro_torch.core.scan_queue import priority_queue_scan
 from repro_torch.kernels.relaxed import (relaxed_deletemin,
                                          relaxed_deletemin_ref,
-                                         relaxed_window_model)
+                                         relaxed_walk_model)
+from repro_torch.kernels.relaxed.ref import (WALK, WINDOW, fast_floor_mod,
+                                             fast_mod, modulo_recip)
 from repro_torch.kernels.segscan import make_tier_scan
 
 INT32_MAX = 2 ** 31 - 1
@@ -151,9 +157,9 @@ def test_relaxed_kernel_module_imports_without_cuda():
     (1000, 3, 64, "sparse"), (33, 1, 1, "wrap"), (4, 1, 8, "empty"),
     (8, 3, 2, "mixed"), (16, 5, 3, "wrap"), (64, 31, 5, "mixed")])
 def test_window_model_matches_the_plain_loop(P, k, n_shards, kind):
-    """The kernel's windowed walk (window moves past 32 tiers, the shared
-    memory search for k > 31, int32 wrap) equals the plain loop, which
-    the tests above hold against JAX."""
+    """The kernel's event-driven walk (p* moving past 32 tiers, a window
+    wider than a warp, int32 wrap, one shard, every tier empty) equals the
+    plain loop, which the tests above hold against JAX."""
     rng = np.random.default_rng(P * 7 + k)
     n = 6000
     deq = rng.random(n) < 0.6
@@ -165,11 +171,71 @@ def test_window_model_matches_the_plain_loop(P, k, n_shards, kind):
         firsts = (INT32_MAX - rng.integers(0, 50, P)).astype(np.int32)
     args = [_t(x) for x in (deq, so, avail, firsts)]
     want = relaxed_deletemin_ref(*args, P, k, n_shards)
-    got = relaxed_window_model(*args, P, k, n_shards)
+    *got, stats = relaxed_walk_model(*args, P, k, n_shards)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+    assert stats["relaxed"] == int(want[4])
+    assert stats["chain_steps"] == (stats["steps"] + stats["relaxed"]
+                                    + stats["dry"])
     if kind == "empty":
         assert not got[2].any()
+
+
+def _cell_wave(n, P, n_shards, kind, seed=0, backlog=300_000):
+    """A shard-major wave as the priority path sends it (op i on shard
+    i * n_shards // n), half dequeues, tier sizes of a backlog-deep queue;
+    "edge": heads just below INT32_MAX, so runs cross the int32 wrap."""
+    rng = np.random.default_rng(seed)
+    deq = rng.random(n) < 0.5
+    so = (np.arange(n) * n_shards // n).astype(np.int32)
+    avail = rng.integers(backlog // (2 * P), backlog // P + 1, P)
+    firsts = rng.integers(0, 1_000_000, P)
+    if kind == "edge":
+        avail = rng.integers(n // (2 * P), n // P + 1, P)
+        firsts = INT32_MAX - rng.integers(0, 64, P)
+    return [_t(x) for x in (deq, so, avail.astype(np.int32),
+                            firsts.astype(np.int32))]
+
+
+@pytest.mark.parametrize("P,k,n_shards,kind", [
+    (4, 1, 64, "mixed"), (4, 2, 64, "mixed"), (300, 2, 64, "mixed"),
+    (4, 2, 48, "edge")])
+def test_walk_model_at_the_cells_size(P, k, n_shards, kind):
+    """65,536 ops over 64 shards, shard-major: the walk equals the plain
+    loop, and its chain is one pass a WINDOW of dequeues plus at most one
+    an event (none after an event on a window's last dequeue), so far
+    below the one-a-32 of a warp-wide batch."""
+    args = _cell_wave(65_536, P, n_shards, kind)
+    want = relaxed_deletemin_ref(*args, P, k, n_shards)
+    *got, stats = relaxed_walk_model(*args, P, k, n_shards)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    events = stats["relaxed"] + stats["dry"]
+    windows = -(-stats["dequeues"] // WINDOW)
+    assert windows <= stats["steps"] <= windows + events
+    assert stats["chain_steps"] < stats["dequeues"] // 32
+    if kind == "edge":
+        assert bool((got[1][got[2]] < 0).any())   # heads wrapped
+
+
+@pytest.mark.parametrize("n", [1, 2, 3, 5, 7, 48, 64, 100, 1000, 65_536,
+                               2 ** 31 - 1, 2 ** 32 - 1])
+def test_fast_mod_equals_the_floor_modulo(n):
+    """modulo.cuh's reciprocal modulo (the relaxed walk's head owners, the
+    hash route's (h >> 8) % n_shards) equals Python's % on uint32 and the
+    floor modulo on int32, at the ends of both ranges."""
+    rng = np.random.default_rng(n % 1000)
+    m = modulo_recip(n)
+    xs = [0, 1, n - 1, n, n + 1, 2 ** 24 - 1, 2 ** 31, 2 ** 32 - 1,
+          *rng.integers(0, 2 ** 32, 2000, dtype=np.uint64).tolist()]
+    for x in xs:
+        if 0 <= x < 2 ** 32:
+            assert fast_mod(x, n, m) == x % n
+    hs = [0, -1, 1, INT32_MAX, -2 ** 31, -n, n, -n - 1,
+          *rng.integers(-2 ** 31, 2 ** 31, 2000).tolist()]
+    for h in hs:
+        if -2 ** 31 <= h <= INT32_MAX:
+            assert fast_floor_mod(h, n, m) == h % n
 
 
 def test_launcher_constants_match_the_cuda_source():
@@ -177,6 +243,24 @@ def test_launcher_constants_match_the_cuda_source():
     from repro_torch.kernels.relaxed import kernel
     src = (Path(kernel.__file__).parents[1] / "csrc" / "relaxed.cu"
            ).read_text()
-    threads = int(re.search(r"kThreads = (\d+);", src).group(1))
-    per = int(re.search(r"kPer = (\d+);", src).group(1))
-    assert (threads, threads * per) == (kernel.THREADS, kernel.TILE)
+
+    def const(name):
+        return re.search(rf"constexpr int {name} = ([^;]+);", src).group(1)
+    warps = int(const("kWarps"))
+    producers = int(const("kProducers").split("*")[0]) * 32
+    per, lane_deq = int(const("kPer")), int(const("kLaneDeq"))
+    assert const("kThreads") == "kWarps * 32"
+    assert const("kTile") == "kProducers * kPer"
+    assert const("kWalk") == "32 * kLaneDeq"
+    assert const("kWindow") == "kWalkers * kWalk"
+    walkers = int(const("kWalkers"))
+    assert (warps * 32, producers * per, 32 * lane_deq, walkers) == (
+        kernel.THREADS, kernel.TILE, kernel.WALK, kernel.WALKERS)
+    assert (kernel.WALK, kernel.WINDOW) == (WALK, WINDOW)
+    assert (int(const("kRing")), int(const("kStats"))) == (kernel.RING,
+                                                         kernel.STATS)
+    # MAX_TIERS follows repro_relaxed_smem's words: 4 an entry, 64 spare
+    assert "(4 * static_cast<int64_t>(kRing) + 64 +" in src
+    # warps 0-3 walk; the producers are the later warps that do not share
+    # warp 0's scheduler (w % 4 != 0)
+    assert producers == 32 * sum(w % 4 != 0 for w in range(walkers, warps))
