@@ -20,7 +20,7 @@ import tempfile
 
 import numpy as np
 
-from repro_torch.obs import span, timers, to_prometheus, tracer
+from repro_torch.obs import span, to_prometheus, tracer
 from repro_torch.runtime import LocalRuntime
 
 
@@ -38,11 +38,11 @@ def section_device_metrics(n_shards: int, device):
     valid = rng.random((K, n)) < 0.8
     payload = rng.integers(0, 99, (K, n, 2)).astype(np.int32)
     x0 = rt.n_exchanges
-    with timers("burst"):
-        q.run_waves(is_enq, valid, payload)
+    q.run_waves(is_enq, valid, payload)
     rows = q.trajectory()   # drained into the flight recorder at burst end
+    burst = [e for e in tracer.events() if e["name"] == "queue:burst"][-1]
     print(f"[device]   {len(rows)} wave rows drained after one "
-          f"{timers('burst').elapsed('last') * 1e3:.1f} ms burst "
+          f"{burst['dur'] / 1e3:.1f} ms burst "
           f"({rt.n_exchanges - x0} exchanges for {K} waves):")
     for r in rows[:3]:
         print(f"           wave {r['seq']}: +{r['puts']} puts "

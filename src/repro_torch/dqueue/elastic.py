@@ -210,10 +210,20 @@ class _ElasticBase:
         the placed ``ops`` (this process's shards' rows on a
         multi-process runtime), keep the new state, and raise the wave's
         overflow flag as :class:`~.errors.QueueOverflowError`.  Returns
-        the outputs after the state."""
+        the outputs after the state.
+
+        The burst span records at its close ``exchange_bytes``, the bytes
+        this process passed to the runtime's exchange in the burst, and
+        ``ops``, this process's op slots in the burst (K × its shards ×
+        width), so that their ratio is per process on any runtime."""
         ops = [self._place(x, int(multi)) for x in ops]
-        with self._burst_span(ops[0].shape[0] if multi else 1):
+        K = ops[0].shape[0] if multi else 1
+        rt = self.runtime
+        with self._burst_span(K) as sp:
+            b0 = rt.exchange_bytes
             self.state, *out = fn(self.state, *ops)
+            sp.set(exchange_bytes=rt.exchange_bytes - b0,
+                   ops=K * ops[0].shape[int(multi)])
         self._check_overflow(out[self.inner.disc.n_disp_outs + 2])
         return tuple(out)
 
@@ -291,51 +301,58 @@ class _ElasticBase:
 
     # ----------------------------------------------------- rematerialize ---
     def _rematerialize(self, new_active: list, kind: str) -> dict:
+        """The migration, traced as ``migration:{kind}`` with three child
+        spans: ``migration:plan`` (the capacity guard's host read and the
+        state's unpacking), ``migration:wave`` (the packed exchange and
+        the rewrite, timed as ``wave_s`` between two synchronisations)
+        and ``migration:settle`` (the moved/lost read, the new state and
+        inner structure, the hash-balance report).  ``host_s`` is the
+        whole call less ``wave_s``."""
         P_old, P_new = self.n_shards, len(new_active)
-        need = self._live_span()
-        if need > P_new * self.cap:
-            raise ValueError(
-                f"cannot reshard to {P_new} shards: {need} live elements "
-                f"exceed the new capacity {P_new} * {self.cap}")
-        with span(f"migration:{kind}", cat="membership", kind=self._kind,
-                  P_from=P_old, P_to=P_new):
-            return self._rematerialize_traced(new_active, kind, P_old,
-                                              P_new)
-
-    def _rematerialize_traced(self, new_active: list, kind: str,
-                              P_old: int, P_new: int) -> dict:
         rt = self.runtime
         t_total = time.perf_counter()
-        a, b, X, Y = self._unpack(self.state)
-        self.state = None                 # let the old store go early
-        old, new = self._active, list(new_active)
-        n_ex = rt.n_exchanges
-        rt.sync()
-        t_wave = time.perf_counter()
-        X, Y, moved, lost = self._migrate(a, b, X, Y, old, new)
-        rt.sync()
-        t_wave = time.perf_counter() - t_wave
-        n_moved, n_lost = (int(v) for v in rt.host_reduce(
-            torch.stack([moved.to(torch.int64), lost.to(torch.int64)])))
-        if n_lost:
-            raise RuntimeError("migration fanout overflow — internal bound "
-                               "violated, elements would have been dropped")
-        self.state = self._pack(a, b, X, Y)
-        self._active = new
-        self.inner = self._get_inner(self._active)
-        stats = {
-            "kind": kind, "P_from": P_old, "P_to": P_new,
-            "moved": n_moved,
-            "bytes_moved": n_moved * self._entry_bytes,
-            "wave_s": t_wave,
-            "total_s": time.perf_counter() - t_total,
-            "collectives": rt.n_exchanges - n_ex,
-        }
-        hb = self._hash_balance(P_new)
-        if hb is not None:
-            stats["hash_balance"] = hb
-        rt.on_migration(stats)
-        self.migrations.append(stats)
+        with span(f"migration:{kind}", cat="membership", kind=self._kind,
+                  P_from=P_old, P_to=P_new):
+            with span("migration:plan", cat="membership"):
+                need = self._live_span()
+                if need > P_new * self.cap:
+                    raise ValueError(
+                        f"cannot reshard to {P_new} shards: {need} live "
+                        f"elements exceed the new capacity {P_new} * "
+                        f"{self.cap}")
+                a, b, X, Y = self._unpack(self.state)
+                self.state = None         # let the old store go early
+                old, new = self._active, list(new_active)
+                n_ex = rt.n_exchanges
+                rt.sync()
+            with span("migration:wave", cat="membership"):
+                t_wave = time.perf_counter()
+                X, Y, moved, lost = self._migrate(a, b, X, Y, old, new)
+                rt.sync()
+                t_wave = time.perf_counter() - t_wave
+            with span("migration:settle", cat="membership"):
+                n_moved, n_lost = (int(v) for v in rt.host_reduce(
+                    torch.stack([moved.to(torch.int64),
+                                 lost.to(torch.int64)])))
+                if n_lost:
+                    raise RuntimeError("migration fanout overflow — "
+                                       "internal bound violated, elements "
+                                       "would have been dropped")
+                self.state = self._pack(a, b, X, Y)
+                self._active = new
+                self.inner = self._get_inner(self._active)
+                stats = {"kind": kind, "P_from": P_old, "P_to": P_new,
+                         "moved": n_moved,
+                         "bytes_moved": n_moved * self._entry_bytes,
+                         "wave_s": t_wave,
+                         "collectives": rt.n_exchanges - n_ex}
+                hb = self._hash_balance(P_new)
+                if hb is not None:
+                    stats["hash_balance"] = hb
+                rt.on_migration(stats)
+                self.migrations.append(stats)
+        stats["total_s"] = time.perf_counter() - t_total
+        stats["host_s"] = stats["total_s"] - t_wave
         return stats
 
     def _hash_balance(self, P_new: int) -> Optional[dict]:

@@ -45,6 +45,17 @@ owns, at dispatch time and in wave order.  It is arithmetic on values the
 wave already holds: no extra exchange, no host read, identical queue
 outputs.  :meth:`WaveEngine.drain_metrics` is the one host read of it, at
 burst boundaries.
+
+Stage spans
+-----------
+Each wave body marks its stages with detail spans (``obs.trace``): a
+profiler range while a profiler records, an event in the tracer's ring
+while its detail switch is on, else nothing: ``wave:dispatch`` (Stages 1-3 and the telemetry row),
+``wave:exchange`` (request packing, the request ‖ reply ``cat``, the
+runtime's exchange, the reply's extraction) and ``wave:commit`` (the
+Stage-4 rewrite and the reply).  A pipelined K-wave burst shows K
+dispatch, K+1 exchange and K+1 commit ranges; a sequential one K, 2K and
+K.  The spans read nothing on the device.
 """
 from __future__ import annotations
 
@@ -55,10 +66,18 @@ import torch
 
 from ..obs.device import (MetricsState, drain as _drain_rows,
                           init_metrics_state, record_row)
+from ..obs.trace import tracer
 
 TAG_INACTIVE = 0
 TAG_PUT = 1
 TAG_GET = 2
+
+
+def _stage(name: str):
+    """The detail span of one wave stage (``wave:dispatch``,
+    ``wave:exchange``, ``wave:commit``): a no-op unless a profiler records
+    or the tracer's detail switch is on; it never reads the device."""
+    return tracer.detail_span(name, "wave")
 
 
 # ------------------------------------------------- occupancy buckets -------
@@ -359,12 +378,16 @@ class WaveEngine:
         without the metrics row."""
         disc = self.disc
         carry, store = disc.split(state)
-        d = disc.dispatch(carry, ops)
-        self._record(d, ops)
-        recv = self._exchange(self._pack_request(d))
-        store, reply, c_ovf = disc.commit(store, recv)
-        back = self._exchange(reply)
-        dv, dok = self._extract_reply(back, d.owner, d.wants_reply)
+        with _stage("dispatch"):
+            d = disc.dispatch(carry, ops)
+            self._record(d, ops)
+        with _stage("exchange"):
+            recv = self._exchange(self._pack_request(d))
+        with _stage("commit"):
+            store, reply, c_ovf = disc.commit(store, recv)
+        with _stage("exchange"):
+            back = self._exchange(reply)
+            dv, dok = self._extract_reply(back, d.owner, d.wants_reply)
         outs = d.outs + (dv, dok, d.overflow | c_ovf) + d.aux
         return disc.merge(d.carry, store), outs
 
@@ -400,13 +423,17 @@ class WaveEngine:
         rows = []
         for k in range(K):
             xs = tuple(x[k] for x in ops)
-            d = disc.dispatch(carry, xs)                            # wave k
-            self._record(d, xs)
-            store, reply, c_ovf = disc.commit(store, infl["recv"])  # k-1
-            out = self._exchange(torch.cat([self._pack_request(d), reply],
-                                           -1))
-            dv, dok = self._extract_reply(out[..., C_req:], infl["owner"],
-                                          infl["wants"])
+            with _stage("dispatch"):
+                d = disc.dispatch(carry, xs)                        # wave k
+                self._record(d, xs)
+            with _stage("commit"):
+                store, reply, c_ovf = disc.commit(store,
+                                                  infl["recv"])     # k-1
+            with _stage("exchange"):
+                out = self._exchange(torch.cat([self._pack_request(d),
+                                                reply], -1))
+                dv, dok = self._extract_reply(out[..., C_req:],
+                                              infl["owner"], infl["wants"])
             if k > 0:      # iteration 0 emits the priming wave: dropped
                 rows.append(infl["outs"] + (dv, dok, infl["ovf"] | c_ovf)
                             + infl["aux"])
@@ -415,9 +442,11 @@ class WaveEngine:
                     "ovf": d.overflow, "aux": d.aux}
             carry = d.carry
         # epilogue: commit the last in-flight wave, reply-only exchange
-        store, reply, c_ovf = disc.commit(store, infl["recv"])
-        back = self._exchange(reply)
-        dv, dok = self._extract_reply(back, infl["owner"], infl["wants"])
+        with _stage("commit"):
+            store, reply, c_ovf = disc.commit(store, infl["recv"])
+        with _stage("exchange"):
+            back = self._exchange(reply)
+            dv, dok = self._extract_reply(back, infl["owner"], infl["wants"])
         rows.append(infl["outs"] + (dv, dok, infl["ovf"] | c_ovf)
                     + infl["aux"])
         return ((disc.merge(carry, store),)

@@ -3,11 +3,12 @@
 Counterpart of ``python -m repro.obs``: run a short telemetry-on burst of
 an elastic FIFO queue (on CUDA unless ``--device cpu``), print the live
 metrics snapshot (JSON by default, Prometheus text with ``--format
-prom``), and optionally export the host spans as a Chrome/perfetto trace
-(``--trace PATH``).  Exit status is 0 iff the burst ran, the drained wave
-summaries are self-consistent (sequence numbers in order; each wave's
-valid ops are its admitted puts, gets and ⊥ replies), and telemetry added
-no exchange to a wave (the runtime's exchange count, on and off).
+prom``), and optionally export the host spans, the wave stages' detail
+spans among them, as a Chrome/perfetto trace (``--trace PATH``).  Exit
+status is 0 iff the burst ran, the drained wave summaries are
+self-consistent (sequence numbers in order; each wave's valid ops are
+its admitted puts, gets and ⊥ replies), and telemetry added no exchange
+to a wave (the runtime's exchange count, on and off).
 """
 from __future__ import annotations
 
@@ -84,10 +85,14 @@ def main(argv=None) -> int:
     ap.add_argument("--json", metavar="PATH",
                     help="also write the JSON snapshot to PATH")
     ap.add_argument("--trace", metavar="PATH",
-                    help="export the host spans as a Chrome/perfetto "
+                    help="record the wave stages' detail spans too and "
+                         "export the host spans as a Chrome/perfetto "
                          "trace JSON to PATH")
     args = ap.parse_args(argv)
 
+    if args.trace:        # the exported trace holds the waves' stages
+        from .trace import tracer
+        tracer.detail = True
     report = _smoke(args.shards, args.waves, args.device)
 
     from .export import to_json

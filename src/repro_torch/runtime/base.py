@@ -7,7 +7,8 @@ every collective of the reference:
 
 * :meth:`Runtime.exchange`, the all-to-all (``n_exchanges``; the
   reference's ``all_to_all`` budget: 2 per ``step``, K+1 per pipelined
-  K-wave burst, 1 per migration);
+  K-wave burst, 1 per migration; ``exchange_bytes``, the bytes of the
+  send buffers);
 * :meth:`Runtime.gather`, the all-gather of each local shard's rows over
   the processes (``n_gathers``): the wave's op descriptors on a
   multi-process runtime, and the host reads of sharded values.
@@ -90,7 +91,9 @@ def select_devices(devs: Sequence, n_shards: int, exclude=()) -> list:
 class Runtime:
     """Base contract: the shard pool, failure quarantine, the host/device
     data plane and the two counted seams.  ``n_exchanges`` counts every
-    :meth:`exchange` (the reference's ``all_to_all`` count), ``n_gathers``
+    :meth:`exchange` (the reference's ``all_to_all`` count) and
+    ``exchange_bytes`` the bytes of the send buffers passed to it
+    (``numel × element_size``, no device read); ``n_gathers`` counts
     every :meth:`gather`."""
 
     kind: str = "base"
@@ -99,6 +102,7 @@ class Runtime:
         self.device = resolve_device(device)
         self._failed: set = set()
         self.n_exchanges = 0
+        self.exchange_bytes = 0
         self.n_gathers = 0
 
     # ------------------------------------------------------- topology ------
@@ -143,6 +147,11 @@ class Runtime:
         return frozenset(self._failed)
 
     # ----------------------------------------------------- data plane ------
+    def _count_exchange(self, buf: torch.Tensor) -> None:
+        """Count one exchange of the send buffer ``buf``."""
+        self.n_exchanges += 1
+        self.exchange_bytes += buf.numel() * buf.element_size()
+
     def exchange(self, buf: torch.Tensor, src: Optional[Sequence] = None,
                  dst: Optional[Sequence] = None) -> torch.Tensor:
         """The all-to-all: ``buf[src_local, dst, ...]`` ->
@@ -215,4 +224,5 @@ class Runtime:
                 "process_index": role.index,
                 "process_count": role.count,
                 "n_exchanges": self.n_exchanges,
+                "exchange_bytes": self.exchange_bytes,
                 "n_gathers": self.n_gathers}

@@ -198,7 +198,7 @@ class DistributedRuntime(Runtime):
         if src is None:
             raise ValueError("a multi-process exchange needs its shard list")
         dst = src if dst is None else dst
-        self.n_exchanges += 1
+        self._count_exchange(buf)
         ls, ld = self._layout(src), self._layout(dst)
         is_bool = buf.dtype == torch.bool
         if is_bool:                   # gloo moves bytes, not bools

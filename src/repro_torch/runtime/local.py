@@ -32,7 +32,7 @@ class LocalRuntime(Runtime):
         """``buf[src, dst, ...]`` -> ``out[dst, src, ...]``: shard ``d``
         receives row ``d`` of every sender, in sender order, as the
         reference's tiled ``all_to_all`` delivers it."""
-        self.n_exchanges += 1
+        self._count_exchange(buf)
         return buf.transpose(0, 1).contiguous()
 
     def gather(self, x: torch.Tensor, shards=None) -> torch.Tensor:

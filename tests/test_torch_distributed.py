@@ -36,12 +36,14 @@ SCHEDULE = r"""
 import hashlib
 import numpy as np
 from repro_torch.dqueue import ElasticDeviceQueue, ElasticDeviceStack
+from repro_torch.obs import tracer
 
 N, CAP, W, L, K, D = 8, 64, 2, 4, 3, 4
 PLAN = [("burst", 0.7), ("burst", 0.7), ("step", 0.6),
         ("shrink", [2, 3, 4, 5]), ("burst", 0.5), ("grow", 2),
         ("burst", 0.6), ("grow", 2), ("burst", 0.4), ("burst", 0.0),
         ("burst", 0.0), ("burst", 0.0)]
+BURSTS = {}   # kind -> [exchange_bytes, ops] of each burst span, in order
 
 
 def make_ops(kind, seed=42):
@@ -79,6 +81,7 @@ def run(kind, rt):
                                slot_depth=D, runtime=rt)
     ops = make_ops("lifo" if kind == "lifo" else "fifo")
     out, counts, b, m = {}, [], 0, 0
+    BURSTS[kind] = []
     for action, arg in PLAN:
         x0, g0 = rt.n_exchanges, rt.n_gathers
         if action in ("burst", "step"):
@@ -91,6 +94,10 @@ def run(kind, rt):
                 lead = 1
             counts.append([action, len(E), rt.n_exchanges - x0,
                            rt.n_gathers - g0])
+            sp = tracer.events()[-1]            # the burst's own span
+            assert sp["name"].endswith(":burst")
+            BURSTS[kind].append([sp["args"]["exchange_bytes"],
+                                 sp["args"]["ops"]])
             for name, x in zip(("pos", "m", "dv", "dok"), o):
                 out[f"b{b}_{name}"] = rt.to_host(x, q.shards, lead)
             out[f"b{b}_ovf"] = rt.host_reduce(o[4], "any")
@@ -149,7 +156,8 @@ for kind in ("fifo", "lifo", "seed"):
     out, counts, digest = run(kind, rt)
     if rt.process_role.coordinator:
         np.savez(f"{sys.argv[1]}/{kind}.npz", **out)
-    result[kind] = {"counts": counts, "digest": digest}
+    result[kind] = {"counts": counts, "digest": digest,
+                    "bursts": BURSTS[kind]}
 
 # what the reference runs on one process only refuses the multi-process
 # runtime, naming the reference's own limit
@@ -195,6 +203,7 @@ def one_process():
     for kind in ("fifo", "lifo", "seed"):
         rt = LocalRuntime(8, device="cpu")
         out[kind] = ns["run"](kind, rt)
+    out["bursts"] = ns["BURSTS"]
     return out
 
 
@@ -270,6 +279,24 @@ def test_exchange_and_gather_budget(two_process, one_process, kind):
         assert ga == 0
     snap = parsed[0]["snapshot"]
     assert snap["kind"] == "distributed" and snap["process_count"] == 2
+    assert all(p["snapshot"]["exchange_bytes"] > 0 for p in parsed)
+
+
+@pytest.mark.parametrize("kind", ["fifo", "lifo", "seed"])
+def test_burst_span_bytes_per_op_are_per_process(two_process, one_process,
+                                                 kind):
+    """Each process's burst span records its own send bytes and its own
+    op slots, so their ratio is one process's, burst by burst, with the
+    processes' shards even or uneven, and the two processes' bytes and
+    op slots add up to one process's."""
+    parsed, _ = two_process
+    one = one_process["bursts"][kind]
+    r0, r1 = (parsed[r][kind]["bursts"] for r in (0, 1))
+    assert len(r0) == len(r1) == len(one) == 9
+    for (b0, n0), (b1, n1), (b, n) in zip(r0, r1, one):
+        assert n0 + n1 == n and b0 + b1 == b
+        if n:
+            assert b0 * n == b * n0 and b1 * n == b * n1
 
 
 def test_metrics_rows_equal_one_process(two_process, one_process):

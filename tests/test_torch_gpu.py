@@ -804,13 +804,18 @@ def test_elastic_seap_on_gpu_matches_cpu_through_join_and_leave(cuda):
                                   "relaxed", "metrics_seap",
                                   "metrics_priority", "metrics_fifo",
                                   "metrics_stack"])
-def test_pipelined_burst_makes_no_host_sync(cuda, kind):
+@pytest.mark.parametrize("tracing", ["off", "detail", "profiler"])
+def test_pipelined_burst_makes_no_host_sync(cuda, kind, tracing):
     """A pipelined burst (dispatch, both exchanges and the commit) on
     inputs already on the card runs under
     ``set_sync_debug_mode("error")``: the Seap wave's directory lookup,
     tiered sweep, DeleteMin and rebalance, the strict and relaxed
     priority waves (the relaxed kernel's launch), the FIFO and stack
-    waves, and each of them with the telemetry ring on."""
+    waves, and each of them with the telemetry ring on; each with the
+    wave engine's stage spans off, recorded by the tracer's detail
+    switch, and as ranges under a ``torch.profiler``."""
+    import contextlib
+    from repro_torch.obs import tracer
     E, V, P = _waves(64, 16, 2, 4, seed=11)
     metrics = kind.startswith("metrics_")
     base = kind.split("_")[-1]
@@ -833,12 +838,33 @@ def test_pipelined_burst_makes_no_host_sync(cuda, kind):
     st, *_ = q.run_waves(q.init_state(), *args)     # builds, allocates
     torch.cuda.synchronize()
     before = relaxed_deletemin.launches
-    torch.cuda.set_sync_debug_mode("error")
+    n0 = len(tracer.events())
+    prof = (torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA]) if tracing == "profiler"
+        else contextlib.nullcontext())
+    tracer.detail = tracing == "detail"
     try:
-        st, *out = q.run_waves(st, *args)
+        with prof:
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                st, *out = q.run_waves(st, *args)
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
     finally:
-        torch.cuda.set_sync_debug_mode(0)
-    torch.cuda.synchronize()
+        tracer.detail = False
+    # 4 waves: 4 dispatch, 5 exchange and 5 commit stages; in the ring
+    # with the detail switch, as profiler ranges alone under a profiler
+    stages = [e["name"] for e in tracer.events()[n0:]
+              if e["name"] in ("dispatch", "exchange", "commit")]
+    assert len(stages) == (4 + 5 + 5 if tracing == "detail" else 0)
+    if tracing == "profiler":
+        cpu = torch.autograd.DeviceType.CPU
+        ranges = [e.name for e in prof.events() if e.device_type == cpu
+                  and e.name in ("wave:dispatch", "wave:exchange",
+                                 "wave:commit")]
+        assert len(ranges) == 4 + 5 + 5
     assert out[q.engine.disc.n_disp_outs + 1].any()  # dequeues found values
     assert relaxed_deletemin.launches == before + 4 * (base == "relaxed")
     if metrics:

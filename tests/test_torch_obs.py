@@ -11,7 +11,9 @@ rows as JSON; the port runs the same numpy waves on ``device="cpu"``.
 Rows are integers: they must be equal.  Also: telemetry adds no
 exchange (2 a step, K+1 a pipelined burst, with the ring on or off) and
 leaves every queue output unchanged; the tracer's bound, its Chrome
-export and the timers; ``to_json``/``to_prometheus`` against the
+export on the profiler's clock, span ids and parents, and the wave
+engine's stage spans (under a profiler, with the detail switch, and
+neither); ``to_json``/``to_prometheus`` against the
 reference's emitters; the CLI with ``--device cpu``; and a
 ``ServeEngine(telemetry=True)`` snapshot, ``"waves"`` section included,
 equal to the JAX engine's on the same parameters (FIFO, and three tiers
@@ -44,8 +46,9 @@ from repro_torch.dqueue import (DevicePriorityQueue, DeviceQueue,
                                 ElasticDeviceStack)
 from repro_torch.interop import params_from_jax
 from repro_torch.models import build_model
-from repro_torch.obs import (FlightRecorder, METRIC_HEAD, Timers, Tracer,
-                             to_json, to_prometheus)
+from repro_torch.obs import (FlightRecorder, METRIC_HEAD, Tracer, to_json,
+                             to_prometheus, tracer)
+from repro_torch.obs.trace import profiler_recording
 from repro_torch.serve import Request, ServeEngine
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -292,6 +295,11 @@ def test_tracer_is_bounded_and_exports_chrome_trace(tmp_path):
     assert doc["displayTimeUnit"] == "ms"
     assert [e["ph"] for e in doc["traceEvents"]] == ["X"] * 3
     assert all(e["dur"] >= 0 for e in doc["traceEvents"])
+    # relative ts on the base, as the profiler's file writes them
+    base = doc["baseTimeNanoseconds"]
+    assert base % 10**9 == 0
+    assert [e["ts"] + base / 1e3 for e in doc["traceEvents"]] == \
+        pytest.approx([e["ts"] for e in ev], abs=1.0)
     tr.clear()
     assert tr.events() == []
 
@@ -305,26 +313,183 @@ def test_spans_show_in_the_torch_profiler():
     assert "wave:burst" in {e.key for e in prof.key_averages()}
 
 
-def test_timers():
-    t = Timers()
-    for _ in range(3):
-        with t("wave"):
-            pass
-    t("mig").start(sync_fn=lambda: None).stop(sync_fn=lambda: None)
-    assert t("wave").count == 3 and "mig" in t and t.names() == ["mig",
-                                                                 "wave"]
-    assert t("wave").elapsed("max") >= t("wave").elapsed("min") >= 0
-    assert t("wave").elapsed("sum") == pytest.approx(
-        3 * t("wave").elapsed("mean"))
-    rep = t.report()
-    assert rep["wave"]["n"] == 3 and set(rep["mig"]) == {"n", "sum_s",
-                                                        "mean_s"}
-    with pytest.raises(ValueError):
-        t("wave").elapsed("median")
+def _cpu_profile():
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def test_span_handle_ids_and_parents():
+    tr = Tracer()
+    with tr.span("outer", cat="t", a=1) as outer:
+        with tr.span("inner", cat="t") as inner:
+            inner.set(n=3)
+        outer.set(a=2, b=(1, 2))
     with pytest.raises(RuntimeError):
-        t("never").stop()
-    t("wave").reset()
-    assert t("wave").elapsed() == 0.0
+        with tr.span("failed", cat="t"):
+            raise RuntimeError("x")
+    ev = {e["name"]: e for e in tr.events()}
+    assert ev["inner"]["parent"] == ev["outer"]["id"] == outer.id
+    assert ev["inner"]["id"] == inner.id != outer.id
+    assert ev["outer"]["parent"] is None and ev["failed"]["parent"] is None
+    assert ev["inner"]["args"] == {"n": 3}
+    assert ev["outer"]["args"] == {"a": 2, "b": "(1, 2)"}
+    assert ev["outer"]["ts"] <= ev["inner"]["ts"]
+    assert (ev["inner"]["ts"] + ev["inner"]["dur"]
+            <= ev["outer"]["ts"] + ev["outer"]["dur"])
+    assert len({e["id"] for e in tr.events()}) == 3
+
+
+def test_span_reads_no_pid_and_the_fork_hook_refreshes_it(monkeypatch):
+    from repro_torch.obs import trace
+    monkeypatch.setattr(trace, "_pid", trace._pid)   # restored after
+    calls = []
+    monkeypatch.setattr(os, "getpid", lambda: calls.append(1) or 4242)
+    tr = Tracer()
+    with tr.span("a"):
+        pass
+    assert calls == [] and tr.events()[-1]["pid"] == trace._pid
+    trace._refresh_pid()                 # what a forked child runs
+    with tr.span("b"):
+        pass
+    assert calls == [1] and tr.events()[-1]["pid"] == 4242
+
+
+def test_tracer_clock_agrees_with_the_profiler(tmp_path):
+    """The tracer's spans and the profiler's ranges of the same names lie
+    on one clock (Unix-epoch microseconds) within 1 ms, and an export
+    with the profiler's base concatenates with its trace."""
+    tr = Tracer()
+    with _cpu_profile() as prof:
+        for i in range(20):
+            with tr.span(f"s{i}", cat="clock"):
+                torch.ones(64).sum()
+    prof.export_chrome_trace(str(tmp_path / "prof.json"))
+    doc = json.loads((tmp_path / "prof.json").read_text())
+    base = doc["baseTimeNanoseconds"]
+    ranges = {e["name"]: e["ts"] for e in doc["traceEvents"]
+              if e.get("cat") == "user_annotation"}
+    ours = {f"clock:{e['name']}": e["ts"] for e in tr.events()}
+    assert len(ours) == 20 and set(ours) <= set(ranges)
+    off = [abs(ours[k] - (ranges[k] + base / 1e3)) for k in ours]
+    assert np.median(off) < 1000.0
+    tr.export_chrome_trace(tmp_path / "ours.json", base_ns=base)
+    mine = json.loads((tmp_path / "ours.json").read_text())
+    assert mine["baseTimeNanoseconds"] == base
+    merged = {e["name"]: e["ts"] for e in mine["traceEvents"]}
+    off = [abs(merged[k.split(":")[1]] - ranges[k]) for k in ours]
+    assert np.median(off) < 1000.0
+
+
+def test_profiler_recording_follows_the_profiler():
+    assert not profiler_recording()
+    with _cpu_profile():
+        assert profiler_recording()
+    assert not profiler_recording()
+
+
+STAGES = ("dispatch", "exchange", "commit")
+
+
+def _stage_queue(kind: str, pipelined: bool):
+    """A 4-shard queue (FIFO or 3-tier priority) and one 3-wave burst."""
+    rng = np.random.default_rng(5)
+    n = 4 * L
+    E, V = rng.random((K, n)) < 0.6, rng.random((K, n)) < 0.9
+    PW = rng.integers(0, 1 << 20, (K, n, W)).astype(np.int32)
+    if kind == "queue":
+        q = ElasticDeviceQueue(4, cap=CAP, payload_width=W, ops_per_shard=L,
+                               pipelined=pipelined, device="cpu")
+        return q, (E, V, PW)
+    q = ElasticDevicePriorityQueue(4, n_prios=3, cap=CAP, payload_width=W,
+                                   ops_per_shard=L, pipelined=pipelined,
+                                   device="cpu")
+    return q, (E, V, rng.integers(0, 3, (K, n)).astype(np.int32), PW)
+
+
+def _want(pipelined: bool) -> dict:
+    return ({"dispatch": K, "exchange": K + 1, "commit": K + 1} if pipelined
+            else {"dispatch": K, "exchange": 2 * K, "commit": K})
+
+
+@pytest.mark.parametrize("detail", [False, True], ids=["ranges", "detail"])
+@pytest.mark.parametrize("pipelined", [True, False], ids=["pipe", "seq"])
+@pytest.mark.parametrize("kind", ["queue", "pqueue"])
+def test_stage_spans_under_the_profiler(monkeypatch, kind, pipelined,
+                                        detail):
+    """Under a profiler every stage is a range.  With the detail switch
+    off the ring holds only the burst span (the profiler's trace has the
+    stages); with it on, the ring holds each stage, its burst its
+    parent."""
+    q, ops = _stage_queue(kind, pipelined)
+    q.run_waves(*ops)                                  # warm
+    monkeypatch.setattr(tracer, "detail", detail)
+    n0 = len(tracer.events())
+    with _cpu_profile() as prof:
+        q.run_waves(*ops)
+    names = [e.name for e in prof.events()]
+    assert {s: names.count(f"wave:{s}") for s in STAGES} == _want(pipelined)
+    assert names.count(f"wave:{kind}:burst") == 1
+    ev = tracer.events()[n0:]
+    burst = [e for e in ev if e["name"] == f"{kind}:burst"]
+    assert len(burst) == 1
+    stages = [e for e in ev if e["name"] in STAGES]
+    if not detail:
+        assert ev == burst
+        return
+    assert {s: sum(e["name"] == s for e in stages)
+            for s in STAGES} == _want(pipelined)
+    assert all(e["parent"] == burst[0]["id"] and e["cat"] == "wave"
+               for e in stages)
+
+
+def _ranges_entered(monkeypatch) -> list:
+    """Count every profiler range entered, by ``record_function`` or by
+    the profiler's C entry point the tracer uses."""
+    entered = []
+    real_rf = torch.profiler.record_function
+    real_c = torch.autograd._record_function_with_args_enter
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda *a, **k: entered.append(a) or real_rf(*a, **k))
+    monkeypatch.setattr(torch.autograd, "_record_function_with_args_enter",
+                        lambda *a: entered.append(a) or real_c(*a))
+    return entered
+
+
+def test_ranges_under_the_profiler_are_counted(monkeypatch):
+    """The count the two tests below hold at zero sees every range a
+    profiled burst enters: its burst span's and each stage's."""
+    q, ops = _stage_queue("queue", True)
+    entered = _ranges_entered(monkeypatch)
+    with _cpu_profile():
+        q.run_waves(*ops)
+    assert sorted(a[0] for a in entered) == sorted(
+        ["wave:queue:burst"] + [f"wave:{s}" for s, n in _want(True).items()
+                                for _ in range(n)])
+
+
+@pytest.mark.parametrize("pipelined", [True, False], ids=["pipe", "seq"])
+def test_no_profiler_and_switch_off_records_only_the_burst(monkeypatch,
+                                                           pipelined):
+    q, ops = _stage_queue("queue", pipelined)
+    entered = _ranges_entered(monkeypatch)
+    assert not tracer.detail
+    n0 = len(tracer.events())
+    q.run_waves(*ops)
+    ev = tracer.events()[n0:]
+    assert [e["name"] for e in ev] == ["queue:burst"] and entered == []
+    assert ev[0]["args"]["ops"] == K * 4 * L
+
+
+def test_detail_switch_records_stages_without_a_range(monkeypatch):
+    q, ops = _stage_queue("queue", True)
+    entered = _ranges_entered(monkeypatch)
+    monkeypatch.setattr(tracer, "detail", True)
+    n0 = len(tracer.events())
+    q.run_waves(*ops)
+    ev = tracer.events()[n0:]
+    assert {s: sum(e["name"] == s for e in ev)
+            for s in STAGES} == _want(True)
+    assert entered == []
 
 
 def test_exporters_match_the_reference():
@@ -365,7 +530,8 @@ def test_cli_smoke_on_cpu(tmp_path):
     assert [r["seq"] for r in rep["wave_summaries"]] == list(range(5))
     assert "OK" in proc.stderr
     names = {e["name"] for e in json.loads(trace.read_text())["traceEvents"]}
-    assert {"obs:smoke", "queue:burst"} <= names
+    assert {"obs:smoke", "queue:burst", "dispatch", "exchange",
+            "commit"} <= names
     prom = subprocess.run(
         [sys.executable, "-m", "repro_torch.obs", "--device", "cpu",
          "--format", "prom"], cwd=ROOT, env=_env(), capture_output=True,

@@ -8,7 +8,9 @@ replayed on the reference's ``SimRuntime``.  A scheduled failure drives a
 LEAVE through the port's ``run_with_restarts`` with the ``SimRuntime`` as
 the injector, and a regrow JOIN never hands back the failed id.  The
 structures on a ``SimRuntime`` give the same outputs as on a
-``LocalRuntime``.
+``LocalRuntime``.  ``exchange_bytes`` counts the send buffers' bytes to
+the closed form of a step, a pipelined and a sequential burst and a
+migration, on both, and the burst span records it.
 """
 import tempfile
 
@@ -22,6 +24,7 @@ from repro.runtime import select_devices as j_select_devices
 
 from repro_torch.dqueue import (DeviceQueue, ElasticDeviceQueue,
                                 ElasticDeviceStack)
+from repro_torch.dqueue.wave_engine import fanout_bound
 from repro_torch.fault import (FailureInjector, elastic_queue_policy,
                                run_with_restarts)
 from repro_torch.runtime import (LatencyModel, LocalRuntime, ProcessRole,
@@ -293,3 +296,55 @@ def test_unknown_runtime_raises():
     with pytest.raises(ValueError, match="pool_size"):
         ElasticDeviceQueue(2, pool_size=4, runtime=LocalRuntime(4,
                                                                 device="cpu"))
+
+
+def _exchange_case(case: str, rt):
+    """Drive ``case`` on a 4-shard elastic FIFO queue over ``rt``; returns
+    (bytes counted, bytes of the closed form)."""
+    n, L_, W_, K_, cap = 4, 4, 2, 3, 16
+    rng = np.random.default_rng(7)
+    q = ElasticDeviceQueue(n, cap=cap, payload_width=W_, ops_per_shard=L_,
+                           pipelined=case != "sequential", runtime=rt)
+    nL = n * L_
+    E, V = rng.random((K_, nL)) < 0.7, rng.random((K_, nL)) < 0.9
+    P = rng.integers(0, 1 << 20, (K_, nL, W_)).astype(np.int32)
+    q.run_waves(E, V, P)                 # a backlog for the migration
+    b0 = rt.exchange_bytes
+    # request slot ‖ tag ‖ payload, reply ok ‖ value: int32 columns of
+    # [n_src, n_dst, L] buffers
+    req, rep = 4 * (2 + W_) * n * n * L_, 4 * (1 + W_) * n * n * L_
+    if case == "step":
+        q.step(E[0], V[0], P[0])
+        want = req + rep
+    elif case == "pipelined":
+        q.run_waves(E, V, P)
+        want = K_ * (req + rep) + rep
+    elif case == "sequential":
+        q.run_waves(E, V, P)
+        want = K_ * (req + rep)
+    else:                                # one LEAVE 4 -> 3
+        q.shrink([3])
+        M = fanout_bound(4, 3, cap)
+        want = 4 * 3 * M * 4 * (1 + W_)  # [n_old, n_new, M, slot ‖ value]
+    return rt.exchange_bytes - b0, want
+
+
+@pytest.mark.parametrize("case", ["step", "pipelined", "sequential",
+                                  "migration"])
+@pytest.mark.parametrize("kind", ["local", "sim"])
+def test_exchange_bytes_match_the_closed_form(kind, case):
+    rt = (LocalRuntime(4, device="cpu") if kind == "local"
+          else SimRuntime(4, LatencyModel(base_us=5.0), device="cpu"))
+    got, want = _exchange_case(case, rt)
+    assert got == want
+    assert rt.snapshot()["exchange_bytes"] == rt.exchange_bytes > 0
+
+
+def test_burst_span_records_exchange_bytes_and_ops():
+    from repro_torch.obs import tracer
+    rt = LocalRuntime(4, device="cpu")
+    n0 = len(tracer.events())
+    got, want = _exchange_case("pipelined", rt)
+    bursts = [e for e in tracer.events()[n0:] if e["name"] == "queue:burst"]
+    assert bursts[-1]["args"]["exchange_bytes"] == got == want
+    assert bursts[-1]["args"]["ops"] == 3 * 4 * 4
