@@ -14,7 +14,10 @@ must the hash route at the migrations' sizes (1 to 65,536 positions,
 each twice in a row) and at 2^24; the
 four queue kernels report their device ms per call from the
 profiler beside the wrapper's CUDA-event ms, which at one wave is mostly
-the host's.  Then it drives the port through its entry points at full
+the host's.  The wave engine's Stage-4 commit kernel is held bit for bit
+against its plain version on a 64- and a 48-shard wave of a real
+dispatch (the pipelined path's strided view and a contiguous copy) and
+timed beside it and its bytes bound.  Then it drives the port through its entry points at full
 size:
 
 * the elastic FIFO queue (64 shards x 65,536 slots x 4 int32 words), the
@@ -759,6 +762,7 @@ class FifoChecker:
 def phase_elastic(torch, rng, results):
     from repro_torch.dqueue import ElasticDeviceQueue
     from repro_torch.kernels.hash_route import hash_route
+    from repro_torch.kernels.ring_commit import ring_commit
     from repro_torch.kernels.segscan import queue_scan
     N, CAP, W, L, K = 64, 65_536, 4, 1_024, 16
 
@@ -772,7 +776,7 @@ def phase_elastic(torch, rng, results):
     model = FifoChecker()
     kept, bursts, migrations = [], [], []
     timing = {"waves": 0, "seconds": 0.0, "ops": 0}
-    queue_scan.launches = hash_route.launches = 0
+    queue_scan.launches = hash_route.launches = ring_commit.launches = 0
 
     def burst(p_enq):
         _run_burst(torch, rng, eq, rt, queue_scan, K, model, timing, bursts,
@@ -789,6 +793,7 @@ def phase_elastic(torch, rng, results):
         burst(0.0)
     launches = queue_scan.launches
     check(launches > 0, "the main path launched the queue-scan kernel")
+    commits = _commit_launches(ring_commit, timing["waves"], len(bursts))
     check(eq.size == 0 and model.pending == 0, "queue drained")
     peak = torch.cuda.max_memory_allocated()
     del eq
@@ -799,6 +804,7 @@ def phase_elastic(torch, rng, results):
            "waves_per_s": timing["waves"] / timing["seconds"],
            "ops_per_s": timing["ops"] / timing["seconds"],
            "migrations": migrations, "queue_scan_launches": launches,
+           "ring_commit_launches": commits,
            "max_memory_allocated": peak, "fifo_order": "ok",
            "sequential_equals_pipelined": True, "burst_log": bursts}
     results["elastic_fifo"] = rec
@@ -1122,9 +1128,21 @@ class TierChecker:
                 "relaxed": int(nrel.sum())}
 
 
+def _commit_launches(ring_commit, waves: int, bursts: int) -> int:
+    """The commit kernel's launches on a path of pipelined bursts, counted
+    from 0 at its start: K + 1 a burst of K waves (the priming wave's
+    commit and one a wave), so ``waves + bursts`` in all."""
+    launches = ring_commit.launches
+    check(launches == waves + bursts,
+          f"one ring_commit launch a wave and one a burst ({launches} for "
+          f"{waves} waves in {bursts} bursts)")
+    return launches
+
+
 def phase_elastic_priority(torch, rng, results):
     from repro_torch.dqueue import ElasticDevicePriorityQueue
     from repro_torch.kernels.hash_route import hash_route
+    from repro_torch.kernels.ring_commit import ring_commit
     from repro_torch.kernels.segscan import tiered_queue_scan
     N, P_, CAP, W, L, K = 64, 4, 16_384, 4, 1_024, 16
     # most traffic in the urgent tiers, so the backlog spreads over the
@@ -1142,6 +1160,7 @@ def phase_elastic_priority(torch, rng, results):
     kept, bursts, migrations = [], [], []
     timing = {"waves": 0, "seconds": 0.0, "ops": 0}
     tiered_queue_scan.launches = hash_route.launches = 0
+    ring_commit.launches = 0
 
     def burst(p_enq):
         _run_burst(torch, rng, eq, rt, tiered_queue_scan, K, model, timing,
@@ -1162,6 +1181,7 @@ def phase_elastic_priority(torch, rng, results):
         n_bottom += bursts[-1]["bottom"]
     launches = tiered_queue_scan.launches
     check(launches > 0, "the main path launched the tiered-scan kernel")
+    commits = _commit_launches(ring_commit, timing["waves"], len(bursts))
     peak = torch.cuda.max_memory_allocated()
     del eq
     _sequential_matches(torch, make, kept, K)
@@ -1173,6 +1193,7 @@ def phase_elastic_priority(torch, rng, results):
            "waves_per_s": timing["waves"] / timing["seconds"],
            "ops_per_s": timing["ops"] / timing["seconds"],
            "migrations": migrations, "tiered_scan_launches": launches,
+           "ring_commit_launches": commits,
            "bottom_dequeues": n_bottom, "max_memory_allocated": peak,
            "priority_order": "ok", "sequential_equals_pipelined": True,
            "burst_log": bursts}
@@ -1508,6 +1529,7 @@ def phase_elastic_seap(torch, rng, results):
     against the host Seap model."""
     from repro_torch.dqueue import ElasticDeviceSeapQueue
     from repro_torch.kernels.hash_route import hash_route
+    from repro_torch.kernels.ring_commit import ring_commit
     from repro_torch.kernels.segscan import tiered_queue_scan
     N, B, CAP, W, L, K = 64, 8, 16_384, 4, 1_024, 16
     OCC, seeds = SEAP_OCC, SEAP_SEEDS
@@ -1524,6 +1546,7 @@ def phase_elastic_seap(torch, rng, results):
     kept, bursts, migrations, dirs = [], [], [], []
     timing = {"waves": 0, "seconds": 0.0, "ops": 0}
     tiered_queue_scan.launches = hash_route.launches = 0
+    ring_commit.launches = 0
 
     def burst(p_enq, slack):
         _run_burst(torch, rng, eq, rt, tiered_queue_scan, K, model, timing,
@@ -1556,6 +1579,7 @@ def phase_elastic_seap(torch, rng, results):
         n_bottom += bursts[-1]["bottom"]
     launches = tiered_queue_scan.launches
     check(launches == timing["waves"], "one tiered launch per wave")
+    commits = _commit_launches(ring_commit, timing["waves"], len(bursts))
     enq = sum(b["enq"] for b in bursts)
     check(sum(b["deq"] for b in bursts) == enq and model.size == 0,
           "conservation: every enqueued element dequeued once")
@@ -1572,7 +1596,8 @@ def phase_elastic_seap(torch, rng, results):
            "waves_per_s": timing["waves"] / timing["seconds"],
            "ops_per_s": timing["ops"] / timing["seconds"],
            "wall_s": timing["seconds"], "migrations": migrations,
-           "tiered_scan_launches": launches, "splits": model.splits,
+           "tiered_scan_launches": launches,
+           "ring_commit_launches": commits, "splits": model.splits,
            "merges": model.merges, "bottom_dequeues": n_bottom,
            "max_memory_allocated": peak, "edf_order": "ok",
            "sequential_equals_pipelined": True, "directories": dirs,
@@ -1822,6 +1847,7 @@ def phase_protocol_replay(torch, seed, results):
     replayed through the elastic FIFO queue and stack on the card."""
     from repro_torch.dqueue import ElasticDeviceQueue, ElasticDeviceStack
     from repro_torch.kernels.hash_route import hash_route
+    from repro_torch.kernels.ring_commit import ring_commit
     from repro_torch.kernels.segscan import queue_scan, stack_scan
     rec = {}
     for mode, cls, scan in (("queue", ElasticDeviceQueue, queue_scan),
@@ -1829,12 +1855,18 @@ def phase_protocol_replay(torch, seed, results):
         sk, proto = protocol_run(mode, seed)
         es = cls(64, payload_width=4, device="cuda", **PROTO_SHAPES[mode])
         queue_scan.launches = stack_scan.launches = hash_route.launches = 0
+        ring_commit.launches = 0
         rep = replay_protocol(torch, sk, es, PROTO_PLAN)
         launches = {"queue_scan": queue_scan.launches,
                     "stack_scan": stack_scan.launches,
-                    "hash_route": hash_route.launches}
+                    "hash_route": hash_route.launches,
+                    "ring_commit": ring_commit.launches}
         check(launches[scan.__name__] == rep["waves"],
               f"one {scan.__name__} launch a wave")
+        check(launches["ring_commit"] >= rep["waves"] if mode == "queue"
+              else launches["ring_commit"] == 0,
+              f"{mode}: every queue wave, and no stack wave, committed "
+              f"through the ring_commit kernel: {launches}")
         check(launches["hash_route"] == sum(
             m["hash_balance"] is not None for m in rep["migrations"]),
               "one hash-route launch a reported migration")
@@ -2055,6 +2087,16 @@ def phase_scan_device_split(torch, rng, results):
                               "hash_route", {"hash_route": 1})
         r.update(split)
         out[f"hash_route n={r['n']} n_shards={n_shards}"] = split
+    from repro_torch.kernels.ring_commit import ring_commit
+    for n_sh in RING_SHARDS:
+        (sv, sf), view, junk = _ring_wave(torch, rng, n_sh)
+        launches0 = ring_commit.launches
+        split = _device_split(
+            torch, lambda: ring_commit((sv, sf), view, junk, sv.shape[-1]),
+            f"ring_commit {n_sh} shards", {"ring_commit": 1})
+        results[("ring_commit", n_sh)].update(
+            split, profiled_launches=ring_commit.launches - launches0)
+        out[f"ring_commit {n_sh} shards"] = split
     floor = results["hash_route_floor"]
     for n in HASH_FLOOR_N:
         p = torch.arange(n, dtype=torch.int32, device=dev)
@@ -2619,6 +2661,7 @@ def phase_serve_zamba2(torch, rng, results, zamba, telemetry=False):
     Prometheus text must parse."""
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.hash_route import hash_route
+    from repro_torch.kernels.ring_commit import ring_commit
     from repro_torch.kernels.segscan import queue_scan
     from repro_torch.kernels.ssd_scan import ssd_scan
     from repro_torch.serve import Request, ServeEngine
@@ -2639,7 +2682,7 @@ def phase_serve_zamba2(torch, rng, results, zamba, telemetry=False):
     if telemetry:                     # the first burst and the resize
         reqs = reqs[:16]
     eng.step()                                   # warm-up: an idle step
-    for c in (flash_attention, ssd_scan, queue_scan, hash_route):
+    for c in (flash_attention, ssd_scan, queue_scan, hash_route, ring_commit):
         c.launches = 0
     waves0 = queue_waves[0]
     torch.cuda.synchronize()
@@ -2661,10 +2704,14 @@ def phase_serve_zamba2(torch, rng, results, zamba, telemetry=False):
     launches = {"queue_scan": queue_scan.launches,
                 "hash_route": hash_route.launches,
                 "flash_attention": flash_attention.launches,
-                "ssd_scan": ssd_scan.launches}
+                "ssd_scan": ssd_scan.launches,
+                "ring_commit": ring_commit.launches}
     check(launches["queue_scan"] > 0 and launches["hash_route"] > 0,
           f"the queue waves and the resize went through the queue-scan and "
           f"hash-route kernels: {launches}")
+    check(launches["ring_commit"] >= queue_waves[0] - waves0 > 0,
+          f"every queue wave committed through the ring_commit kernel "
+          f"({queue_waves[0] - waves0} waves): {launches}")
     check(all(r.done and len(r.out) == max_new for r in reqs),
           f"all {len(reqs)} requests served with 16 tokens each")
     check(all(r.start_step > resize_step for r in reqs if r.rid in pending),
@@ -2834,6 +2881,7 @@ def phase_serve_edf_zamba2(torch, rng, results, zamba):
     Then the tier mode (4 tiers, relaxation 1) on the same model with 16
     requests, against the host tier model."""
     from repro_torch.kernels.hash_route import hash_route
+    from repro_torch.kernels.ring_commit import ring_commit
     from repro_torch.kernels.segscan import tiered_queue_scan
     from repro_torch.serve import ServeEngine
     cfg, model, params = zamba
@@ -2848,13 +2896,15 @@ def phase_serve_edf_zamba2(torch, rng, results, zamba):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     tiered_queue_scan.launches = hash_route.launches = 0
+    ring_commit.launches = 0
     t0 = time.perf_counter()
     pending, mig = _edf_drive(eng, loose, tight)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     launches = {"tiered_queue_scan": tiered_queue_scan.launches,
-                "hash_route": hash_route.launches}
+                "hash_route": hash_route.launches,
+                "ring_commit": ring_commit.launches}
     n_waves = 0
     for n_shards, ops, out in log:
         host = [x.cpu().numpy() for x in (*ops, *out)]
@@ -2864,6 +2914,9 @@ def phase_serve_edf_zamba2(torch, rng, results, zamba):
           f"one tiered launch per queue wave ({n_waves} waves): {launches}")
     check(launches["hash_route"] >= 2, "the resize and the autoscaler's "
                                        "grow launched the hash route")
+    check(launches["ring_commit"] >= n_waves,
+          f"every queue wave committed through the ring_commit kernel "
+          f"({n_waves} waves): {launches}")
     _edf_checks(eng, ctl, loose, tight, pending)
     steps = eng.step_no - 1
     rec = {"arch": cfg.name, "slots": slots, "max_seq": max_seq,
@@ -2903,7 +2956,7 @@ def phase_serve_edf_zamba2(torch, rng, results, zamba):
     log = _capture_bursts(eng)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    tiered_queue_scan.launches = 0
+    tiered_queue_scan.launches = ring_commit.launches = 0
     t0 = time.perf_counter()
     eng.submit(first)
     eng.step()
@@ -2919,6 +2972,8 @@ def phase_serve_edf_zamba2(torch, rng, results, zamba):
         n_waves += ops[0].shape[0]
     check(tiered_queue_scan.launches == n_waves,
           "tiers: one tiered launch per queue wave")
+    check(ring_commit.launches >= n_waves,
+          "tiers: every queue wave committed through the ring_commit kernel")
     check(all(r.done for r in reqs), "tiers: all 16 requests served")
     top = max(r.start_step for r in second if r.prio == 0)
     check(all(top <= r.start_step for r in second if r.prio >= 2),
@@ -2927,8 +2982,8 @@ def phase_serve_edf_zamba2(torch, rng, results, zamba):
            "relaxation": 1, "queue_waves": n_waves, "tier_order": "ok",
            "tier_wait_stats": eng.tier_wait_stats(),
            **_serve_record(eng, reqs, wall, eng.step_no - 1,
-                           {"tiered_queue_scan": tiered_queue_scan.launches},
-                           peak)}
+                           {"tiered_queue_scan": tiered_queue_scan.launches,
+                            "ring_commit": ring_commit.launches}, peak)}
     results["serve_tiers_zamba2"] = rec
     emit("path:serve_tiers_zamba2", **rec)
 
@@ -2943,6 +2998,79 @@ def phase_serve_edf_zamba2(torch, rng, results, zamba):
 # reported beside it.
 RELAXED_STEP_CYCLES = 40
 SM_CLOCK_HZ = 1.98e9
+
+
+RING_SHARDS = (64, 48)  # ring_commit's shapes: the bulk cells, churn's
+
+
+def _ring_wave(torch, rng, n_shards, W=4, L=1_024):
+    """(store, recv, junk) of one FIFO wave at the cells' shape: the queue
+    filled by a 4-wave burst at 90 % enqueues, then a wave at 50 %
+    dispatched and exchanged; recv as the pipelined path passes it, the
+    request columns of a request ‖ reply buffer."""
+    from repro_torch.dqueue import DeviceQueue
+    dev = torch.device("cuda")
+    q = DeviceQueue(n_shards, cap=65_536, payload_width=W, ops_per_shard=L,
+                    device=dev)
+    nL = n_shards * L
+    E = torch.from_numpy(rng.random((5, nL)) < np.array(
+        [0.9, 0.9, 0.9, 0.9, 0.5])[:, None]).to(dev)
+    V = torch.ones((5, nL), dtype=torch.bool, device=dev)
+    P = torch.from_numpy(_payload(np.arange(5 * nL)).reshape(5, nL, -1)[
+        ..., :W].copy()).to(dev)
+    st, *_ = q.run_waves(q.init_state(), E[:4], V[:4], P[:4])
+    eng = q.engine
+    carry, store = eng.disc.split(st)
+    d = eng.disc.dispatch(carry, (E[4], V[4], P[4]))
+    recv = eng._exchange(eng._pack_request(d))
+    wide = torch.cat([recv, torch.zeros((*recv.shape[:3], 1 + W),
+                                        dtype=torch.int32, device=dev)], -1)
+    return store, wide[..., :2 + W], q.disc.junk
+
+
+def phase_ring_commit(torch, rng, results):
+    """The Stage-4 commit kernel against its plain version at the cells'
+    shapes (64 and 48 shards, 1,024 ops a shard, W = 4, a real dispatch),
+    on the pipelined path's strided view and on a contiguous copy: the
+    store (junk row aside), every full bit, every row's ok and every GET
+    row's value bit for bit, the other rows' replies zero.  Timed: the
+    wrapper (CUDA events), the plain version, the bytes bound (the receive
+    rows read once, the reply written once); device ms come with the
+    profiled phases (phase_scan_device_split)."""
+    from repro_torch.kernels.ring_commit import ring_commit, ring_commit_ref
+    for n in RING_SHARDS:
+        (sv, sf), view, junk = _ring_wave(torch, rng, n)
+        W = sv.shape[-1]
+        launches0 = ring_commit.launches
+        n_get = n_ok = 0
+        for name, recv in (("pipelined", view), ("contiguous",
+                                                 view.contiguous())):
+            (kv, kf), kr, ko = ring_commit((sv.clone(), sf.clone()), recv,
+                                           junk, W)
+            (pv, pf), pr, _ = ring_commit_ref((sv.clone(), sf.clone()), recv,
+                                              junk, W)
+            torch.cuda.synchronize()
+            get = recv[..., 1] == 2
+            check(torch.equal(kv[:, :junk], pv[:, :junk])
+                  and torch.equal(kf, pf) and not bool(ko)
+                  and torch.equal(kr[..., 0], pr[..., 0])
+                  and torch.equal(kr[get], pr[get]) and not kr[~get].any(),
+                  f"ring_commit {n} shards ({name}) bit-identical to its "
+                  f"plain version")
+            n_get, n_ok = int(get.sum()), int(kr[..., 0].sum())
+        check(n_ok > 0, f"ring_commit {n} shards: dequeues found values")
+        st_k, st_p = (sv.clone(), sf.clone()), (sv.clone(), sf.clone())
+        ms, plain = _time_pair(torch,
+                               lambda: ring_commit(st_k, view, junk, W),
+                               lambda: ring_commit_ref(st_p, view, junk, W))
+        rows = n * n * view.shape[2]
+        b_ms, b_by = bound(rows * ((2 + W) + (1 + W)) * 4, 0)
+        rec = {"n_shards": n, "rows": rows, "W": W, "gets": n_get,
+               "gets_ok": n_ok, "bit_identical": True, "max_abs_err": 0,
+               "launches": ring_commit.launches - launches0, "ms": ms,
+               "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+        results[("ring_commit", n)] = rec
+        emit("kernel:ring_commit", **rec)
 
 
 def _relaxed_case(rng, n, P, n_shards, kind, backlog=300_000):
@@ -3053,6 +3181,7 @@ def phase_elastic_relaxed(torch, rng, results):
     dequeues (every wave has some), waves/s beside the strict path's."""
     from repro_torch.dqueue import ElasticDevicePriorityQueue
     from repro_torch.kernels.relaxed import relaxed_deletemin
+    from repro_torch.kernels.ring_commit import ring_commit
     N, P_, CAP, W, L, K = 64, 4, 16_384, 4, 1_024, 16
     TIER_P = [0.4, 0.3, 0.2, 0.1]
     torch.cuda.reset_peak_memory_stats()
@@ -3063,7 +3192,7 @@ def phase_elastic_relaxed(torch, rng, results):
     model = TierChecker(P_, TIER_P, relaxation=1)
     bursts, migrations = [], []
     timing = {"waves": 0, "seconds": 0.0, "ops": 0}
-    relaxed_deletemin.launches = 0
+    relaxed_deletemin.launches = ring_commit.launches = 0
     deq_waves = 0
 
     def burst(p_enq):
@@ -3106,6 +3235,7 @@ def phase_elastic_relaxed(torch, rng, results):
     check(launches == deq_waves == timing["waves"],
           f"one relaxed launch per wave with dequeues ({launches} for "
           f"{deq_waves})")
+    commits = _commit_launches(ring_commit, timing["waves"], len(bursts))
     relaxed = sum(b["relaxed"] for b in bursts)
     check(relaxed > 0, "some serve was relaxed")
     peak = torch.cuda.max_memory_allocated()
@@ -3120,6 +3250,7 @@ def phase_elastic_relaxed(torch, rng, results):
            "strict_waves_per_s": strict["waves_per_s"],
            "ops_per_s": timing["ops"] / timing["seconds"],
            "migrations": migrations, "relaxed_deletemin_launches": launches,
+           "ring_commit_launches": commits,
            "waves_with_dequeues": deq_waves, "relaxed_serves": relaxed,
            "bottom_dequeues": n_bottom, "max_memory_allocated": peak,
            "priority_order": "ok (relaxation 1)", "burst_log": bursts}
@@ -3489,6 +3620,7 @@ def phase_workqueue(torch, rng, results):
     when every lease left is on a completed id: the reference keeps a
     re-grant's lease after its item's first ack (ROADMAP §3)."""
     from repro_torch.dqueue import DeviceQueue, WorkQueue
+    from repro_torch.kernels.ring_commit import ring_commit
     from repro_torch.kernels.segscan import queue_scan
     N, CAP, W, L, K, WORKERS, LEASE = 64, 65_536, 4, 1_024, 9, 64, 8
     n = N * L
@@ -3512,7 +3644,7 @@ def phase_workqueue(torch, rng, results):
     pending = []                      # (due step, id, item), in grant order
     next_id, backlog_max, waves = 0, 0, 0
     bursts, wall, dev_ms = [], 0.0, 0.0
-    queue_scan.launches = 0
+    queue_scan.launches = ring_commit.launches = 0
     x0 = rt.n_exchanges
 
     def burst(fill: bool):
@@ -3589,6 +3721,7 @@ def phase_workqueue(torch, rng, results):
         check(len(bursts) < 200, "the drain ends")
     launches = queue_scan.launches
     check(launches == waves, "one queue-scan launch a wave")
+    commits = _commit_launches(ring_commit, waves, len(bursts))
     check(rt.n_exchanges - x0 == len(bursts) * (K + 1),
           "K+1 exchanges a burst")
     check(wq.completed == set(range(next_id))
@@ -3610,6 +3743,7 @@ def phase_workqueue(torch, rng, results):
            "device_ms_per_burst": dev_ms / len(bursts),
            "host_ms_per_burst": (1e3 * wall - dev_ms) / len(bursts),
            "stats": dict(wq.stats), "queue_scan_launches": launches,
+           "ring_commit_launches": commits,
            "outstanding_after_drain": wq.outstanding,
            "exchanges_per_burst": K + 1, "lease_order": "ok",
            "burst_log": bursts}
@@ -3628,6 +3762,7 @@ def phase_sim_runtime(torch, rng, results):
 
     from repro_torch.dqueue import ElasticDeviceQueue
     from repro_torch.fault import elastic_queue_policy, run_with_restarts
+    from repro_torch.kernels.ring_commit import ring_commit
     from repro_torch.kernels.segscan import queue_scan
     from repro_torch.runtime import LatencyModel, SimRuntime
     N, CAP, W, L, K, STEPS, DEAD = 64, 65_536, 4, 1_024, 4, 12, 37
@@ -3667,7 +3802,7 @@ def phase_sim_runtime(torch, rng, results):
         run_burst(0.6)
         return state
 
-    queue_scan.launches = 0
+    queue_scan.launches = ring_commit.launches = 0
     ckpt = CKPT_DIR / "sim_runtime"
     shutil.rmtree(ckpt, ignore_errors=True)
     _, metrics = run_with_restarts(
@@ -3693,6 +3828,7 @@ def phase_sim_runtime(torch, rng, results):
     check(abs(sim.sim_time_s - want) <= 1e-12 * want,
           f"simulated wire time {sim.sim_time_s} == formula {want}")
     bursts = wall["waves"] // K
+    commits = _commit_launches(ring_commit, wall["waves"], bursts)
     check(sim.counts == {"all_to_all": bursts * (K + 1) + 2,
                          "all_reduce": 4}, f"charged launches {sim.counts}")
     rec = {"n_shards": N, "pool_size": N + 4, "cap": CAP, "K": K,
@@ -3710,7 +3846,8 @@ def phase_sim_runtime(torch, rng, results):
                                               "wave_s", "sim_s")}
                           for m in q.migrations],
            "device_ids_after": q.device_ids[-4:],
-           "queue_scan_launches": launches, "fifo_order": "ok"}
+           "queue_scan_launches": launches, "ring_commit_launches": commits,
+           "fifo_order": "ok"}
     results["sim_runtime"] = rec
     emit("path:sim_runtime", **rec)
 
@@ -3764,6 +3901,7 @@ def _dist_queue(torch, rt, kind: str, seed: int) -> dict:
                                     ElasticDeviceSeapQueue,
                                     ElasticDeviceStack)
     from repro_torch.kernels.relaxed import relaxed_deletemin
+    from repro_torch.kernels.ring_commit import ring_commit
     from repro_torch.kernels.segscan import (queue_scan, stack_scan,
                                              tiered_queue_scan)
     rng = np.random.default_rng([seed, DIST_QUEUES.index(kind)])
@@ -3802,7 +3940,7 @@ def _dist_queue(torch, rt, kind: str, seed: int) -> dict:
               "exchange_bytes": 0, "gather": 0.0, "gathers": 0,
               "gather_bytes": 0}
     migrations, bursts = [], []
-    for c in counters.values():
+    for c in (*counters.values(), ring_commit):
         c.launches = 0
     n_sharded = 4 if kind in ("fifo", "lifo") else 5
 
@@ -3811,6 +3949,7 @@ def _dist_queue(torch, rt, kind: str, seed: int) -> dict:
         staged = model.stage(K, nL, *stage, rng)
         x0, g0 = rt.n_exchanges, rt.n_gathers
         c0 = {n: c.launches for n, c in counters.items()}
+        r0 = ring_commit.launches
         (en0, es0, eb0), (gn0, gs0, gb0) = wire["exchange"], wire["gather"]
         rt.sync()
         t0 = time.perf_counter()
@@ -3828,6 +3967,10 @@ def _dist_queue(torch, rt, kind: str, seed: int) -> dict:
               "one descriptor gather a wave (and the stack's overflow flag)")
         for n, c in counters.items():
             check(c.launches - c0[n] == K, f"one {n} launch a wave")
+        # the stack has its own commit; the others run the kernel K + 1
+        # times a pipelined burst
+        check(ring_commit.launches - r0 == (0 if lifo else K + 1),
+              "the ring_commit launches of a burst")
         host = [rt.to_host(o, q.shards, lead=1) for o in out[:n_sharded]]
         if n_sharded == 4:
             host.append(rt.host_reduce(out[4], "any"))
@@ -3915,6 +4058,7 @@ def _dist_queue(torch, rt, kind: str, seed: int) -> dict:
                timing["gather"] / timing["seconds"],
            "gathers": rt.n_gathers,
            "launches": {n: c.launches for n, c in counters.items()},
+           "ring_commit_launches": ring_commit.launches,
            "backend": dist.get_backend(),
            "wire_tensors": sorted(wire["tensors"]),
            "max_memory_allocated": torch.cuda.max_memory_allocated(),
@@ -3937,6 +4081,7 @@ def _dist_serve(torch, rt, seed: int, spec_path: str) -> dict:
     (``spec_path``); every queue burst against the host Seap model."""
     import hashlib
 
+    from repro_torch.kernels.ring_commit import ring_commit
     from repro_torch.kernels.segscan import tiered_queue_scan
     from repro_torch.serve import Request
     spec = json.loads(Path(spec_path).read_text())
@@ -3958,7 +4103,7 @@ def _dist_serve(torch, rt, seed: int, spec_path: str) -> dict:
         return out
     q.run_waves = run_waves
     wire = _wire_timers(torch, rt)
-    tiered_queue_scan.launches = 0
+    tiered_queue_scan.launches = ring_commit.launches = 0
     rt.sync()
     t0 = time.perf_counter()
     pending, mig = _edf_drive(eng, loose, tight)
@@ -3975,6 +4120,10 @@ def _dist_serve(torch, rt, seed: int, spec_path: str) -> dict:
         n_waves += host[0].shape[0]
     check(launches == n_waves,
           f"one tiered launch per queue wave ({n_waves} waves): {launches}")
+    commits = ring_commit.launches
+    check(commits >= n_waves, f"every queue wave committed through the "
+                              f"ring_commit kernel ({commits} for "
+                              f"{n_waves} waves)")
     _edf_checks(eng, ctl, loose, tight, pending)
     tokens = [r.out for r in reqs]
     ex = wire["exchange"]
@@ -3988,7 +4137,7 @@ def _dist_serve(torch, rt, seed: int, spec_path: str) -> dict:
                                               "moved", "wave_s")}
                            for m in eng.queue.migrations],
             "queue_waves": n_waves, "tiered_queue_scan_launches": launches,
-            "steps": steps, "wall_s": wall,
+            "ring_commit_launches": commits, "steps": steps, "wall_s": wall,
             "decode_step_ms": wall / steps * 1e3,
             "generated_tokens_per_s": sum(map(len, tokens)) / wall,
             "exchange_calls": ex[0], "exchange_ms_total": 1e3 * ex[1],
@@ -4082,6 +4231,8 @@ def phase_distributed(torch, seed: int, results):
                "wall_s_all_structures": wall,
                "launches_by_process": {n: [r["launches"][n] for r in recs]
                                        for n in recs[0]["launches"]},
+               "ring_commit_launches_by_process": [
+                   r["ring_commit_launches"] for r in recs],
                **{k: recs[0][k] for k in recs[0] if k in (
                    "n_shards", "cap", "payload_width", "ops_per_shard", "K",
                    "backlog_max", "sizes_at_leave", "bursts", "waves",
@@ -4162,10 +4313,12 @@ def phase_wavecheck(torch, results):
     from repro_torch.analysis.seam import KERNELS, kernel_launches
     from repro_torch.dqueue.wave_engine import bucket_ladder
     from repro_torch.kernels.relaxed import relaxed_deletemin
+    from repro_torch.kernels.ring_commit import ring_commit
     from repro_torch.kernels.segscan import (queue_scan, stack_scan,
                                              tiered_queue_scan)
     sz = WAVECHECK_SIZES
-    for fn in (queue_scan, stack_scan, tiered_queue_scan, relaxed_deletemin):
+    for fn in (queue_scan, stack_scan, tiered_queue_scan, relaxed_deletemin,
+               ring_commit):
         fn.launches = 0
     t0 = time.perf_counter()
     rep = run_all(device="cuda", recompile=WAVECHECK_BOUNCE, **sz)
@@ -4189,8 +4342,10 @@ def phase_wavecheck(torch, results):
     rg = rep["recompile_guard"]
     check(rg["warm_rebuilds"] > 0 and rg["second_bounce_rebuilds"] == 0,
           f"path:wavecheck: rebuild bounce {rg}")
-    check(all(launches[k] > 0 for k in KERNELS),
-          f"path:wavecheck launched every queue kernel: {launches}")
+    commits = ring_commit.launches
+    check(all(launches[k] > 0 for k in KERNELS) and commits > 0,
+          f"path:wavecheck launched every queue kernel: {launches}, "
+          f"ring_commit {commits}")
     narrow = bucket_ladder(sz["L"])[:-1]          # 256, 512 at full width
     replayed = {n: p["cpu_replay"] for n, p in progs.items()
                 if "cpu_replay" in p}
@@ -4224,7 +4379,8 @@ def phase_wavecheck(torch, results):
            "int32_overflow": rep["int32_overflow"],
            "repo_ast_files": len(rep["repo_ast"]["files_checked"]),
            "cpu_replayed": sorted(replayed),
-           "launches": launches, "wall_s": wall_s}
+           "launches": launches, "ring_commit_launches": commits,
+           "wall_s": wall_s}
     results["wavecheck"] = rec
     emit("path:wavecheck", **rec)
 
@@ -4339,6 +4495,7 @@ def phase_distributed_serve(torch, seed: int, results):
                "decode_step_ms"],
            "per_process": [{k: r[k] for k in (
                "rank", "local_shards_after", "tiered_queue_scan_launches",
+               "ring_commit_launches",
                "wall_s", "decode_step_ms", "generated_tokens_per_s",
                "exchange_calls", "exchange_ms_total", "exchange_ms_per_call",
                "exchange_send_bytes_per_call", "exchange_share_of_wall",
@@ -5419,6 +5576,7 @@ def main() -> int:
     phase_stack_scan(torch, rng, results)
     phase_tiered_scan(torch, rng, results)
     phase_relaxed_kernel(torch, rng, results)
+    phase_ring_commit(torch, rng, results)
     phase_scan_host_split(torch, rng, results)
     phase_scan_back_to_back(torch, results)
     phase_elastic(torch, rng, results)
@@ -5684,6 +5842,47 @@ def main() -> int:
         "ms_by_case": {k: r["ms"] for k, r in cases.items()},
         "device_ms_by_case": {k: r.get("device_ms", "not measured")
                               for k, r in cases.items()}})
+    # the commit kernel's launches, counted from 0 on each path that runs
+    # it; its own phase's check and timing launches and the profiled ones
+    # apart
+    rc = results[("ring_commit", 64)]
+    ring_paths = {
+        **{p: results[p]["ring_commit_launches"] for p in (
+            "elastic_fifo", "elastic_priority", "elastic_relaxed_priority",
+            "elastic_seap", "workqueue", "sim_runtime", "wavecheck")},
+        "protocol_replay": replay["queue"]["ring_commit"],
+        **{p: sum(results[p]["ring_commit_launches_by_process"])
+           for p in ("distributed_fifo", "distributed_priority",
+                     "distributed_relaxed", "distributed_seap")},
+        **{p: results[p]["launches"]["ring_commit"] for p in (
+            "serve_zamba2", "serve_edf_zamba2", "serve_tiers_zamba2")},
+        "distributed_serve_edf_zamba2": sum(
+            r["ring_commit_launches"] for r in results[
+                "distributed_serve_edf_zamba2"]["per_process"])}
+    kernels.append({
+        "name": "ring_commit", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ring_commit.cu",
+        "replaces": "none",
+        "replaces_note": "the reference's ring_commit is plain jnp "
+                         "(src/repro/dqueue/wave_engine.py:143)",
+        "path": ", ".join(ring_paths),
+        "shape": "64 shards x 64 x 1,024 rows, W = 4, the pipelined view",
+        "launches": sum(ring_paths.values()),
+        "launches_by_path": ring_paths,
+        "check_and_timing_launches": {
+            "kernel:ring_commit": sum(results[("ring_commit", n)]["launches"]
+                                      for n in RING_SHARDS),
+            "kernel:device_split": sum(
+                results[("ring_commit", n)].get("profiled_launches", 0)
+                for n in RING_SHARDS)},
+        "matched_plain": True,
+        "max_abs_err": 0, "ms": rc["ms"],
+        "device_ms": rc.get("device_ms", "not measured"),
+        "plain_ms": rc["plain_ms"], "bound_ms": rc["bound_ms"],
+        "bound_by": rc["bound_by"], "library_ms": None,
+        "by_shards": {n: {k: results[("ring_commit", n)].get(k)
+                          for k in ("ms", "device_ms", "plain_ms",
+                                    "bound_ms")} for n in RING_SHARDS}})
     kernels += backward_rows
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

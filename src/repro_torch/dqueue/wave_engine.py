@@ -15,7 +15,10 @@ priority tiers, Seap buckets) supplies
 * **dispatch** (Stages 1-3): each op's position, owner shard and store
   slot, from one scan over the flat shard-major wave;
 * **commit** (Stage-4 store rewrite): the received PUT/GET rows applied to
-  the store, and the packed ``ok ‖ value`` reply.
+  the store, and the packed ``ok ‖ value`` reply.  The ring-store
+  disciplines (FIFO, priority, Seap) call :func:`ring_commit`
+  (``kernels/ring_commit``: one CUDA launch on the card, the plain
+  version on the CPU).
 
 The engine owns the ``slot ‖ tag ‖ payload`` request packing, the
 exchanges, the reply extraction and the burst schedules.
@@ -64,13 +67,16 @@ from typing import NamedTuple
 
 import torch
 
+from ..core.wave_tags import TAG_GET, TAG_INACTIVE, TAG_PUT
+from ..kernels import backend
+# ring_commit is the ring-store disciplines' commit, imported from here
+from ..kernels.ring_commit import ring_commit  # noqa: F401
 from ..obs.device import (MetricsState, drain as _drain_rows,
                           init_metrics_state, record_row)
 from ..obs.trace import tracer
 
-TAG_INACTIVE = 0
-TAG_PUT = 1
-TAG_GET = 2
+# the kernel libraries (csrc/<name>.cu) that every queue wave loads
+WAVE_LIBS = ("segscan", "ring_commit")
 
 
 def _stage(name: str):
@@ -116,39 +122,6 @@ def build_send_packed(owner, cols, active, n_shards: int, fill):
     dst = torch.arange(n_shards, dtype=owner.dtype, device=owner.device)
     hit = (dst[None, :, None] == owner[:, None, :]) & active[:, None, :]
     return torch.where(hit[..., None], cols[:, None], fill)
-
-
-def ring_commit(store, recv, junk: int, W: int):
-    """Stage-4 store rewrite for the dense sharded ring, in place.
-
-    store: (store_vals [n, junk+1, W], store_full [n, junk+1]); recv:
-    ``[n_dst, n_src, L, 2+W]`` rows ``slot ‖ tag ‖ payload``.  Applies PUTs
-    before GETs (a same-wave ENQ is visible to a DEQ), removes on read, and
-    routes every inactive row to the ``junk`` slot, whose value is garbage
-    and whose full bit stays False.  Returns (store, reply ``[n_dst, n_src,
-    L, 1+W]`` ``ok ‖ value``, commit-time overflow = False).
-    """
-    sv, sf = store
-    n = sv.shape[0]
-    svf, sff = sv.view(-1, W), sf.view(-1)
-    base = (torch.arange(n, device=sv.device) * (junk + 1)).view(n, 1, 1)
-    r_slot, r_tag, r_vals = recv[..., 0], recv[..., 1], recv[..., 2:]
-    put = (base + torch.where(r_tag == TAG_PUT, r_slot, junk)).reshape(-1)
-    svf[put] = r_vals.reshape(-1, W)                 # junk row eats
-    # index_fill_, not ``sff[put] = True``: a Python scalar set through a
-    # tensor index is copied to the device from the host, a host sync
-    sff.index_fill_(0, put, True)
-    sf[:, junk] = False
-    is_get = r_tag == TAG_GET
-    get_slot = torch.where(is_get, r_slot, junk)
-    get = base + get_slot                            # [n, n, L]
-    res_vals = svf[get]                              # [n, n, L, W]
-    res_ok = is_get & sff[get] & (get_slot < junk)
-    sff.index_fill_(0, get.reshape(-1), False)       # remove on read
-    sf[:, junk] = False
-    reply = torch.cat([res_ok.to(torch.int32)[..., None], res_vals], -1)
-    return (sv, sf), reply, torch.zeros((), dtype=torch.bool,
-                                        device=sv.device)
 
 
 # ------------------------------------------------- discipline contract -----
@@ -295,6 +268,10 @@ class WaveEngine:
     def __init__(self, n_shards: int, discipline: Discipline, runtime, *,
                  shards=None, pipelined: bool = True, metrics: bool = False,
                  metrics_ring: int = 64):
+        if runtime.device.type == "cuda":
+            # a wave runs a scan and the commit: at a checkout's first
+            # run the two build in one parallel nvcc round
+            backend.build(WAVE_LIBS)
         self.n_shards = n_shards
         self.shards = (list(runtime.pool()[:n_shards]) if shards is None
                        else list(shards))

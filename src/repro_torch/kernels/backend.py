@@ -33,7 +33,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # csrc/<name>.cu, one library each
 SOURCES = ("segscan", "hash_route", "ssd_scan", "ssd_scan_bwd",
-           "flash_attention", "flash_attention_bwd", "relaxed")
+           "flash_attention", "flash_attention_bwd", "relaxed",
+           "ring_commit")
 
 _LOCAL_INCLUDE = re.compile(rb'#include\s+"([\w.]+\.cuh)"')
 _libs: dict = {}   # name -> loaded ctypes.CDLL (one per process)

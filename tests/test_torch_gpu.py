@@ -1536,3 +1536,183 @@ def test_state_held_in_place_after_pipelined_burst_on_gpu(cuda, kind):
     after = {f: getattr(state, f).untyped_storage().data_ptr()
              for f in STORE_FIELDS[kind]}
     assert after == before, (kind, before, after)
+
+
+def _wave_recv(cuda, n_shards, seed, W=4, L=1024):
+    """A wave's receive buffer from a real FIFO dispatch and exchange at
+    ``n_shards`` x ``L`` (the queue first filled by a 4-wave burst), and
+    the store it commits into."""
+    q = DeviceQueue(n_shards, cap=65_536, payload_width=W, ops_per_shard=L,
+                    device=cuda)
+    rng = np.random.default_rng(seed)
+    nL = n_shards * L
+    E = torch.from_numpy(rng.random((5, nL)) < np.array(
+        [0.9, 0.9, 0.9, 0.9, 0.5])[:, None]).to(cuda)
+    V = torch.ones((5, nL), dtype=torch.bool, device=cuda)
+    P = torch.from_numpy(rng.integers(-2 ** 31, 2 ** 31, (5, nL, W),
+                                      dtype=np.int64).astype(np.int32)
+                         ).to(cuda)
+    st, *_ = q.run_waves(q.init_state(), E[:4], V[:4], P[:4])
+    eng = q.engine
+    carry, store = eng.disc.split(st)
+    d = eng.disc.dispatch(carry, (E[4], V[4], P[4]))
+    return store, eng._exchange(eng._pack_request(d)), q.disc.junk
+
+
+def _built_recv(cuda, n, n_src, L, W, junk, seed):
+    """Rows ``slot ‖ tag ‖ payload`` with distinct slots per destination,
+    30 % active, half PUTs, and a random store of half-full slots."""
+    rng = np.random.default_rng(seed)
+    rows = n_src * L
+    r = np.zeros((n, rows, 2 + W), np.int32)
+    r[..., 0] = junk
+    for d in range(n):
+        act = np.flatnonzero(rng.random(rows) < 0.3)
+        r[d, act, 0] = rng.permutation(junk)[:act.size]
+        r[d, act, 1] = np.where(rng.random(act.size) < 0.5, 1, 2)
+        r[d, act, 2:] = rng.integers(-2 ** 31, 2 ** 31, (act.size, W),
+                                     dtype=np.int64)
+    sv = rng.integers(-2 ** 31, 2 ** 31, (n, junk + 1, W), dtype=np.int64)
+    sf = rng.random((n, junk + 1)) < 0.5
+    sf[:, junk] = False
+    return ((torch.from_numpy(sv.astype(np.int32)).to(cuda),
+             torch.from_numpy(sf).to(cuda)),
+            torch.from_numpy(r.reshape(n, n_src, L, 2 + W)).to(cuda))
+
+
+def _get_heavy_recv(cuda, n, n_src, L, junk, seed):
+    """Every row active, a quarter PUTs and three quarters GETs, so each
+    block of a destination's cluster lists more GETs than its shared
+    memory holds and rescans its rows; half the GETs read a slot that a
+    PUT row of the same wave fills, most often in another block."""
+    rng = np.random.default_rng(seed)
+    rows = n_src * L
+    r = np.zeros((n, rows, 6), np.int32)
+    for d in range(n):
+        slot = rng.permutation(junk)[:rows]
+        put = rng.random(rows) < 0.25
+        gets = np.flatnonzero(~put)
+        reuse = rng.permutation(gets)[:min(put.sum(), gets.size // 2)]
+        slot[reuse] = rng.permutation(slot[put])[:reuse.size]
+        r[d, :, 0] = slot
+        r[d, :, 1] = np.where(put, 1, 2)
+        r[d, :, 2:] = rng.integers(-2 ** 31, 2 ** 31, (rows, 4),
+                                   dtype=np.int64)
+    sv = rng.integers(-2 ** 31, 2 ** 31, (n, junk + 1, 4), dtype=np.int64)
+    sf = rng.random((n, junk + 1)) < 0.5
+    sf[:, junk] = False
+    return ((torch.from_numpy(sv.astype(np.int32)).to(cuda),
+             torch.from_numpy(sf).to(cuda)),
+            torch.from_numpy(r.reshape(n, n_src, L, 6)).to(cuda))
+
+
+def _same_slot_recv(cuda):
+    """A PUT and a GET of slot 3 in one wave, a GET of the empty slot 1,
+    a GET of the full slot 5, an inactive row; the second shard's rows
+    all inactive."""
+    junk = 8
+    sv = torch.arange(2 * (junk + 1) * 2, dtype=torch.int32).view(
+        2, junk + 1, 2)
+    sf = torch.zeros(2, junk + 1, dtype=torch.bool)
+    sf[0, 5] = True
+    rows = [[3, 1, 41, 42], [3, 2, 0, 0], [1, 2, 9, 9], [5, 2, 0, 0],
+            [junk, 0, 0, 0]]
+    recv = torch.tensor([rows, rows], dtype=torch.int32).view(2, 1, 5, 4)
+    recv[1, ..., 1] = 0
+    return (sv.to(cuda), sf.to(cuda)), recv.to(cuda), junk
+
+
+def _widened(recv):
+    """``recv`` as the pipelined path passes it: the first 2+W columns of
+    a request ‖ reply buffer."""
+    W = recv.shape[-1] - 2
+    wide = torch.cat([recv, torch.full((*recv.shape[:3], 1 + W), 7,
+                                       dtype=torch.int32,
+                                       device=recv.device)], -1)
+    return wide[..., :2 + W]
+
+
+@pytest.mark.parametrize("case", ["dispatch64", "shards48", "local32of64",
+                                  "strided", "priming", "w1", "w2",
+                                  "put_get_same_slot", "get_empty",
+                                  "get_heavy"])
+def test_ring_commit_kernel_matches_plain(cuda, case):
+    """The Stage-4 kernel against its plain version on the same inputs:
+    the store (junk row aside) and every full bit, the reply's ok on every
+    row, its value on every GET row (a GET of an empty slot passes the
+    value through), zeros on every other row; the store updated in
+    place, one launch a call."""
+    from repro_torch.kernels.ring_commit import ring_commit, ring_commit_ref
+    W = 4
+    if case in ("dispatch64", "local32of64", "strided", "priming"):
+        store, recv, junk = _wave_recv(cuda, 64, seed=30)
+        if case == "local32of64":
+            store, recv = (store[0][:32], store[1][:32]), recv[:32]
+        elif case == "strided":
+            recv = _widened(recv)
+        elif case == "priming":
+            fill = torch.tensor([junk, 0] + [0] * W, dtype=torch.int32,
+                                device=cuda)
+            recv = fill.expand(*recv.shape)
+    elif case == "shards48":
+        store, recv, junk = _wave_recv(cuda, 48, seed=31)
+    elif case in ("w1", "w2"):
+        W, junk = int(case[1]), 20_000
+        store, recv = _built_recv(cuda, 16, 16, 256, W, junk, seed=32)
+    elif case == "get_heavy":
+        junk = 40_000
+        store, recv = _get_heavy_recv(cuda, 2, 8, 4_096, junk, seed=33)
+    else:
+        store, recv, junk = _same_slot_recv(cuda)
+        W = 2
+        if case == "get_empty":      # GETs of empty slots, one twice
+            recv[..., :4, 1] = 2
+            store[1].zero_()
+    sv, sf = store
+    kin = (sv.clone(), sf.clone())
+    before = ring_commit.launches
+    (kv, kf), kr, ko = ring_commit(kin, recv, junk, W)
+    (pv, pf), pr, po = ring_commit_ref((sv.clone(), sf.clone()), recv, junk,
+                                       W)
+    torch.cuda.synchronize()
+    assert ring_commit.launches == before + 1
+    assert kv.data_ptr() == kin[0].data_ptr()
+    assert kf.data_ptr() == kin[1].data_ptr()
+    assert torch.equal(kv[:, :junk], pv[:, :junk])
+    assert torch.equal(kf, pf) and not kf[:, junk].any()
+    assert kr.shape == pr.shape and kr.dtype == torch.int32
+    assert torch.equal(kr[..., 0], pr[..., 0])
+    get = recv[..., 1] == 2
+    assert torch.equal(kr[get], pr[get])
+    assert not kr[~get].any()
+    assert ko.shape == () and ko.dtype == torch.bool and not bool(ko)
+    n_get, n_ok = int(get.sum()), int(kr[..., 0].sum())
+    if case == "priming":
+        assert n_get == 0 and torch.equal(kf, sf)
+    elif case == "get_empty":
+        assert n_ok == 0 and torch.equal(kr[0, 0, :4, 1:], sv[0, [3, 3, 1, 5]])
+    else:
+        assert 0 < n_ok <= n_get
+    if case == "get_heavy":          # more GETs a block than it lists
+        from repro_torch.kernels.ring_commit import kernel
+        sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+        blocks = kernel.cluster_blocks(2, 8 * 4_096, sms)
+        assert int(get[0].sum()) // blocks > kernel.LIST_CAP
+    if case == "put_get_same_slot":
+        assert kr[0, 0, 1].tolist() == [1, 41, 42]
+        assert kr[0, 0, 2].tolist() == [0, *sv[0, 1].tolist()]
+        assert kr[0, 0, 3].tolist() == [1, *sv[0, 5].tolist()]
+
+
+@pytest.mark.parametrize("pipelined", [True, False])
+def test_ring_commit_launches_per_burst(cuda, pipelined):
+    """K + 1 commit launches over a pipelined K-wave burst (the priming
+    commit and the epilogue's), K over a sequential one."""
+    from repro_torch.kernels.ring_commit import ring_commit
+    E, V, P = _waves(8, 16, 2, 4, seed=12)
+    q = DeviceQueue(8, cap=64, payload_width=2, ops_per_shard=16,
+                    pipelined=pipelined, device=cuda)
+    before = ring_commit.launches
+    q.run_waves(q.init_state(), E.to(cuda), V.to(cuda), P.to(cuda))
+    torch.cuda.synchronize()
+    assert ring_commit.launches - before == 4 + pipelined
